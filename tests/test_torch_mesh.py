@@ -1,0 +1,146 @@
+"""msd_tpu_torch's mesh extraction against msd_tpu's on the same weights
+(seeded, given a surface by give_surface_), float32 on the CPU."""
+
+import logging
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.spatial import cKDTree
+
+from msd_tpu import mesh as jax_mesh
+from msd_tpu.data import mesh_io as jax_io
+from msd_tpu.ops import marching_cubes as jax_mc
+from msd_tpu_torch import mesh
+from msd_tpu_torch.data import mesh_io
+from msd_tpu_torch.models.deepsdf import DeepSDFDecoder
+from msd_tpu_torch.ops import marching_cubes
+from test_torch_decoder import CONFIGS, LATENT, make_pair
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jdec, params, tdec = make_pair(CONFIGS[0], seed=21, surface=True)
+    latent = (0.05 * np.random.default_rng(22).standard_normal(LATENT)).astype(np.float32)
+    return jdec, jax.tree.map(jnp.asarray, params), tdec, latent
+
+
+def _same_mesh(a, b):
+    (av, af), (bv, bf) = a, b
+    assert av.shape == bv.shape and af.shape == bf.shape, (av.shape, bv.shape, af.shape, bf.shape)
+    d, _ = cKDTree(av).query(bv)
+    assert d.max() < 1e-4, d.max()
+
+
+@pytest.mark.parametrize("N,sparse", [(129, True), (65, True), (33, False)], ids=["sparse129", "dense65", "dense33"])
+def test_create_mesh_matches_jax(pair, N, sparse, tmp_path):
+    jdec, params, tdec, latent = pair
+    assert (mesh._pick_block(N, 0.1, 1.3) == 4) == (N == 129)
+    ref = jax_mesh.create_mesh(jdec, params, latent, N=N, return_mesh=True, sparse=sparse)
+    out = mesh.create_mesh(tdec, torch.tensor(latent), str(tmp_path / "m"), N=N, return_mesh=True, sparse=sparse)
+    assert ref is not False and out is not False
+    assert out[0].shape[0] > 100
+    _same_mesh(ref, out)
+    pv, pf = mesh_io.load_ply(str(tmp_path / "m.ply"))
+    np.testing.assert_array_equal(pv, out[0])
+    np.testing.assert_array_equal(pf, out[1])
+
+
+def test_eval_grid_dense_matches_jax(pair):
+    jdec, params, tdec, latent = pair
+    ref = jax_mesh.eval_grid_dense(jdec, params, jnp.asarray(latent), 33)
+    out = mesh.eval_grid_dense(tdec, torch.tensor(latent), 33, max_batch=5000)
+    assert out.shape == (33, 33, 33)
+    np.testing.assert_allclose(out, ref, atol=1e-5)
+
+
+def test_eval_grid_sparse_matches_jax(pair):
+    jdec, params, tdec, latent = pair
+    ref, ref_stats = jax_mesh.eval_grid_sparse(jdec, params, jnp.asarray(latent), 129)
+    ev = mesh.PointEvaluator(tdec)
+    out, stats = mesh.eval_grid_sparse(tdec, torch.tensor(latent), 129, evaluator=ev)
+    assert stats == ref_stats
+    assert stats["evaluated"] < stats["total"] and ev.n_evaluated == stats["evaluated"]
+    np.testing.assert_allclose(out, ref, atol=1e-5)
+
+
+def test_linear_to_coords_order():
+    idx = np.arange(0, 9**3, 7)
+    ref = np.asarray(jax_mesh._linear_to_coords(jnp.asarray(idx), 9))
+    out = mesh._linear_to_coords(torch.tensor(idx), 9).numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert out[1].tolist() == [-1.0, -1.0, -1.0 + 7 * 0.25]  # z fastest
+
+
+@pytest.mark.parametrize("N", [17, 33, 64, 65, 128, 129, 256, 257, 512])
+def test_snap_and_pick_block_match(N):
+    assert mesh._snap_n(N) == jax_mesh._snap_n(N)
+    for clamp in (0.05, 0.1):
+        assert mesh._pick_block(N, clamp, 1.3) == jax_mesh._pick_block(N, clamp, 1.3)
+
+
+def test_unsupported_config_uses_plain_decoder(caplog):
+    jdec, params, tdec = make_pair(CONFIGS[4], seed=23)
+    with caplog.at_level(logging.WARNING):
+        ev = mesh.PointEvaluator(tdec)
+    assert not ev.fused and "xyz_in_all" in caplog.text
+    pts = np.random.default_rng(0).uniform(-1, 1, (50, 3)).astype(np.float32)
+    latent = np.zeros(LATENT, np.float32)
+    ref = np.asarray(jax_mesh._eval_points(jdec, jax.tree.map(jnp.asarray, params), jnp.asarray(latent), jnp.asarray(pts)))
+    np.testing.assert_allclose(ev.eval_points(latent, pts).numpy(), ref, atol=1e-5)
+
+
+def test_wide_config_is_fused_and_foreign_dtype_raises(caplog):
+    """Only xyz_in_all and weights over 10 MB take the plain decoder: a
+    1024-wide decoder goes through K1, and an operand type that is not
+    ported raises instead of falling back."""
+    wide = DeepSDFDecoder(LATENT, dims=[1024, 1024], generator=torch.Generator().manual_seed(1))
+    with caplog.at_level(logging.WARNING):
+        ev = mesh.PointEvaluator(wide)
+    assert ev.fused and "unavailable" not in caplog.text
+    with pytest.raises(ValueError, match="not ported"):
+        mesh.PointEvaluator(wide, dtype=torch.float16)
+
+
+def test_marching_tets_copy_matches():
+    g = np.linspace(-1, 1, 20, dtype=np.float32)
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    sdf = np.sqrt(x**2 + (1.3 * y) ** 2 + z**2) - 0.6
+    ref = jax_mc.marching_tetrahedra(sdf, spacing=(0.1,) * 3, origin=(-1, -1, -1))
+    out = marching_cubes.marching_tetrahedra(sdf, spacing=(0.1,) * 3, origin=(-1, -1, -1))
+    for a, b in zip(ref, out):
+        np.testing.assert_array_equal(a, b)
+    blocks = np.stack([sdf[i:i + 5, j:j + 5, k:k + 5] for i in (0, 4, 8) for j in (4, 8) for k in (8,)])
+    bases = np.array([[i, j, k] for i in (0, 4, 8) for j in (4, 8) for k in (8,)])
+    ref = jax_mc.marching_tetrahedra_blocks(blocks, bases, 20, use_native=False)
+    out = marching_cubes.marching_tetrahedra_blocks(blocks, bases, 20)
+    for a, b in zip(ref, out):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("binary", [True, False], ids=["binary", "ascii"])
+def test_ply_byte_compatible(tmp_path, binary):
+    rng = np.random.default_rng(1)
+    verts = rng.standard_normal((40, 3)).astype(np.float32)
+    faces = rng.integers(0, 40, (60, 3)).astype(np.int32)
+    jax_io.save_ply(str(tmp_path / "a.ply"), verts, faces, binary=binary)
+    mesh_io.save_ply(str(tmp_path / "b.ply"), verts, faces, binary=binary)
+    assert (tmp_path / "a.ply").read_bytes() == (tmp_path / "b.ply").read_bytes()
+    for got, ref in zip(mesh_io.load_ply(str(tmp_path / "a.ply")), jax_io.load_ply(str(tmp_path / "a.ply"))):
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_ply_polygon_faces_fan(tmp_path):
+    """Non-triangle binary faces take the row-by-row reader."""
+    path = tmp_path / "quad.ply"
+    header = (
+        "ply\nformat binary_little_endian 1.0\nelement vertex 4\nproperty float x\n"
+        "property float y\nproperty float z\nelement face 1\n"
+        "property list uchar int vertex_indices\nend_header\n"
+    )
+    body = np.eye(4, 3, dtype="<f4").tobytes() + bytes([4]) + np.arange(4, dtype="<i4").tobytes()
+    path.write_bytes(header.encode() + body)
+    for got, ref in zip(mesh_io.load_ply(str(path)), jax_io.load_ply(str(path))):
+        np.testing.assert_array_equal(got, ref)
