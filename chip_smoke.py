@@ -21,6 +21,23 @@ non-zero and prints no result. Phases, one JSON line each:
    mesh resolution 256, snapped to 257) and ``msd_tpu_torch.evaluate`` run
    in process. The weights are seeded, not trained, so the Chamfer is not a
    quality figure.
+5. k2: the Stage-1 fused loss-and-gradient kernels (csrc/fused_train.cu),
+   variants b (eikonal) and a, at the flagship width in bf16: against float32
+   autograd and their plain PyTorch version on 4 seeded scenes x 16384
+   points, then against the plain version at the full step shape, 32 x
+   16384 points (8 chunks of the kernels' scratch), where both are timed
+   (CUDA events) beside the operation bound and the design's byte bound.
+   Errors: loss sums, and per layer dMp, dMx, db and dlat, relative
+   Frobenius error and cosine similarity.
+6. training: the port's Stage-1 path as a user runs it. The flagship
+   specs.json with its DataSource, splits, NumEpochs (6), SnapshotFrequency
+   (3) and AdditionalSnapshots ([]) changed, on 64 seeded ellipsoids
+   (100k + 100k SdfSamples each); ``python -m msd_tpu_torch.train_deep_sdf
+   --device cuda`` runs in process for 12 steps, then ``-c latest`` with
+   NumEpochs 8 for 4 more. Then step times, K2's share of the step, a
+   torch.profiler split of the step's device time by kernel with the
+   device's idle share, the point sampler's time at chunk 128 and 1, and
+   the trainer's step on K2 a and on its float32 autograd path.
 
 Then the ``kernels`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
@@ -187,6 +204,329 @@ def check_k1(decoder, latent, n_points, seed, dev):
     return results
 
 
+# K2 tolerances against its plain version (bf16, two summation orders that
+# can flip a bf16 rounding): loss sums relative, every gradient relative
+# Frobenius. Against float32 autograd on the same inputs (the rounding of
+# h, u, t and delta to bf16 at every layer): loss sums relative, the worst
+# gradient's relative Frobenius error and its cosine similarity. Measured
+# at the flagship width on an H100 (PERF.md): 3.5e-5 and 5.6e-3 against
+# plain on 4 scenes, 3.3e-7 and 5.2e-3 on 32; 5.4e-4, 4.1e-2 and 0.99917
+# against autograd. The limits keep a margin of at least 3x over those
+# (1 - cos: 10x).
+K2_TOL = {"loss": 1e-3, "grad": 2e-2, "autograd_loss": 5e-3, "autograd_grad": 0.15, "autograd_cos": 0.99}
+
+
+def k2_inputs(decoder, B, P, seed, dev):
+    """(weights, biases, latents [B, L], xyz [B, P, 3], gt [B, P]), seeded."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = decoder.num_layers - 1
+    weights = [decoder.layer_weight(layer).detach() for layer in range(n)]
+    biases = [getattr(decoder, f"lin{layer}").bias.detach() for layer in range(n)]
+    lat = 0.01 * torch.randn(B, decoder.latent_size, generator=g, device=dev)
+    xyz = torch.rand(B, P, 3, generator=g, device=dev) * 2 - 1
+    gt = 0.25 * torch.randn(B, P, generator=g, device=dev)
+    return weights, biases, lat, xyz, gt
+
+
+def autograd_grads(decoder, weights, biases, lat, xyz, gt, clamp, use_eikonal, num_total):
+    """(dweights, dbiases, dlat, sdf, eikonal) of the Stage-1 point losses
+    by float32 autograd, written out as the trainer's autograd path computes
+    them: the float32 oracle K2 is held against."""
+    import torch
+
+    from msd_tpu_torch.losses.sdf import eikonal_loss
+
+    decoder.zero_grad()
+    z = lat.clone().requires_grad_(True)
+    P = xyz.shape[1]
+    x = xyz.reshape(-1, 3).clone().requires_grad_(use_eikonal)
+    pred = decoder(torch.cat([z.repeat_interleave(P, 0), x], 1)).clamp(-clamp, clamp)
+    sdf = (pred[:, 0] - gt.reshape(-1).clamp(-clamp, clamp)).abs().sum() / num_total
+    eik = torch.zeros((), device=xyz.device)
+    if use_eikonal:
+        (gx,) = torch.autograd.grad(pred.sum(), x, create_graph=True)
+        eik = eikonal_loss(gx)
+    (sdf + eik).backward()
+    lins = [getattr(decoder, f"lin{layer}") for layer in range(decoder.num_layers - 1)]
+    # plain Linear layers (the flagship has no active weight norm)
+    return [lin.weight.grad for lin in lins], [lin.bias.grad for lin in lins], z.grad, sdf.detach(), eik.detach()
+
+
+def k2_errors(decoder, out, ref):
+    """Relative errors of K2's outputs ``out`` against ``ref`` (both as
+    fused_point_grads returns them): loss sums, and per layer dMp, dMx, db,
+    plus dlat, as relative Frobenius error and cosine similarity."""
+    import torch
+
+    from msd_tpu_torch.ops.fused_train import layer_plan
+
+    plan = layer_plan(decoder)
+
+    def cmp(a, b):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        return {"rel": float((a - b).norm() / b.norm().clamp(min=1e-300)),
+                "cos": float(torch.dot(a, b) / (a.norm() * b.norm()).clamp(min=1e-300))}
+
+    layers = []
+    for layer in range(plan.nl):
+        w, r = out[0][layer], ref[0][layer]
+        prev, L = plan.prev[layer], plan.L
+        e = {"layer": layer, "db": cmp(out[1][layer], ref[1][layer])}
+        if plan.kinds[layer] != "first":
+            e["dMp"] = cmp(w[:, :prev], r[:, :prev])
+        if plan.kinds[layer] == "first":
+            e["dMx"] = cmp(w[:, L:L + 3], r[:, L:L + 3])
+        elif plan.kinds[layer] == "latent":
+            e["dMx"] = cmp(w[:, prev + L:], r[:, prev + L:])
+        layers.append(e)
+    worst = max(v["rel"] for e in layers for k, v in e.items() if k != "layer")
+    min_cos = min(v["cos"] for e in layers for k, v in e.items() if k != "layer")
+    dlat = cmp(out[2], ref[2])
+    loss = {k: abs(float(out[i]) - float(ref[i])) / max(abs(float(ref[i])), 1e-30)
+            for i, k in ((3, "sdf"), (4, "eikonal"))}
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(out[0] + out[1], ref[0] + ref[1]))
+    return {"loss_rel": loss, "dlat": dlat, "worst_grad_rel": max(worst, dlat["rel"]),
+            "min_grad_cos": min(min_cos, dlat["cos"]),
+            "max_abs_err": max(max_abs, float((out[2] - ref[2]).abs().max())), "layers": layers}
+
+
+def step_flops(decoder, n_points, use_eikonal):
+    """Floating-point operations of K2 on ``n_points``: 2 per multiply-add
+    of the per-point products (the latent's share is per scene and not
+    counted). Variant b runs six sweeps over the decoder's per-point
+    weights (primal, u-chain, ubar/t chain, delta chain, and the two
+    weight-gradient sums), variant a three (primal, delta chain, weight
+    gradients): 18.9 and 9.44 MFLOP per point at the flagship width."""
+    from msd_tpu_torch.ops.fused_train import layer_plan
+
+    plan = layer_plan(decoder)
+    per_point = 0
+    for layer in range(plan.nl):
+        k = (plan.prev[layer] or 0) + (3 if plan.kinds[layer] != "plain" else 0)
+        per_point += k * plan.out[layer]
+    return 2.0 * per_point * n_points * (6 if use_eikonal else 3)
+
+
+def design_bytes(decoder, n_points, use_eikonal):
+    """Bytes K2's design moves through device memory for ``n_points``
+    (activations only; weights and per-scene terms are small): each bf16
+    chain activation, its width padded to WIDTH_PAD, is written once and
+    read by the next product, the masks and the weight gradients."""
+    from msd_tpu_torch.ops.fused_train import WIDTH_PAD, layer_plan
+
+    plan = layer_plan(decoder)
+    hidden = sum(-(-o // WIDTH_PAD) * WIDTH_PAD for o in plan.out[:-1]) * 2
+    if use_eikonal:
+        # h: 1 write + 5 reads (next product, u mask, t mask, delta mask,
+        # wgrad); u, t, delta: 1 write + 2 reads each
+        per_point = hidden * (6 + 3 * 3)
+    else:
+        # h: 1 write + 3 reads; delta: 1 write + 2 reads
+        per_point = hidden * (4 + 3)
+    return float(per_point + 64) * n_points
+
+
+def k2_check_plain(decoder, out, ref, name, shape):
+    """K2's outputs against its plain version's; raises past K2_TOL."""
+    import torch
+
+    r = k2_errors(decoder, out, ref)
+    if (max(r["loss_rel"].values()) > K2_TOL["loss"] or r["worst_grad_rel"] > K2_TOL["grad"]
+            or not all(torch.isfinite(t).all() for t in out[0] + out[1])):
+        raise AssertionError(f"K2 {name} vs plain at {shape}: {json.dumps(r)}")
+    return r
+
+
+def check_k2(decoder, seed, dev):
+    """K2 against float32 autograd (and its plain version) on 4 scenes, and
+    against its plain version at the full step shape, 32 x 16384 points,
+    where it is also timed; returns per-variant results."""
+    import torch
+
+    from msd_tpu_torch.ops.fused_train import fused_point_grads, fused_train_plain, point_grads
+
+    results = {}
+    P = 16384
+    for use_eik in (True, False):
+        name = "b" if use_eik else "a"
+        B = 4
+        args = (decoder, *k2_inputs(decoder, B, P, seed, dev), 0.1, use_eik, B * P)
+        out = fused_point_grads(*args)
+        torch.cuda.synchronize()
+        vs_plain_4 = k2_check_plain(decoder, out, point_grads(fused_train_plain, *args), name, "4 x 16384")
+        vs_autograd = k2_errors(decoder, out, autograd_grads(*args))
+        if (max(vs_autograd["loss_rel"].values()) > K2_TOL["autograd_loss"]
+                or vs_autograd["worst_grad_rel"] > K2_TOL["autograd_grad"]
+                or vs_autograd["min_grad_cos"] < K2_TOL["autograd_cos"]):
+            raise AssertionError(f"K2 {name} vs float32 autograd: {json.dumps(vs_autograd)}")
+        del out
+
+        B = 32
+        full = (decoder, *k2_inputs(decoder, B, P, seed + 1, dev), 0.1, use_eik, B * P)
+        out = fused_point_grads(*full)
+        torch.cuda.synchronize()
+        vs_plain = k2_check_plain(decoder, out, point_grads(fused_train_plain, *full), name, "32 x 16384")
+        del out
+        flops = step_flops(decoder, B * P, use_eik)
+        r = {"variant": name, "points": B * P, "vs_plain": vs_plain,
+             "vs_plain_4_scenes": {k: vs_plain_4[k] for k in ("loss_rel", "worst_grad_rel", "max_abs_err")},
+             "vs_autograd_4_scenes": {k: vs_autograd[k]
+                                      for k in ("loss_rel", "dlat", "worst_grad_rel", "min_grad_cos")},
+             "ms": time_ms(lambda: fused_point_grads(*full)),
+             "plain_ms": time_ms(lambda: point_grads(fused_train_plain, *full)),
+             "flop": flops, "bound_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3, "bound_by": "operations",
+             "design_bytes": design_bytes(decoder, B * P, use_eik),
+             "design_bytes_ms": design_bytes(decoder, B * P, use_eik) / HBM_BYTES_PER_S * 1e3,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+        phase("k2", **r)
+        results[name] = r
+    return results
+
+
+def profile_steps(step, n):
+    """Device time by kernel over ``n`` steps (torch.profiler, CUPTI) and
+    the device's idle share of their wall time; K2's five CUDA kernels by
+    name, everything else summed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = next((k for k in ("chain_kernel", "wgrad_kernel", "last_kernel", "eik_kernel", "skinny_kernel")
+                     if k in e.key), "other")
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3 / n
+    device_ms = sum(by_name.values())
+    if device_ms == 0:
+        return {"note": "the profiler recorded no device time: not measured"}
+    return {"ms_per_step_by_kernel": by_name, "device_ms_per_step": device_ms,
+            "wall_ms_per_step": wall_ms / n, "device_idle_share": 1 - device_ms / (wall_ms / n)}
+
+
+def train(root, specs, seed):
+    """The port's Stage-1 path on a temporary experiment; returns the phase
+    summary and K2's launches in the two runs."""
+    import torch
+
+    import msd_tpu_torch.workspace as ws
+    from msd_tpu_torch import train_deep_sdf
+    from msd_tpu_torch.data.sdf_samples import sample_sdf_batch
+    from msd_tpu_torch.models import build_decoder
+    from msd_tpu_torch.ops import fused_train
+    from msd_tpu_torch.ops.fused_train import fused_sdf_loss
+    from msd_tpu_torch.utils.checkpoint import load_model
+
+    t0 = time.time()
+    data_dir, exp = os.path.join(root, "train_data"), os.path.join(root, "train_experiment")
+    split = write_dataset(data_dir, 64, 100_000, seed + 1)
+    split_path = os.path.join(root, "train_split.json")
+    with open(split_path, "w") as f:
+        json.dump(split, f)
+    changes = {"DataSource": os.path.join(data_dir, "SdfSamples"), "TrainSplit": split_path,
+               "TestSplit": split_path, "NumEpochs": 6, "SnapshotFrequency": 3, "AdditionalSnapshots": []}
+    ws.save_experiment_specifications(exp, dict(specs, **changes))
+    t_data = time.time() - t0
+
+    fused_train.LAUNCHES = 0
+    t0 = time.time()
+    trainer = train_deep_sdf.main(["-e", exp, "--device", "cuda", "--quiet"])
+    torch.cuda.synchronize()
+    t_first = time.time() - t0
+    launches_first = fused_train.LAUNCHES
+    ws.save_experiment_specifications(exp, dict(specs, **dict(changes, NumEpochs=8)))
+    fused_train.LAUNCHES = 0
+    resumed = train_deep_sdf.main(["-e", exp, "-c", "latest", "--device", "cuda", "--quiet"])
+    torch.cuda.synchronize()
+    launches_resumed = fused_train.LAUNCHES
+
+    if not trainer.use_fused or launches_first != 12 or launches_resumed != 4:
+        raise AssertionError(f"K2 launches {launches_first} + {launches_resumed}, want 12 + 4 (one per step)")
+    losses = resumed.loss_log
+    if len(losses) != 16 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"bad loss log: {losses}")
+    epoch_means = resumed.loss_log_epoch
+    if not epoch_means[-1] < epoch_means[0]:
+        raise AssertionError(f"loss did not fall: {epoch_means}")
+    if resumed.start_epoch != 7 or resumed.epoch != 8 or resumed.global_batch_idx != 16:
+        raise AssertionError(f"resumed run went from epoch {resumed.start_epoch} to {resumed.epoch}, "
+                             f"step {resumed.global_batch_idx}; want 7 to 8, step 16")
+    for sub in (ws.model_params_subdir, ws.optimizer_params_subdir, ws.latent_codes_subdir):
+        for name in ("3.pth", "6.pth", "latest.pth"):
+            if not os.path.isfile(os.path.join(exp, sub, name)):
+                raise AssertionError(f"missing checkpoint {sub}/{name}")
+    if not os.path.isfile(ws.get_logs_filename(exp)):
+        raise AssertionError("missing Logs.pth")
+    dec = build_decoder(specs["NetworkArch"], specs["CodeLength"], specs["NetworkSpecs"])
+    if load_model(exp, "latest", dec) != 8:
+        raise AssertionError("load_model read the wrong epoch")
+    for (n, a), (_, b) in zip(dec.state_dict().items(), resumed.decoder.state_dict().items()):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError(f"load_model: {n} differs from the trained decoder")
+
+    # step times on the trained state (host clock around synchronised steps)
+    dev = resumed.device
+    B, P = resumed.scene_per_batch, resumed.num_samp_per_scene
+    pos, pc, neg, nc = resumed.dataset.device_arrays(dev)
+    idx = torch.arange(B, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = sample_sdf_batch(pos, pc, neg, nc, idx, P, gen)
+    step_ms = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        resumed.step(idx, batch, 9, 5e-4, 1e-3)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    step_med = float(np.median(step_ms[1:]))
+
+    def k2_call():
+        with torch.no_grad():
+            fused_sdf_loss(resumed.decoder, resumed.latents[idx], batch[:3].permute(1, 2, 0).contiguous(),
+                           batch[3], resumed.clamp_dist, resumed.use_eikonal, B * P)
+
+    k2_ms = time_ms(k2_call)
+    profile = profile_steps(lambda: resumed.step(idx, batch, 9, 5e-4, 1e-3), 3)
+    sampler = {f"chunk_{c}_ms": time_ms(lambda c=c: sample_sdf_batch(pos, pc, neg, nc, idx, P, gen, chunk=c))
+               for c in (128, 1)}
+
+    def step_time(fused, eikonal, batch_split):  # CUDA events; the trainer's path switched as its specs would
+        resumed.use_fused, resumed.use_eikonal = fused, eikonal
+        return time_ms(lambda: resumed.step(idx, batch, 9, 5e-4, 1e-3, batch_split), reps=5, warmup=1)
+
+    # K2 a, and the trainer's float32 autograd path (UseFusedTrainKernel
+    # false) for b and a; the latter in 4 chunks of 8 scenes (batch_split 4)
+    # to bound its graph's memory
+    steps_by_path = {"k2_a": step_time(True, False, 1), "autograd_b": step_time(False, True, 4),
+                     "autograd_a": step_time(False, False, 4)}
+    resumed.use_fused, resumed.use_eikonal = True, True
+    return {
+        "changed": changes | {"NumEpochs (resume)": 8}, "scenes": resumed.num_scenes, "steps": len(losses),
+        "data_seconds": t_data, "first_run_seconds": t_first, "epoch_seconds": resumed.timing_log,
+        "epoch_losses": epoch_means,
+        "resumed_from_epoch": resumed.start_epoch,
+        "step_ms_median": step_med, "step_ms": step_ms, "step_ms_by_path": steps_by_path,
+        "scenes_per_s": B / (step_med * 1e-3), "points_per_s": B * P / (step_med * 1e-3),
+        "k2_ms_in_step": k2_ms, "k2_share_of_step": k2_ms / step_med, "sampler": sampler,
+        "profile": profile,
+    }, launches_first + launches_resumed
+
+
 def serve(root, specs, decoder, seed):
     """The port's serving path on a temporary experiment; returns
     (per-shape summaries, evaluate results, seconds of evaluate, K1
@@ -288,11 +628,19 @@ def main(argv=None):
           chamfer={r[0]: r[1][0] for r in results},
           note="seeded weights, not trained: the Chamfer is no quality figure")
 
+    k2 = check_k2(decoder, args.seed, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
+        training, k2_launches = train(root, specs, args.seed)
+    phase("training", **training)
+
     bf16 = k1["bfloat16"]
 
     def worst(r):  # max abs error over both K1 inputs
         return max(r["max_abs_err"], r["corner_lattice_257"]["max_abs_err"])
 
+    b, a = k2["b"], k2["a"]
+    autograd_step = {"autograd_step_ms": training["step_ms_by_path"]["autograd_b"],
+                     "autograd_step_note": "the trainer's float32 autograd step, batch_split 4, same batch"}
     print(json.dumps({"kernels": [{
         "name": "fused_mlp", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "msd_tpu/ops/fused_mlp.py:211", "launches": launches,
@@ -302,6 +650,19 @@ def main(argv=None):
         "dtype": "bfloat16", "points": bf16["points"],
         "float32": {"max_abs_err": worst(k1["float32"]),
                     **{k: k1["float32"][k] for k in ("ms", "plain_ms", "bound_ms")}},
+    }, {
+        "name": "fused_train", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_train.cu",
+        "replaces": "msd_tpu/ops/fused_train.py:423", "launches": k2_launches,
+        "max_abs_err": b["vs_plain"]["max_abs_err"], "max_rel_frobenius": b["vs_plain"]["worst_grad_rel"],
+        "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+        "library_ms": None, "library_note": "no single PyTorch call computes the loss and every gradient",
+        "variant": "b (eikonal)", "points": b["points"], "design_bytes_ms": b["design_bytes_ms"],
+        "step_ms": training["step_ms_median"], **autograd_step,
+        "variant_a": {k: a[k] for k in ("ms", "plain_ms", "bound_ms", "design_bytes_ms")}
+                     | {"max_abs_err": a["vs_plain"]["max_abs_err"],
+                        "max_rel_frobenius": a["vs_plain"]["worst_grad_rel"],
+                        "step_ms": training["step_ms_by_path"]["k2_a"],
+                        "autograd_step_ms": training["step_ms_by_path"]["autograd_a"]},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

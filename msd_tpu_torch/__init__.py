@@ -2,11 +2,14 @@
 
 Module names mirror ``msd_tpu`` so each counterpart is easy to find. The
 port imports torch, numpy and scipy only; it never imports JAX or
-``msd_tpu``. Today it runs the serving path: load a decoder checkpoint,
-fit a latent per shape (``train/reconstruct.py``), mesh it
-(``mesh.create_mesh``, whose SDF queries go through the hand-written CUDA
-kernel in ``csrc/fused_mlp.cu`` on a GPU) and score the mesh
-(``eval_chamfer.evaluate``).
+``msd_tpu``. It runs the serving path: load a decoder checkpoint, fit a
+latent per shape (``train/reconstruct.py``), mesh it (``mesh.create_mesh``,
+whose SDF queries go through the hand-written CUDA kernel in
+``csrc/fused_mlp.cu`` on a GPU) and score the mesh
+(``eval_chamfer.evaluate``). It trains Stage 1 (``train/stage1.py``, the
+``train_deep_sdf`` CLI), with the loss and every gradient of a step
+computed by the hand-written CUDA kernels in ``csrc/fused_train.cu`` on a
+GPU.
 """
 
 __version__ = "0.1.0"

@@ -9,9 +9,21 @@ triples.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 from typing import List, Tuple
+
+
+def load_split(split_filename: str):
+    with open(split_filename) as f:
+        return json.load(f)
+
+
+def split_instance_ids(split) -> List[str]:
+    """Flatten a split (flat list or nested dict) into instance ids without
+    extensions."""
+    return [t[2] for t in split_triples(split)]
 
 
 def split_triples(split) -> List[Tuple[str, str, str]]:

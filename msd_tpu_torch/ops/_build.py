@@ -39,6 +39,32 @@ _SIGNATURES = {
         "msd_fused_mlp_scratch_bytes": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]),
         "msd_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "fused_train": {
+        "msd_ft_chain": (
+            ctypes.c_int,
+            [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_int,
+             ctypes.c_int, _P, _P, _P, _P],
+        ),
+        "msd_ft_wgrad": (
+            ctypes.c_int,
+            [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
+        ),
+        "msd_ft_last": (
+            ctypes.c_int,
+            [_P, _P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+             ctypes.c_float, ctypes.c_int, _P, _P, _P, _P, _P],
+        ),
+        "msd_ft_eik": (
+            ctypes.c_int,
+            [_P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_float,
+             _P, _P, _P, _P],
+        ),
+        "msd_ft_skinny": (
+            ctypes.c_int,
+            [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P],
+        ),
+        "msd_ft_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _LOCK = threading.Lock()

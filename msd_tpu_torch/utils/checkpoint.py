@@ -1,8 +1,18 @@
-"""Decoder checkpoints in the reference's ``.pth`` layout
-``ModelParameters/<E>.pth = {"epoch", "model_state_dict"}`` with its
-parameter names (ref: train_deep_sdf.py:32-79), so checkpoints move between
-the reference, ``msd_tpu`` and this port in every direction. Counterpart of
-``msd_tpu/utils/checkpoint.py:save_model/load_model``."""
+"""Checkpoint IO in the reference's and ``msd_tpu``'s on-disk formats
+(counterpart of ``msd_tpu/utils/checkpoint.py``), so every checkpoint moves
+between the reference, ``msd_tpu`` and this port in every direction:
+
+* ModelParameters/<E>.pth     = {"epoch", "model_state_dict"} with the
+  reference's parameter names (ref: train_deep_sdf.py:32-79);
+* LatentCodes/<E>.pth         = {"epoch", "latent_codes": {"weight"}}, an
+  Embedding state dict (the legacy [S, 1, L] tensor is read too);
+* OptimizerParameters/<E>.pth = {"epoch", "optimizer_state_dict":
+  {"msd_tpu_adam": [count, mu leaves..., nu leaves...]}}, ``msd_tpu``'s
+  layout: its Adam state flattened in JAX's order (sorted dict keys: "lat"
+  before "net", then "bn<i>"/"lin<i>" by name, then "b" before "w", or
+  "b", "g", "v"; "bias" before "scale"), weights stored [in, out];
+* Logs.pth                    = loss/lr/timing/magnitude histories + epoch.
+"""
 
 from __future__ import annotations
 
@@ -29,3 +39,136 @@ def load_model(experiment_directory, checkpoint, decoder):
     data = torch.load(filename, map_location="cpu", weights_only=False)
     decoder.load_state_dict(data["model_state_dict"])
     return data["epoch"]
+
+
+def save_latent_vectors(experiment_directory, filename, latents, epoch):
+    """latents [num_scenes, latent_size], stored as an Embedding state dict
+    {"weight": tensor} (ref: train_deep_sdf.py:70-79)."""
+    d = ws.get_latent_codes_dir(experiment_directory, True)
+    weight = latents.detach().float().cpu().clone()
+    torch.save({"epoch": epoch, "latent_codes": {"weight": weight}}, os.path.join(d, filename))
+
+
+def load_latent_vectors(experiment_directory, filename, expected_shape=None):
+    """Returns (latents [S, L] float32 CPU tensor, epoch); reads the
+    Embedding state dict and the legacy [S, 1, L] tensor
+    (ref: train_deep_sdf.py:83-113)."""
+    full = os.path.join(ws.get_latent_codes_dir(experiment_directory), filename)
+    if not os.path.isfile(full):
+        raise Exception(f'latent state file "{full}" does not exist')
+    data = torch.load(full, map_location="cpu", weights_only=False)
+    codes = data["latent_codes"]
+    arr = codes["weight"] if isinstance(codes, dict) else codes
+    arr = torch.as_tensor(arr).detach().float()
+    if arr.dim() == 3:  # legacy [S, 1, L]
+        arr = arr[:, 0, :]
+    if expected_shape is not None and tuple(arr.shape) != tuple(expected_shape):
+        raise Exception(f"num latent codes mismatched: {tuple(arr.shape)} vs {tuple(expected_shape)}")
+    return arr.contiguous(), data["epoch"]
+
+
+# torch parameter suffix -> (msd_tpu leaf name, transposed)
+_LEAF = {"weight": ("w", True), "weight_v": ("v", True), "weight_g": ("g", False), "bias": ("b", False)}
+_LN_LEAF = {"weight": "scale", "bias": "bias"}
+
+
+def msd_tpu_names(decoder):
+    """[(msd_tpu leaf path "lin0.w", port parameter name "lin0.weight",
+    transposed)] in JAX's flatten order of the decoder's param dict."""
+    out = []
+    for name, _ in decoder.named_parameters():
+        module, suffix = name.split(".", 1)
+        if module.startswith("bn"):
+            out.append((module + "." + _LN_LEAF[suffix], name, False))
+        else:
+            leaf, transposed = _LEAF[suffix]
+            out.append((module + "." + leaf, name, transposed))
+    return sorted(out, key=lambda e: tuple(e[0].split(".")))
+
+
+def _to_jax(t, transposed):
+    t = t.detach().float().cpu()
+    if transposed:
+        return t.t().contiguous()
+    return t.reshape(-1).clone() if t.dim() == 2 and t.shape[1] == 1 else t.clone()
+
+
+def save_optimizer(experiment_directory, filename, decoder, optimizer, epoch):
+    """``optimizer``: ``utils.optim.GroupAdam`` over groups "net" (the
+    decoder's parameters by name) and "lat" (the latent table)."""
+    d = ws.get_optimizer_params_dir(experiment_directory, True)
+    names = msd_tpu_names(decoder)
+    flat = [torch.tensor(optimizer.count, dtype=torch.int32)]
+    for moments in (optimizer.mu, optimizer.nu):
+        flat.append(moments["lat"]["weight"].detach().float().cpu().clone())
+        flat += [_to_jax(moments["net"][tname], tr) for _, tname, tr in names]
+    torch.save(
+        {"epoch": epoch, "optimizer_state_dict": {"msd_tpu_adam": flat}},
+        os.path.join(d, filename),
+    )
+
+
+def load_optimizer(experiment_directory, filename, decoder, optimizer):
+    """Fill ``optimizer`` (count and moments, on their devices) from a file
+    in ``msd_tpu``'s layout; returns the epoch."""
+    full = os.path.join(ws.get_optimizer_params_dir(experiment_directory), filename)
+    if not os.path.isfile(full):
+        raise Exception(f'optimizer state dict "{full}" does not exist')
+    data = torch.load(full, map_location="cpu", weights_only=False)
+    flat = list(data["optimizer_state_dict"]["msd_tpu_adam"])
+    names = msd_tpu_names(decoder)
+    if len(flat) != 1 + 2 * (1 + len(names)):
+        raise Exception("optimizer state structure mismatch")
+    optimizer.count = int(torch.as_tensor(flat[0]))
+    it = iter(flat[1:])
+    for moments in (optimizer.mu, optimizer.nu):
+        dst = moments["lat"]["weight"]
+        dst.copy_(torch.as_tensor(next(it)).reshape(dst.shape))
+        for _, tname, tr in names:
+            dst = moments["net"][tname]
+            src = torch.as_tensor(next(it)).float()
+            dst.copy_((src.t() if tr else src).reshape(dst.shape))
+    return data["epoch"]
+
+
+def save_logs(experiment_directory, loss_log, lr_log, timing_log, lat_mag_log, param_mag_log, epoch):
+    """ref: train_deep_sdf.py:135-155."""
+    torch.save(
+        {
+            "epoch": epoch,
+            "loss": loss_log,
+            "learning_rate": lr_log,
+            "timing": timing_log,
+            "latent_magnitude": lat_mag_log,
+            "param_magnitude": param_mag_log,
+        },
+        ws.get_logs_filename(experiment_directory),
+    )
+
+
+def load_logs(experiment_directory):
+    full = ws.get_logs_filename(experiment_directory)
+    if not os.path.isfile(full):
+        raise Exception(f'log file "{full}" does not exist')
+    data = torch.load(full, map_location="cpu", weights_only=False)
+    return (
+        data["loss"],
+        data["learning_rate"],
+        data["timing"],
+        data["latent_magnitude"],
+        data["param_magnitude"],
+        data["epoch"],
+    )
+
+
+def clip_logs(loss_log, lr_log, timing_log, lat_mag_log, param_mag_log, epoch):
+    """ref: train_deep_sdf.py:177-188."""
+    iters_per_epoch = len(loss_log) // max(1, len(lr_log))
+    loss_log = loss_log[: (iters_per_epoch * epoch)]
+    lr_log = lr_log[:epoch]
+    timing_log = timing_log[:epoch]
+    lat_mag_log = lat_mag_log[:epoch]
+    for n in param_mag_log:
+        param_mag_log[n] = param_mag_log[n][:epoch]
+    return loss_log, lr_log, timing_log, lat_mag_log, param_mag_log
+

@@ -80,11 +80,37 @@ def load_experiment_specifications(experiment_directory):
     return specs
 
 
-def get_model_params_dir(experiment_directory, create_if_nonexistent=False):
-    d = os.path.join(experiment_directory, model_params_subdir)
+def save_experiment_specifications(experiment_directory, specs):
+    os.makedirs(experiment_directory, exist_ok=True)
+    with open(os.path.join(experiment_directory, specifications_filename), "w") as f:
+        json.dump(specs, f, indent=2)
+
+
+def _subdir(experiment_directory, name, create_if_nonexistent):
+    d = os.path.join(experiment_directory, name)
     if create_if_nonexistent:
         os.makedirs(d, exist_ok=True)
     return d
+
+
+def get_model_params_dir(experiment_directory, create_if_nonexistent=False):
+    return _subdir(experiment_directory, model_params_subdir, create_if_nonexistent)
+
+
+def get_optimizer_params_dir(experiment_directory, create_if_nonexistent=False):
+    return _subdir(experiment_directory, optimizer_params_subdir, create_if_nonexistent)
+
+
+def get_latent_codes_dir(experiment_directory, create_if_nonexistent=False):
+    return _subdir(experiment_directory, latent_codes_subdir, create_if_nonexistent)
+
+
+def get_tensorboard_dir(experiment_directory, create_if_nonexistent=False):
+    return _subdir(experiment_directory, tensorboard_subdir, create_if_nonexistent)
+
+
+def get_logs_filename(experiment_directory):
+    return os.path.join(experiment_directory, logs_filename)
 
 
 def get_evaluation_dir(experiment_directory, checkpoint, create_if_nonexistent=False):

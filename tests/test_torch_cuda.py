@@ -1,5 +1,5 @@
-"""msd_tpu_torch's CUDA kernels against their plain PyTorch versions, on an
-NVIDIA GPU. Every test here is marked ``cuda`` and skips without a GPU.
+"""msd_tpu_torch's CUDA kernels (K1, K2) against their plain PyTorch versions,
+on an NVIDIA GPU. Every test here is marked ``cuda`` and skips without a GPU.
 This file imports neither JAX nor msd_tpu, so it runs on a machine that has
 only the port's dependencies:
 
@@ -146,3 +146,146 @@ def test_create_mesh_on_gpu_launches_kernel(dev):
     cpu = mesh.create_mesh(dec.cpu(), torch.zeros(LATENT), N=129, return_mesh=True)
     gpu = mesh.create_mesh(dec.to(dev), torch.zeros(LATENT), N=129, return_mesh=True, eval_dtype=torch.float32)
     assert abs(gpu[0].shape[0] - cpu[0].shape[0]) <= 0.001 * cpu[0].shape[0]
+
+
+# K2: the Stage-1 fused loss and gradients. Small decoders of
+# tests/test_torch_fused_train.py and the flagship width. Tolerances of the
+# bf16 kernel against its bf16 plain version (two summation orders, which
+# can flip an activation's last bit): loss sums 1e-3 relative, every
+# gradient 2e-2 relative Frobenius.
+K2_CONFIGS = {
+    "b_latent_in": (True, dict(dims=[64] * 5, latent_in=[2])),
+    "a_latent_in": (False, dict(dims=[64] * 5, latent_in=[2])),
+    "b_weight_norm": (True, dict(dims=[64] * 5, latent_in=[2], weight_norm=True, norm_layers=[0, 1, 2, 3, 4])),
+    "b_no_latent_in": (True, dict(dims=[64] * 5, latent_in=[])),
+    "b_odd_width": (True, dict(dims=[200, 200, 200], latent_in=[2])),
+}
+
+
+def _k2_inputs(dec, B, P, dev, seed=3):
+    rng = np.random.default_rng(seed)
+    L = dec.latent_size
+    lat = torch.tensor(0.3 * rng.standard_normal((B, L)), dtype=torch.float32, device=dev)
+    xyz = torch.tensor(rng.uniform(-1, 1, (B, P, 3)), dtype=torch.float32, device=dev)
+    gt = torch.tensor(0.25 * rng.standard_normal((B, P)), dtype=torch.float32, device=dev)
+    n = dec.num_layers - 1
+    weights = [dec.layer_weight(layer).detach() for layer in range(n)]
+    biases = [getattr(dec, f"lin{layer}").bias.detach() for layer in range(n)]
+    return weights, biases, lat, xyz, gt
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def _k2_check(dec, B, P, use_eikonal, dev):
+    from msd_tpu_torch.ops import fused_train as ft
+
+    args = (dec, *_k2_inputs(dec, B, P, dev), 0.1, use_eikonal, B * P)
+    launches = ft.LAUNCHES
+    out = ft.fused_point_grads(*args)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES == launches + 1
+    ref = ft.point_grads(ft.fused_train_plain, *args)
+    assert ft.LAUNCHES == launches + 1
+    for i in (3, 4):  # sdf, eikonal losses
+        assert abs(float(out[i]) - float(ref[i])) <= 1e-3 * abs(float(ref[i])) + 1e-12
+    for grads, grads_ref in zip(out[:2], ref[:2]):  # dW, db per layer
+        for layer, (g, r) in enumerate(zip(grads, grads_ref)):
+            assert torch.isfinite(g).all()
+            assert _rel(g, r) <= 2e-2, (layer, _rel(g, r))
+    assert _rel(out[2], ref[2]) <= 2e-2  # dlat
+
+
+@pytest.mark.parametrize("name", list(K2_CONFIGS))
+def test_k2_matches_plain(name, dev):
+    use_eikonal, cfg = K2_CONFIGS[name]
+    dec = _decoder(cfg, dev)
+    _k2_check(dec, 4, 256, use_eikonal, dev)
+
+
+@pytest.mark.parametrize("use_eikonal", [True, False], ids=["b", "a"])
+def test_k2_matches_plain_flagship_width(use_eikonal, dev, monkeypatch):
+    from msd_tpu_torch.ops import fused_train as ft
+
+    with open(os.path.join(ROOT, "examples", "ADNI", "minimal_eikonal", "specs.json")) as f:
+        specs = json.load(f)
+    dec = build_decoder(specs["NetworkArch"], specs["CodeLength"], specs["NetworkSpecs"],
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    give_surface_(dec, torch.zeros(specs["CodeLength"]))
+    monkeypatch.setattr(ft, "CHUNK_POINTS", 2 * 4096)  # two chunks
+    _k2_check(dec, 4, 4096, use_eikonal, dev)
+
+
+def test_k2_cuda_tensor_never_falls_back(dev, monkeypatch):
+    from msd_tpu_torch.ops import _build
+    from msd_tpu_torch.ops import fused_train as ft
+
+    dec = _decoder(K2_CONFIGS["b_latent_in"][1], dev)
+    args = (dec, *_k2_inputs(dec, 2, 128, dev), 0.1, True, 256)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ft.fused_point_grads(*args, dtype=torch.float32)
+
+    def broken(name):
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(_build, "load_library", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ft.fused_point_grads(*args)
+    ln = _decoder(CONFIGS["layer_norm"], dev)
+    with pytest.raises(ft.UnsupportedConfig):
+        ft.fused_point_grads(ln, *_k2_inputs(ln, 2, 128, dev), 0.1, True, 256)
+
+
+# The Stage-1 trainer on the card: a supported config takes K2 once per
+# step; a config that needs a K2 variant not ported yet raises.
+TRAIN_SPECS = {
+    "NetworkArch": "deep_sdf_decoder",
+    "NetworkSpecs": {"dims": [64] * 5, "dropout": [], "dropout_prob": 0.0, "norm_layers": [],
+                     "latent_in": [2], "xyz_in_all": False, "use_tanh": False, "latent_dropout": False,
+                     "weight_norm": False},
+    "CodeLength": 16, "NumEpochs": 2, "SnapshotFrequency": 2, "SamplesPerScene": 256, "ScenesPerBatch": 2,
+    "LearningRateSchedule": [{"Type": "Constant", "Value": 5e-4}, {"Type": "Constant", "Value": 1e-3}],
+    "UseEikonal": True, "ClampingDistance": 0.1, "CodeBound": 1.0, "GradientClipNorm": 1.0,
+}
+
+
+@pytest.fixture
+def train_data(tmp_path):
+    from chip_smoke import write_dataset
+
+    split = write_dataset(str(tmp_path / "data"), 4, 5000, seed=2)
+    path = str(tmp_path / "split.json")
+    with open(path, "w") as f:
+        json.dump(split, f)
+    return dict(TRAIN_SPECS, DataSource=str(tmp_path / "data" / "SdfSamples"), TrainSplit=path)
+
+
+def test_trainer_takes_k2_once_per_step(dev, train_data, tmp_path):
+    from msd_tpu_torch.ops import fused_train as ft
+    from msd_tpu_torch.train.stage1 import Stage1Trainer
+
+    k2 = Stage1Trainer(str(tmp_path / "k2"), specs=train_data, device="cuda")
+    ag = Stage1Trainer(str(tmp_path / "ag"), specs=dict(train_data, UseFusedTrainKernel=False), device="cuda")
+    assert k2.use_fused and k2.k2_dtype == torch.bfloat16 and not ag.use_fused
+    def flat(t):
+        return torch.cat([p.detach().reshape(-1) for p in t.decoder.parameters()] + [t.latents.detach().reshape(-1)])
+
+    init = flat(k2)
+    assert torch.equal(init, flat(ag))
+    launches = ft.LAUNCHES
+    m = k2.train_epoch(1)
+    assert ft.LAUNCHES == launches + 2  # 4 scenes, 2 per batch
+    assert all(np.isfinite(v) for v in m.values())
+    ag.train_epoch(1)  # autograd (float32) from the same seed and batches
+    assert ft.LAUNCHES == launches + 2
+    # bf16 K2 against float32 autograd: the epoch's updates point the same way
+    a, b = flat(k2) - init, flat(ag) - init
+    assert float(torch.dot(a, b) / (a.norm() * b.norm())) > 0.95
+
+
+def test_trainer_k2_variant_c_raises_on_card(dev, train_data, tmp_path):
+    from msd_tpu_torch.train.stage1 import Stage1Trainer
+
+    with pytest.raises(NotImplementedError, match="variant c"):
+        Stage1Trainer(str(tmp_path / "c"), specs=dict(train_data, EikonalNumPoints=128), device="cuda")
