@@ -38,6 +38,27 @@ non-zero and prints no result. Phases, one JSON line each:
    torch.profiler split of the step's device time by kernel with the
    device's idle share, the point sampler's time at chunk 128 and 1, and
    the trainer's step on K2 a and on its float32 autograd path.
+7. k2d: K2's frozen-decoder variant d (loss and latent gradient only, the
+   Stage-2 step's kernel) against its plain version and float32 autograd on
+   4 seeded scenes x 16384 points, and against its plain version at the
+   Stage-2 step shape, 32 x 16384 points, where both are timed beside the
+   operation bound and the design's byte bound. Errors: loss sum relative,
+   dlat relative Frobenius and cosine.
+8. stage2: the port's Stage-2 path as a user runs it, on top of the
+   training phase's Stage-1 experiment (64 ellipsoids, flagship width).
+   ``labels.pt`` gets a 0/1 diagnosis from each ellipsoid's axis ratio and
+   a seeded age; the flagship Stage-2 specs.json
+   (examples/ADNI/MLP_VAE_SDF_disentangle_all_true_label_age) with its
+   paths, NumEpochs (40), SnapshotFrequency (20), EvalTrainFrequency (40)
+   and GT mesh dir changed; ``python -m msd_tpu_torch.train_MLP_VAE_deep_sdf
+   --device cuda`` runs in process for 40 steps (58 training scenes, one
+   batch of 32 per epoch) with one eval epoch (run_eval, SAP, Locatello SAP,
+   correlation, the tables, 2 meshes at N=257 through K1 and their Chamfer
+   where a mesh has a surface: the 16-step Stage-1 decoder of phase 6 may
+   give a field with none), then ``-c latest`` with NumEpochs 42. Then
+   the step's time, K2 d's share and launches per step, a torch.profiler
+   split, and the trainer's step on K2 d against its float32 autograd path
+   (loss and VAE gradient).
 
 Then the ``kernels`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
@@ -114,6 +135,32 @@ def write_dataset(data_dir, n_shapes, n_samples, seed):
         np.savez(os.path.join(data_dir, "SdfSamples", "smoke", "ellipsoid", name + ".npz"), pos=pos, neg=neg)
         save_ply(os.path.join(data_dir, "SurfaceSamples", "smoke", "ellipsoid", name + ".ply"), surf)
     return {"smoke": {"ellipsoid": names}}
+
+
+def write_labels(data_source, split, seed):
+    """``labels.pt`` under ``data_source`` for the shapes of ``split``:
+    (diagnosis, age) per shape. The diagnosis is 1 where the ellipsoid's
+    axis ratio (estimated from its inside samples) is above the median; the
+    age is 55-90, rising with the volume, plus seeded noise. Returns the
+    label map."""
+    import torch
+
+    from msd_tpu_torch.data.splits import get_instance_filenames, split_instance_ids
+
+    ratios, volumes = [], []
+    for path in get_instance_filenames(data_source, split):
+        inside = np.load(path)["neg"][:, :3]
+        axes = np.abs(inside).max(axis=0)
+        ratios.append(axes.max() / axes.min())
+        volumes.append(np.prod(axes))
+    ratios, volumes = np.asarray(ratios), np.asarray(volumes)
+    rng = np.random.default_rng(seed)
+    age = 55 + 35 * (volumes - volumes.min()) / max(np.ptp(volumes), 1e-12) + rng.normal(0, 2, len(volumes))
+    diagnosis = (ratios > np.median(ratios)).astype(np.float32)
+    labels = {iid: torch.tensor([d, a], dtype=torch.float32)
+              for iid, d, a in zip(split_instance_ids(split), diagnosis, age)}
+    torch.save(labels, os.path.join(data_source, "labels.pt"))
+    return labels
 
 
 def kernel_weights(decoder):
@@ -254,36 +301,37 @@ def autograd_grads(decoder, weights, biases, lat, xyz, gt, clamp, use_eikonal, n
     return [lin.weight.grad for lin in lins], [lin.bias.grad for lin in lins], z.grad, sdf.detach(), eik.detach()
 
 
+def _cmp(a, b):
+    """Relative Frobenius error, cosine similarity and max abs error of ``a``
+    against ``b``."""
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return {"rel": float((a - b).norm() / b.norm().clamp(min=1e-300)),
+            "cos": float(a @ b / (a.norm() * b.norm()).clamp(min=1e-300)),
+            "max_abs_err": float((a - b).abs().max())}
+
+
 def k2_errors(decoder, out, ref):
     """Relative errors of K2's outputs ``out`` against ``ref`` (both as
     fused_point_grads returns them): loss sums, and per layer dMp, dMx, db,
     plus dlat, as relative Frobenius error and cosine similarity."""
-    import torch
-
     from msd_tpu_torch.ops.fused_train import layer_plan
 
     plan = layer_plan(decoder)
-
-    def cmp(a, b):
-        a, b = a.double().reshape(-1), b.double().reshape(-1)
-        return {"rel": float((a - b).norm() / b.norm().clamp(min=1e-300)),
-                "cos": float(torch.dot(a, b) / (a.norm() * b.norm()).clamp(min=1e-300))}
-
     layers = []
     for layer in range(plan.nl):
         w, r = out[0][layer], ref[0][layer]
         prev, L = plan.prev[layer], plan.L
-        e = {"layer": layer, "db": cmp(out[1][layer], ref[1][layer])}
+        e = {"layer": layer, "db": _cmp(out[1][layer], ref[1][layer])}
         if plan.kinds[layer] != "first":
-            e["dMp"] = cmp(w[:, :prev], r[:, :prev])
+            e["dMp"] = _cmp(w[:, :prev], r[:, :prev])
         if plan.kinds[layer] == "first":
-            e["dMx"] = cmp(w[:, L:L + 3], r[:, L:L + 3])
+            e["dMx"] = _cmp(w[:, L:L + 3], r[:, L:L + 3])
         elif plan.kinds[layer] == "latent":
-            e["dMx"] = cmp(w[:, prev + L:], r[:, prev + L:])
+            e["dMx"] = _cmp(w[:, prev + L:], r[:, prev + L:])
         layers.append(e)
     worst = max(v["rel"] for e in layers for k, v in e.items() if k != "layer")
     min_cos = min(v["cos"] for e in layers for k, v in e.items() if k != "layer")
-    dlat = cmp(out[2], ref[2])
+    dlat = _cmp(out[2], ref[2])
     loss = {k: abs(float(out[i]) - float(ref[i])) / max(abs(float(ref[i])), 1e-30)
             for i, k in ((3, "sdf"), (4, "eikonal"))}
     max_abs = max(float((a - b).abs().max()) for a, b in zip(out[0] + out[1], ref[0] + ref[1]))
@@ -292,13 +340,18 @@ def k2_errors(decoder, out, ref):
             "max_abs_err": max(max_abs, float((out[2] - ref[2]).abs().max())), "layers": layers}
 
 
-def step_flops(decoder, n_points, use_eikonal):
-    """Floating-point operations of K2 on ``n_points``: 2 per multiply-add
-    of the per-point products (the latent's share is per scene and not
-    counted). Variant b runs six sweeps over the decoder's per-point
-    weights (primal, u-chain, ubar/t chain, delta chain, and the two
-    weight-gradient sums), variant a three (primal, delta chain, weight
-    gradients): 18.9 and 9.44 MFLOP per point at the flagship width."""
+# Sweeps over the decoder's per-point weights of each K2 variant: b runs the
+# primal, u-chain, ubar/t chain, delta chain and two weight-gradient sums;
+# a the primal, delta chain and weight gradients; d the primal and delta
+# chain only.
+K2_SWEEPS = {"b": 6, "a": 3, "d": 2}
+
+
+def step_flops(decoder, n_points, variant):
+    """Floating-point operations of K2 ``variant`` ("b", "a" or "d") on
+    ``n_points``: 2 per multiply-add of the per-point products (the
+    latent's share is per scene and not counted): 18.9, 9.44 and 6.29
+    MFLOP per point at the flagship width."""
     from msd_tpu_torch.ops.fused_train import layer_plan
 
     plan = layer_plan(decoder)
@@ -306,10 +359,10 @@ def step_flops(decoder, n_points, use_eikonal):
     for layer in range(plan.nl):
         k = (plan.prev[layer] or 0) + (3 if plan.kinds[layer] != "plain" else 0)
         per_point += k * plan.out[layer]
-    return 2.0 * per_point * n_points * (6 if use_eikonal else 3)
+    return 2.0 * per_point * n_points * K2_SWEEPS[variant]
 
 
-def design_bytes(decoder, n_points, use_eikonal):
+def design_bytes(decoder, n_points, variant):
     """Bytes K2's design moves through device memory for ``n_points``
     (activations only; weights and per-scene terms are small): each bf16
     chain activation, its width padded to WIDTH_PAD, is written once and
@@ -317,14 +370,19 @@ def design_bytes(decoder, n_points, use_eikonal):
     from msd_tpu_torch.ops.fused_train import WIDTH_PAD, layer_plan
 
     plan = layer_plan(decoder)
-    hidden = sum(-(-o // WIDTH_PAD) * WIDTH_PAD for o in plan.out[:-1]) * 2
-    if use_eikonal:
+    widths = [-(-o // WIDTH_PAD) * WIDTH_PAD * 2 for o in plan.out[:-1]]
+    hidden = sum(widths)
+    if variant == "b":
         # h: 1 write + 5 reads (next product, u mask, t mask, delta mask,
         # wgrad); u, t, delta: 1 write + 2 reads each
         per_point = hidden * (6 + 3 * 3)
-    else:
+    elif variant == "a":
         # h: 1 write + 3 reads; delta: 1 write + 2 reads
         per_point = hidden * (4 + 3)
+    else:
+        # h: 1 write + 2 reads (next product, delta mask); delta: 1 write +
+        # 1 read, except the layer-0 delta, which is not stored
+        per_point = hidden * 3 + (hidden - widths[0]) * 2
     return float(per_point + 64) * n_points
 
 
@@ -369,7 +427,7 @@ def check_k2(decoder, seed, dev):
         torch.cuda.synchronize()
         vs_plain = k2_check_plain(decoder, out, point_grads(fused_train_plain, *full), name, "32 x 16384")
         del out
-        flops = step_flops(decoder, B * P, use_eik)
+        flops = step_flops(decoder, B * P, name)
         r = {"variant": name, "points": B * P, "vs_plain": vs_plain,
              "vs_plain_4_scenes": {k: vs_plain_4[k] for k in ("loss_rel", "worst_grad_rel", "max_abs_err")},
              "vs_autograd_4_scenes": {k: vs_autograd[k]
@@ -377,13 +435,70 @@ def check_k2(decoder, seed, dev):
              "ms": time_ms(lambda: fused_point_grads(*full)),
              "plain_ms": time_ms(lambda: point_grads(fused_train_plain, *full)),
              "flop": flops, "bound_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3, "bound_by": "operations",
-             "design_bytes": design_bytes(decoder, B * P, use_eik),
-             "design_bytes_ms": design_bytes(decoder, B * P, use_eik) / HBM_BYTES_PER_S * 1e3,
+             "design_bytes": design_bytes(decoder, B * P, name),
+             "design_bytes_ms": design_bytes(decoder, B * P, name) / HBM_BYTES_PER_S * 1e3,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
         phase("k2", **r)
         results[name] = r
     return results
+
+
+# K2 d against its plain version at the step shape (acceptance limits: loss
+# sum 1e-5 relative, one float32 sum of the same per-point values in two
+# orders; dlat 1e-2 relative Frobenius, two bf16 summation orders) and against
+# float32 autograd on 4 scenes (bf16 rounding at every layer).
+K2D_TOL = {"loss": 1e-5, "dlat": 1e-2, "autograd_loss": 5e-3, "autograd_dlat": 0.15, "autograd_cos": 0.99}
+
+
+def check_k2d(decoder, seed, dev):
+    """K2 variant d (want_wgrad=False) against float32 autograd and its
+    plain version on 4 scenes, and against its plain version at the Stage-2
+    step shape, 32 x 16384 points, where both are timed."""
+    import torch
+
+    from msd_tpu_torch.ops.fused_train import fused_point_grads, fused_train_plain, point_grads
+
+    def errors(out, ref):
+        return {"loss_rel": abs(float(out[3]) - float(ref[3])) / abs(float(ref[3])), "dlat": _cmp(out[2], ref[2])}
+
+    P = 16384
+    args = (decoder, *k2_inputs(decoder, 4, P, seed + 2, dev), 0.1, False, 4 * P)
+    out = fused_point_grads(*args, want_wgrad=False)
+    torch.cuda.synchronize()
+    if out[0] is not None or out[1] is not None:
+        raise AssertionError("K2 d returned weight gradients")
+    vs_plain_4 = errors(out, point_grads(fused_train_plain, *args, want_wgrad=False))
+    vs_autograd = errors(out, autograd_grads(*args))
+    if (vs_plain_4["loss_rel"] > K2D_TOL["loss"] or vs_plain_4["dlat"]["rel"] > K2D_TOL["dlat"]
+            or vs_autograd["loss_rel"] > K2D_TOL["autograd_loss"] or vs_autograd["dlat"]["rel"] > K2D_TOL["autograd_dlat"]
+            or vs_autograd["dlat"]["cos"] < K2D_TOL["autograd_cos"]):
+        raise AssertionError(f"K2 d at 4 x 16384: {json.dumps({'plain': vs_plain_4, 'autograd': vs_autograd})}")
+
+    B = 32
+    full = (decoder, *k2_inputs(decoder, B, P, seed + 3, dev), 0.1, False, B * P)
+    out = fused_point_grads(*full, want_wgrad=False)
+    torch.cuda.synchronize()
+    vs_plain = errors(out, point_grads(fused_train_plain, *full, want_wgrad=False))
+    if (vs_plain["loss_rel"] > K2D_TOL["loss"] or vs_plain["dlat"]["rel"] > K2D_TOL["dlat"]
+            or not torch.isfinite(out[2]).all()):
+        raise AssertionError(f"K2 d at 32 x 16384: {json.dumps(vs_plain)}")
+    flops = step_flops(decoder, B * P, "d")
+    # xyz and gt read once, the per-point weights once (bf16); the per-scene
+    # outputs are small
+    io_bytes = B * P * 16.0 + 2.0 * kernel_weights(decoder)
+    t_flops, t_bytes = flops / PEAK_FLOPS["bfloat16"] * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
+    r = {"variant": "d", "points": B * P, "vs_plain": vs_plain, "vs_plain_4_scenes": vs_plain_4,
+         "vs_autograd_4_scenes": vs_autograd,
+         "ms": time_ms(lambda: fused_point_grads(*full, want_wgrad=False)),
+         "plain_ms": time_ms(lambda: point_grads(fused_train_plain, *full, want_wgrad=False)),
+         "flop": flops, "bound_ms": max(t_flops, t_bytes), "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+         "design_bytes": design_bytes(decoder, B * P, "d"),
+         "design_bytes_ms": design_bytes(decoder, B * P, "d") / HBM_BYTES_PER_S * 1e3,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+    phase("k2d", **r)
+    return r
 
 
 def profile_steps(step, n):
@@ -403,9 +518,11 @@ def profile_steps(step, n):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = {}
+    kernels = 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
+        kernels += e.count
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
@@ -415,7 +532,7 @@ def profile_steps(step, n):
     device_ms = sum(by_name.values())
     if device_ms == 0:
         return {"note": "the profiler recorded no device time: not measured"}
-    return {"ms_per_step_by_kernel": by_name, "device_ms_per_step": device_ms,
+    return {"ms_per_step_by_kernel": by_name, "device_ms_per_step": device_ms, "device_ops_per_step": kernels / n,
             "wall_ms_per_step": wall_ms / n, "device_idle_share": 1 - device_ms / (wall_ms / n)}
 
 
@@ -527,6 +644,165 @@ def train(root, specs, seed):
     }, launches_first + launches_resumed
 
 
+FLAGSHIP_STAGE2 = os.path.join(ROOT, "examples", "ADNI", "MLP_VAE_SDF_disentangle_all_true_label_age", "specs.json")
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def stage2(root, seed, device="cuda", changes=None):
+    """The port's Stage-2 path on the Stage-1 experiment the training phase
+    left under ``root``; returns (phase summary, K2 launches, K1 launches)
+    of the two runs. ``changes`` updates the flagship spec further (a CPU
+    rehearsal shrinks it with them)."""
+    import copy
+
+    import torch
+
+    import msd_tpu_torch.workspace as ws
+    from msd_tpu_torch import train_MLP_VAE_deep_sdf
+    from msd_tpu_torch.data.sdf_samples import sample_sdf_batch
+    from msd_tpu_torch.ops import fused_mlp, fused_train
+    from msd_tpu_torch.ops.fused_train import fused_sdf_l1
+
+    t0 = time.time()
+    stage1_exp, data_dir = os.path.join(root, "train_experiment"), os.path.join(root, "train_data")
+    split_path = os.path.join(root, "train_split.json")
+    with open(split_path) as f:
+        split = json.load(f)
+    source = os.path.join(data_dir, "SdfSamples")
+    write_labels(source, split, seed + 2)
+    with open(FLAGSHIP_STAGE2) as f:
+        specs = json.load(f)
+    specs.pop("DataSourceMesh")
+    changed = {
+        "DataSource": source, "TrainSplit": split_path, "TestSplit": split_path,
+        "PretrainedLatentPath": os.path.join(stage1_exp, ws.latent_codes_subdir, "latest.pth"),
+        "PretrainedSDFDecoderPath": os.path.join(stage1_exp, ws.model_params_subdir, "latest.pth"),
+        "NumEpochs": 40, "SnapshotFrequency": 20, "EvalTrainFrequency": 40,
+        "EvalGTMeshDir": os.path.join(data_dir, "SurfaceSamples", "smoke", "ellipsoid"), "EvalGTMeshExt": ".ply",
+        **(changes or {}),
+    }
+    exp = os.path.join(root, "stage2_experiment")
+    ws.save_experiment_specifications(exp, dict(specs, **changed))
+    t_setup = time.time() - t0
+
+    cli = ["-e", exp, "--device", device, "--quiet"]
+    fused_train.LAUNCHES = fused_mlp.LAUNCHES = 0
+    t0 = time.time()
+    trainer = train_MLP_VAE_deep_sdf.main(cli)
+    dev = trainer.device
+    _sync(dev)
+    t_first = time.time() - t0
+    k2_first, k1_first = fused_train.LAUNCHES, fused_mlp.LAUNCHES
+    n_first = changed["NumEpochs"]
+    ws.save_experiment_specifications(exp, dict(specs, **dict(changed, NumEpochs=n_first + 2)))
+    fused_train.LAUNCHES = fused_mlp.LAUNCHES = 0
+    resumed = train_MLP_VAE_deep_sdf.main(cli + ["-c", "latest"])
+    _sync(dev)
+    k2_resumed, k1_resumed = fused_train.LAUNCHES, fused_mlp.LAUNCHES
+
+    nb = len(trainer.train_indices) // trainer.scene_per_batch
+    card = dev.type == "cuda"  # the counters count CUDA launches; a CPU rehearsal runs the plain versions
+    if not trainer.fused_ok or trainer.train_sdf_decoder or (k2_first, k2_resumed) != (n_first * nb * card, 2 * nb * card):
+        raise AssertionError(f"K2 d launches {k2_first} + {k2_resumed}, want one per step ({nb} per epoch)")
+    if card and k1_first <= 0:
+        raise AssertionError("the eval epoch's meshes launched no K1")
+    losses = resumed.loss_log
+    if len(losses) != (n_first + 2) * nb or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"bad loss log: {losses}")
+    if resumed.start_epoch != n_first + 1 or resumed.epoch != n_first + 2:
+        raise AssertionError(f"resumed from {resumed.start_epoch} to {resumed.epoch}")
+    for sub in (ws.model_params_subdir, ws.optimizer_params_subdir, ws.latent_codes_subdir):
+        for name in (f"{changed['SnapshotFrequency']}.pth", f"{n_first}.pth", "latest.pth"):
+            if not os.path.isfile(os.path.join(exp, sub, name)):
+                raise AssertionError(f"missing checkpoint {sub}/{name}")
+    tables = os.path.join(exp, ws.tb_logs_dir, "AgeTables", f"age_table_train_epoch_{n_first}.csv")
+    if not os.path.isfile(tables):
+        raise AssertionError(f"eval epoch wrote no age table: {tables}")
+    if trainer.last_train_sap is None or not math.isfinite(trainer.last_eval_metrics["eval_sdf_loss"]):
+        raise AssertionError("eval epoch gave no SAP or eval loss")
+    # meshes of the VAE's z_hat; a briefly trained model may give a field
+    # with no zero crossing, which create_mesh reports as an empty surface
+    meshes = [n for _, _, names in os.walk(os.path.join(exp, ws.tb_logs_dir)) for n in names
+              if n == f"epoch={n_first}.ply"]
+
+    # the step on the trained state: time, K2 d's share, launches per step
+    B, P = resumed.scene_per_batch, resumed.num_samp_per_scene
+    pos, pc, neg, nc = resumed.dataset.device_arrays(dev)
+    idx = torch.as_tensor(resumed.train_indices[:B], device=dev)
+    labels = resumed._batch_labels(resumed.train_indices[:B], np.random.default_rng(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = sample_sdf_batch(pos, pc, neg, nc, idx, P, gen)
+    weights = resumed.epoch_weights(n_first + 3)
+
+    def step(**kw):
+        return resumed.step(idx, labels, *[weights[i] for i in (2, 3, 0, 1)], batch=batch, generator=gen, **kw)
+
+    fused_train.LAUNCHES = 0
+    step_ms = []
+    for _ in range(11):
+        _sync(dev)
+        t = time.perf_counter()
+        step()
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches_per_step = fused_train.LAUNCHES / len(step_ms)
+    step_med = float(np.median(step_ms[1:]))
+    with torch.no_grad():
+        z_hat = resumed.vae(resumed._teacher_dev[idx], generator=gen)["z_hat"]
+    xyz, gt = batch[:3].permute(1, 2, 0).contiguous(), batch[3]
+
+    def k2d_call():
+        with torch.no_grad():
+            fused_sdf_l1(resumed.sdf_decoder, z_hat, xyz, gt, resumed.clamp_dist, train_net=False)
+
+    k2d_ms = time_ms(k2d_call)
+    profile = profile_steps(step, 3)
+
+    # the step on K2 d against the trainer's float32 autograd path (batch
+    # split 4 bounds its graph's memory), same batch and noise
+    noise = torch.randn(B, resumed.vae_latent_dim, generator=gen, device=dev)
+    cov = torch.randn(B, resumed.vae_latent_dim, generator=gen, device=dev)
+    saved = copy.deepcopy((resumed.vae.state_dict(), resumed.optimizer.count, resumed.optimizer.mu,
+                           resumed.optimizer.nu))
+
+    def run(fused):
+        resumed.vae.load_state_dict(saved[0])
+        resumed.optimizer.count, resumed.optimizer.mu, resumed.optimizer.nu = copy.deepcopy(saved[1:])
+        resumed.fused_ok = fused
+        aux = step(batch_split=1 if fused else 4, noise=noise, cov_noise=cov)
+        grad = torch.cat([p.grad.reshape(-1) for p in resumed.vae.parameters()])
+        return aux, grad
+
+    (aux_k2, g_k2), (aux_ag, g_ag) = run(True), run(False)
+    autograd_step_ms = time_ms(lambda: step(batch_split=4, noise=noise, cov_noise=cov), reps=3, warmup=1)
+    resumed.fused_ok = True
+    vs_autograd = {"sdf_rel": abs(float(aux_k2["sdf"]) - float(aux_ag["sdf"])) / float(aux_ag["sdf"]),
+                   "total_rel": abs(float(aux_k2["total"]) - float(aux_ag["total"])) / abs(float(aux_ag["total"])),
+                   "vae_grad": _cmp(g_k2, g_ag)}
+    if (vs_autograd["sdf_rel"] > K2D_TOL["autograd_loss"]
+            or vs_autograd["vae_grad"]["cos"] < K2D_TOL["autograd_cos"]):
+        raise AssertionError(f"Stage-2 step on K2 d vs float32 autograd: {json.dumps(vs_autograd)}")
+    return {
+        "changed": changed | {"NumEpochs (resume)": n_first + 2}, "scenes": resumed.num_scenes,
+        "train_scenes": len(resumed.train_indices), "steps": len(losses),
+        "setup_seconds": t_setup, "first_run_seconds": t_first, "epoch_seconds": resumed.logs_history["timing"],
+        "epoch_losses": resumed.loss_log_epoch, "train_sap": trainer.last_train_sap,
+        "eval_meshes_with_surface": f"{len(meshes)} of {specs['EvalMeshTrainSceneNumber']}",
+        "holdout_sap": trainer.last_holdout_sap, "eval_metrics": trainer.last_eval_metrics,
+        "k2d_launches": k2_first + k2_resumed, "k1_launches": k1_first + k1_resumed,
+        "step_ms_median": step_med, "step_ms": step_ms, "k2d_launches_per_step": launches_per_step,
+        "k2d_ms_in_step": k2d_ms, "k2d_share_of_step": k2d_ms / step_med,
+        "scenes_per_s": B / (step_med * 1e-3), "profile": profile,
+        "autograd_step_ms": autograd_step_ms, "step_vs_autograd": vs_autograd,
+    }, k2_first + k2_resumed, k1_first + k1_resumed
+
+
 def serve(root, specs, decoder, seed):
     """The port's serving path on a temporary experiment; returns
     (per-shape summaries, evaluate results, seconds of evaluate, K1
@@ -629,9 +905,12 @@ def main(argv=None):
           note="seeded weights, not trained: the Chamfer is no quality figure")
 
     k2 = check_k2(decoder, args.seed, dev)
+    k2d = check_k2d(decoder, args.seed, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
         training, k2_launches = train(root, specs, args.seed)
-    phase("training", **training)
+        phase("training", **training)
+        stage2_summary, k2d_launches, k1_stage2 = stage2(root, args.seed)
+    phase("stage2", **stage2_summary)
 
     bf16 = k1["bfloat16"]
 
@@ -643,7 +922,7 @@ def main(argv=None):
                      "autograd_step_note": "the trainer's float32 autograd step, batch_split 4, same batch"}
     print(json.dumps({"kernels": [{
         "name": "fused_mlp", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_mlp.cu",
-        "replaces": "msd_tpu/ops/fused_mlp.py:211", "launches": launches,
+        "replaces": "msd_tpu/ops/fused_mlp.py:211", "launches": launches, "launches_stage2": k1_stage2,
         "max_abs_err": worst(bf16), "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes the whole decoder",
@@ -663,6 +942,11 @@ def main(argv=None):
                         "max_rel_frobenius": a["vs_plain"]["worst_grad_rel"],
                         "step_ms": training["step_ms_by_path"]["k2_a"],
                         "autograd_step_ms": training["step_ms_by_path"]["autograd_a"]},
+        "variant_d": {k: k2d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "design_bytes_ms")}
+                     | {"max_abs_err": k2d["vs_plain"]["dlat"]["max_abs_err"],
+                        "max_rel_frobenius": k2d["vs_plain"]["dlat"]["rel"], "loss_rel": k2d["vs_plain"]["loss_rel"],
+                        "launches": k2d_launches, "step_ms": stage2_summary["step_ms_median"],
+                        "autograd_step_ms": stage2_summary["autograd_step_ms"], "library_ms": None},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

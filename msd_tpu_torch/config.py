@@ -9,6 +9,7 @@ accepts the same raw JSON unchanged, with the same defaulting semantics.
 from __future__ import annotations
 
 import logging
+import os
 from typing import Any, Mapping
 
 # Required Stage-1 keys (ref: train_deep_sdf.py:217-296).
@@ -35,6 +36,21 @@ def get_spec_with_default(specs: Mapping[str, Any], key: str, default):
         return default
 
 
+def resolve_spec_path(path, experiment_directory: str):
+    """Resolve a spec-relative path (ref: train_MLP_VAE_deep_sdf.py:56-61):
+    absolute paths pass through; a relative path is tried against the
+    experiment directory, then taken as it is (the working directory)."""
+    if path is None:
+        return None
+    path = os.path.expanduser(str(path))
+    if os.path.isabs(path):
+        return path
+    candidate = os.path.join(experiment_directory, path)
+    if os.path.exists(candidate):
+        return candidate
+    return path
+
+
 def validate_stage1_specs(specs: Mapping[str, Any]):
     missing = [k for k in STAGE1_REQUIRED_KEYS if k not in specs]
     if missing:
@@ -58,7 +74,8 @@ NOOP_KEYS = {
 
 def note_noop_keys(specs: Mapping[str, Any]) -> None:
     """Log reference keys present in the spec that are accepted as no-ops
-    (ref keys: train_deep_sdf.py:394-403)."""
+    (ref keys: train_deep_sdf.py:394-403, train_MLP_VAE_deep_sdf.py
+    DataLoaderThreads/LoadDatasetIntoRAM/LatentExportBatchSize)."""
     for key, why in NOOP_KEYS.items():
         if key in specs:
             logging.info("spec key %s accepted but unused (%s)", key, why)

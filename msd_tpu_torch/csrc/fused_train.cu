@@ -1,4 +1,4 @@
-// Stage-1 fused loss and gradients (K2, variants a and b) for NVIDIA Hopper
+// Fused SDF loss and gradients (K2, variants b, a and d) for NVIDIA Hopper
 // (sm_90a).
 //
 // Replaces msd_tpu/ops/fused_train.py:_make_kernel, the Pallas TPU kernel
@@ -18,9 +18,15 @@
 // with D_l = 1[h_l > 0] read from the bf16 h, products of bf16 operands
 // accumulated in float32 and every epilogue in float32, as the TPU kernel.
 //
+// Variant d (frozen decoder, the Stage-2 step) computes the primal, the loss
+// and the delta chain for the per-scene dc sums only: no weight gradients,
+// and the layer-0 delta, which nothing reads but its column sums, is not
+// stored (chain_kernel with out == null).
+//
 // Bound on an H100: operations. Variant b costs 18.9 MFLOP per point at the
-// flagship width (9.44 for a), so the flagship step (32 x 16384 points)
-// needs at least 10.0 ms (5.0 ms) at the 989 TFLOP/s dense bf16 peak.
+// flagship width (9.44 for a, 6.29 for d), so the flagship step (32 x 16384
+// points) needs at least 10.0 ms (5.0 ms, 3.3 ms) at the 989 TFLOP/s dense
+// bf16 peak.
 //
 // Design. The TPU kernel held a 1024-point tile's h and u and f32
 // accumulators for every weight gradient in 100 MB of VMEM and carried them
@@ -185,7 +191,7 @@ struct ChainParams {
   int P;              // points per scene
   int relu;           // 1: ReLU; 0: multiply by D = 1[mask > 0]
   const bf16* mask;   // [n][N] (relu == 0)
-  bf16* out;          // [n][N]
+  bf16* out;          // [n][N], or null when only colsum is wanted
   float* colsum;      // [n / 64][N] column sums of the float32 output, or null
 };
 
@@ -242,7 +248,7 @@ __global__ void __launch_bounds__(NTHREADS) chain_kernel(const ChainParams p) {
     if (p.cvec != nullptr) v += p.cvec[(pr / p.P) * p.N + pc];
     if (p.relu) v = fmaxf(v, 0.0f);
     else v = bf(p.mask[pr * p.N + pc]) > 0.0f ? v : 0.0f;
-    p.out[pr * p.N + pc] = __float2bfloat16_rn(v);
+    if (p.out != nullptr) p.out[pr * p.N + pc] = __float2bfloat16_rn(v);
     cs[2 * ((i >> 2) & 3) + (i & 1)] += v;
   }
   if (p.colsum == nullptr) return;
@@ -500,7 +506,7 @@ int msd_ft_chain(const void* A, const void* B, long long n, int N, int K, const 
                  const void* cvec, int P, int relu, const void* mask, void* out, void* colsum, void* stream) {
   if (n <= 0 || n % PT_TILE || N <= 0 || N % BN || K < 0 || K % BK || (K > 0) != (A != nullptr) ||
       (K > 0 && B == nullptr) || (xv == nullptr) != (wx == nullptr) || (cvec != nullptr && P <= 0) ||
-      (!relu && mask == nullptr) || out == nullptr || n / BM > 65535)
+      (!relu && mask == nullptr) || (out == nullptr && colsum == nullptr) || n / BM > 65535)
     return bad();
   ChainParams p;
   p.A = static_cast<const bf16*>(A);

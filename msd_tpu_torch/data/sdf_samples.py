@@ -13,11 +13,12 @@ from __future__ import annotations
 import logging
 import math
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
+from msd_tpu_torch.data.labels import labels_for_instances
 from msd_tpu_torch.data.splits import get_instance_filenames, split_instance_ids
 
 # Padded scene slabs are rounded up to a multiple of this, so any chunklet
@@ -89,7 +90,9 @@ def sample_sdf_batch(pos, pos_counts, neg, neg_counts, scene_indices, subsample:
 @dataclass
 class SdfDataset:
     """All SDF samples of a split as padded arrays (host copies AoS
-    [S, Nmax, 4]); ``device_arrays`` puts them on a device in SoA layout."""
+    [S, Nmax, 4]); ``device_arrays`` puts them on a device in SoA layout.
+    ``labels`` [S, L] (NaN where an id has none) when a label map was
+    given."""
 
     npyfiles: List[str]
     instance_ids: List[str]
@@ -98,10 +101,18 @@ class SdfDataset:
     neg: np.ndarray
     neg_counts: np.ndarray
     subsample: int
+    labels: Optional[np.ndarray] = None
     _device: dict = field(default_factory=dict, repr=False)
 
     @classmethod
-    def from_split(cls, data_source: str, split, subsample: int) -> "SdfDataset":
+    def from_split(cls, data_source: str, split, subsample: int, labels: Optional[dict] = None,
+                   warn_missing_labels: bool = True, return_surface_points: bool = False) -> "SdfDataset":
+        """``labels``: an id -> vector map (``data.labels.load_labels``).
+        Surface point clouds, for the point encoders, are not ported yet."""
+        if return_surface_points:
+            raise NotImplementedError(
+                "surface point clouds (point encoders, ROADMAP M9) are not ported to msd_tpu_torch yet"
+            )
         npyfiles = get_instance_filenames(data_source, split)
         instance_ids = split_instance_ids(split)
         pos_list, neg_list, keep_files, keep_ids = [], [], [], []
@@ -123,7 +134,10 @@ class SdfDataset:
             raise RuntimeError(f"no sample files found under {data_source}")
         pos, pos_counts = pad_stack(pos_list)
         neg, neg_counts = pad_stack(neg_list)
-        return cls(keep_files, keep_ids, pos, pos_counts, neg, neg_counts, subsample)
+        label_arr = None
+        if labels is not None:
+            label_arr = labels_for_instances(labels, keep_ids, warn_missing=warn_missing_labels)
+        return cls(keep_files, keep_ids, pos, pos_counts, neg, neg_counts, subsample, label_arr)
 
     def __len__(self):
         return len(self.npyfiles)

@@ -1,4 +1,4 @@
-"""SDF regression losses of Stage 1 (counterpart of ``msd_tpu/losses/sdf.py``).
+"""SDF regression losses of Stage 1 and Stage 2 (counterpart of ``msd_tpu/losses/sdf.py``).
 
 ref: train_deep_sdf.py:443,566-616 (clamped L1 with sum reduction divided by
 the total sample count, code-norm regularizer with a 100-epoch ramp) and
@@ -38,3 +38,14 @@ def eikonal_loss(grad_xyz, weight=0.002):
     """weight * mean((1 - ||grad f||)^2) (ref: train_deep_sdf.py:724-728).
     ``grad_xyz`` [N, 3] is d(clamped pred)/d(xyz)."""
     return weight * ((1.0 - safe_l2norm(grad_xyz, dim=1)) ** 2).mean()
+
+
+def deep_sdf_loss(pred_sdf, sdf_gt, latent_vecs, code_reg_lambda=1e-4, code_reg_weight=1.0):
+    """Stage-2 SDF-consistency loss, (total, sdf, reg) with sdf =
+    sum|pred - gt| / N and reg = lambda * w * sum||z|| / N over the N
+    per-point latent rows (ref: networks/residual_mlp_vae.py:405-417). No
+    clamping here: callers clamp first."""
+    num = pred_sdf.shape[0]
+    sdf_loss = (pred_sdf - sdf_gt).abs().sum() / num
+    reg = code_reg_lambda * code_reg_weight * safe_l2norm(latent_vecs, dim=1).sum() / num
+    return sdf_loss + reg, sdf_loss, reg

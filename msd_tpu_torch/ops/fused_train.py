@@ -1,34 +1,38 @@
-"""Stage-1 fused loss and gradients (K2, variants b and a), on Hopper.
+"""Fused SDF loss and gradients (K2, variants b, a and d), on Hopper.
 
 Replaces ``msd_tpu/ops/fused_train.py:_make_kernel``, the Pallas TPU kernel
 called at ``build_fused_train`` (``pl.pallas_call`` at ``:423``), and its
 glue ``_fused_point_grads_core``: for one (micro)batch of scenes it returns
-the clamped-L1 loss, the eikonal loss (variant b; variant a has none) and
-every gradient of their sum, from one forward and hand-derived backward
-pass over the points (the derivation is in ``csrc/fused_train.cu`` and
-``msd_tpu/ops/fused_train.py:11-24``). The rounding points are the TPU
-kernel's: xyz, h, u, t, gbar and delta are rounded to the operand type
+the clamped-L1 loss, the eikonal loss (variant b; variants a and d have
+none) and every gradient of their sum, from one forward and hand-derived
+backward pass over the points (the derivation is in ``csrc/fused_train.cu``
+and ``msd_tpu/ops/fused_train.py:11-24``). Variant d (``want_wgrad=False``,
+the frozen decoder of the Stage-2 step) returns the loss and the latent
+gradient only: no weight-gradient products run. The rounding points are the
+TPU kernel's: xyz, h, u, t, gbar and delta are rounded to the operand type
 before their products; products accumulate in float32 and every epilogue
 runs in float32.
 
 The CUDA kernels are ``msd_tpu_torch/csrc/fused_train.cu``. What bounds
 them on an H100: operations. Variant b costs 18.9 MFLOP per point at the
-flagship width (9.44 for a), so the flagship step of 32 x 16384 points
-needs at least 10.0 ms (5.0 ms) at the 989 TFLOP/s dense bf16 peak. The
-bytes the design moves are its second bound: the chains keep h, u, t and
-delta of a chunk of whole scenes in device memory as bf16 (32 KB per point
-at width 512 for b, 16 KB for a); h is written once and read five times
-(three for a), u, t and delta twice (115 KB per point for
-b, 54 KB for a, so 18.0 ms and 8.4 ms per flagship step at 3.35 TB/s,
-above the operation bound). The TPU kernel kept all of that, and an f32
-accumulator per weight gradient, in 100 MB of VMEM; a Hopper block has
-227 KB of shared memory and blocks run in no order, so the work is split
-into GEMM launches per layer (``chain_kernel``), weight-gradient launches
-that sum over the chunk's points in float32 with no atomics
+flagship width (9.44 for a, 6.29 for d), so the flagship step of 32 x 16384
+points needs at least 10.0 ms (5.0 ms, 3.3 ms) at the 989 TFLOP/s dense
+bf16 peak. The bytes the design moves are its second bound: the chains
+keep h, u, t and delta of a chunk of whole scenes in device memory as bf16
+(32 KB per point at width 512 for b, 16 KB for a and d); h is written once
+and read five times (three for a, two for d), u, t and delta twice (once
+for d, whose layer-0 delta is not stored): 115 KB per point for b, 54 KB
+for a, 36 KB for d, so 18.0, 8.4 and 5.7 ms per flagship step at
+3.35 TB/s, above the operation bound. The TPU kernel kept all of that, and
+an f32 accumulator per weight gradient, in 100 MB of VMEM; a Hopper block
+has 227 KB of shared memory and blocks run in no order, so the work is
+split into GEMM launches per layer (``chain_kernel``), weight-gradient
+launches that sum over the chunk's points in float32 with no atomics
 (``wgrad_kernel``, split-K partials summed here), per-point kernels for
 the last layer and the eikonal lane, and segmented sums for the
-three-column dMx and one-row last-layer gradients. Chunks of
-``CHUNK_POINTS`` points bound the scratch (2.1 GB at the flagship width).
+three-column dMx and one-row last-layer gradients. Variant d launches only
+the chains and the last layer. Chunks of ``CHUNK_POINTS`` points bound the
+scratch (2.1 GB at the flagship width).
 
 The latent enters only through per-scene constants c_l = z @ W_z^T + b,
 computed here; d latent, dW_z and db come back from the kernels' per-scene
@@ -136,13 +140,17 @@ def _chunks(S: int, P: int):
 
 
 def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, inv_ntot: float,
-                      eik_coef: float, use_eikonal: bool, dtype: torch.dtype):
+                      eik_coef: float, use_eikonal: bool, dtype: torch.dtype, want_wgrad: bool = True):
     """Plain PyTorch version of K2 over scene chunks.
 
     Mp, Mx: per-layer float32 lists (None where absent); consts: per-layer
     [S, out] float32; xyz [S*P, 3] float32; gt [S*P] clipped float32.
     Returns (l1_sum, eik_sum, dMp, dMx, dc) with dMp/dMx float32 lists
-    shaped like Mp/Mx and dc per-layer [S, out]."""
+    shaped like Mp/Mx and dc per-layer [S, out]. ``want_wgrad=False``
+    (variant d, no eikonal) skips every weight-gradient product; dMp and
+    dMx are then None."""
+    if use_eikonal and not want_wgrad:
+        raise ValueError("fused_train: the eikonal chain needs want_wgrad")
     nl, latent_li = plan.nl, plan.latent_li
     dev = xyz.device
     S = consts[0].shape[0]
@@ -152,8 +160,8 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
 
     W = [None if m is None else rnd(m) for m in Mp]
     WX = [None if m is None else rnd(m) for m in Mx]
-    dMp = [None if m is None else torch.zeros_like(m, dtype=torch.float32) for m in Mp]
-    dMx = [None if m is None else torch.zeros_like(m, dtype=torch.float32) for m in Mx]
+    dMp = [None if m is None or not want_wgrad else torch.zeros_like(m, dtype=torch.float32) for m in Mp]
+    dMx = [None if m is None or not want_wgrad else torch.zeros_like(m, dtype=torch.float32) for m in Mx]
     dc = [torch.zeros(S, o, dtype=torch.float32, device=dev) for o in plan.out]
     l1_sum = torch.zeros((), dtype=torch.float32, device=dev)
     eik_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -221,9 +229,9 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
         delta = sbar[:, None]
         for layer in range(nl - 1, -1, -1):
             d_c = rnd(delta)
-            if W[layer] is not None:
+            if dMp[layer] is not None:
                 dMp[layer] += d_c.t() @ h[layer - 1]
-            if WX[layer] is not None:
+            if dMx[layer] is not None:
                 dMx[layer] += d_c.t() @ xc
             dc[layer][s0:s1] += delta.reshape(s1 - s0, P, -1).sum(1)
             if layer > 0:
@@ -251,8 +259,12 @@ def _ptr(t):
 
 
 def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, inv_ntot: float,
-                     eik_coef: float, use_eikonal: bool, dtype: torch.dtype):
-    """K2 on the card; same contract as ``fused_train_plain``. bf16 only."""
+                     eik_coef: float, use_eikonal: bool, dtype: torch.dtype, want_wgrad: bool = True):
+    """K2 on the card; same contract as ``fused_train_plain``. bf16 only.
+    Variant d (``want_wgrad=False``) launches the primal and delta chains
+    and the last layer only, and stores no layer-0 delta."""
+    if use_eikonal and not want_wgrad:
+        raise ValueError("fused_train: the eikonal chain needs want_wgrad")
     if dtype != torch.bfloat16:
         raise ValueError(f"fused_train kernel: operand dtype {dtype} is not ported (bfloat16 only)")
     if xyz.dtype != torch.float32 or gt.dtype != torch.float32:
@@ -283,9 +295,10 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
     cpad = [_pad(consts[l], S, wpad[l], torch.float32) for l in range(H)]
     c_last = consts[H][:, 0].contiguous()
 
-    dmp = [None] + [torch.zeros(wpad[l], wpad[l - 1], dtype=torch.float32, device=dev) for l in range(1, H)]
-    dmx = {l: torch.zeros(wpad[l], 4, dtype=torch.float32, device=dev) for l in range(H) if Mx[l] is not None}
-    dmp_last = torch.zeros(wpad[H - 1], 4, dtype=torch.float32, device=dev)
+    if want_wgrad:
+        dmp = [None] + [torch.zeros(wpad[l], wpad[l - 1], dtype=torch.float32, device=dev) for l in range(1, H)]
+        dmx = {l: torch.zeros(wpad[l], 4, dtype=torch.float32, device=dev) for l in range(H) if Mx[l] is not None}
+        dmp_last = torch.zeros(wpad[H - 1], 4, dtype=torch.float32, device=dev)
     dc = [torch.zeros(S, wpad[l], dtype=torch.float32, device=dev) for l in range(H)]
     dc_last = torch.zeros(S, dtype=torch.float32, device=dev)
     l1_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -302,6 +315,8 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
             return [torch.empty(n, w, dtype=bf, device=dev) for w in wpad]
 
         h, d = act(), act()
+        if not want_wgrad:
+            d[0] = None  # only its column sums are read
         u, t = (act(), act()) if use_eikonal else (None, None)
         pt = torch.empty(n, 4, dtype=torch.float32, device=dev)
         mtc = torch.empty(n, 4, dtype=torch.float32, device=dev)
@@ -343,6 +358,14 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
         for l in range(H - 1, 0, -1):
             chain(d[l], bwd[l], wpad[l - 1], wpad[l], None, None, None, False, h[l - 1], d[l - 1], colsum[l - 1],
                   f"delta {l - 1}")
+        for l in range(H):
+            dc[l][s0:s1] = colsum[l].reshape(s1 - s0, P // 64, -1).sum(1)
+        lsum = loss.reshape(s1 - s0, P // TILE, 4).sum(1)
+        dc_last[s0:s1] = lsum[:, 2]
+        l1_sum += lsum[:, 0].sum()
+        eik_sum += lsum[:, 1].sum()
+        if not want_wgrad:
+            continue
         # weight gradients
         for l in range(1, H):
             part = torch.empty(WGRAD_SPLIT, wpad[l], wpad[l - 1], dtype=torch.float32, device=dev)
@@ -361,24 +384,21 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
             skinny(d[l], X, u[l] if use_eikonal else None, gb, wpad[l], dmx[l], f"dMx {l}")
         skinny(h[H - 1], sb, t[H - 1] if use_eikonal else None, mtc if use_eikonal else None,
                wpad[H - 1], dmp_last, "dMp last")
-        for l in range(H):
-            dc[l][s0:s1] = colsum[l].reshape(s1 - s0, P // 64, -1).sum(1)
-        lsum = loss.reshape(s1 - s0, P // TILE, 4).sum(1)
-        dc_last[s0:s1] = lsum[:, 2]
-        l1_sum += lsum[:, 0].sum()
-        eik_sum += lsum[:, 1].sum()
 
     global LAUNCHES
     LAUNCHES += 1
+    out_dc = [dc[l][:, : plan.out[l]] for l in range(H)] + [dc_last[:, None]]
+    if not want_wgrad:
+        return l1_sum, eik_sum, [None] * plan.nl, [None] * plan.nl, out_dc
     out_dMp = [None] + [dmp[l][: plan.out[l], : plan.prev[l]] for l in range(1, H)]
     out_dMp.append(dmp_last[: plan.prev[H], :1].t().contiguous())
     out_dMx = [None if Mx[l] is None else dmx[l][: plan.out[l], :3] for l in range(H)] + [None]
-    out_dc = [dc[l][:, : plan.out[l]] for l in range(H)] + [dc_last[:, None]]
     return l1_sum, eik_sum, out_dMp, out_dMx, out_dc
 
 
 def fused_point_grads(decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: float, use_eikonal: bool,
-                      num_total: int, eik_weight: float = 0.002, dtype: torch.dtype = torch.bfloat16):
+                      num_total: int, eik_weight: float = 0.002, dtype: torch.dtype = torch.bfloat16,
+                      want_wgrad: bool = True):
     """Fused loss and gradients for one (micro)batch; the unweighted
     counterpart of ``msd_tpu.ops.fused_train.fused_point_grads_t``.
 
@@ -386,7 +406,8 @@ def fused_point_grads(decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: f
     lat_rows [B, L]; xyz [B, P, 3]; gt [B, P] (unclipped); ``num_total`` is
     the clamped-L1 normalizer (the full batch's points, also under
     batch_split); the eikonal mean runs over this call's B*P points.
-    Returns (dweights, dbiases, dlat, sdf_loss, eikonal_loss).
+    Returns (dweights, dbiases, dlat, sdf_loss, eikonal_loss);
+    ``want_wgrad=False`` (variant d) returns None for dweights and dbiases.
 
     A CPU tensor runs the plain version; a CUDA tensor the kernels, or an
     exception."""
@@ -399,11 +420,12 @@ def fused_point_grads(decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: f
     else:
         raise ValueError(f"fused_point_grads: unsupported device {xyz.device}")
     return point_grads(impl, decoder, weights, biases, lat_rows, xyz, gt, clamp_dist, use_eikonal,
-                       num_total, eik_weight, dtype)
+                       num_total, eik_weight, dtype, want_wgrad)
 
 
 def point_grads(impl, decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: float, use_eikonal: bool,
-                num_total: int, eik_weight: float = 0.002, dtype: torch.dtype = torch.bfloat16):
+                num_total: int, eik_weight: float = 0.002, dtype: torch.dtype = torch.bfloat16,
+                want_wgrad: bool = True):
     """``fused_point_grads`` through ``impl`` (``fused_train_plain`` or
     ``fused_train_cuda``) on any device; comparisons of the kernels with
     their plain version call it directly."""
@@ -422,10 +444,18 @@ def point_grads(impl, decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: f
     args = (plan, [p[0] for p in parts], [p[1] for p in parts], consts,
             xyz.reshape(-1, 3).float().contiguous(),
             gt.reshape(-1).float().clamp(-clamp_dist, clamp_dist).contiguous(),
-            P, float(clamp_dist), 1.0 / num_total, 2.0 * eik_weight / n_eik, bool(use_eikonal), dtype)
+            P, float(clamp_dist), 1.0 / num_total, 2.0 * eik_weight / n_eik, bool(use_eikonal), dtype,
+            bool(want_wgrad))
     l1_sum, eik_sum, dMp, dMx, dc = impl(*args)
     sdf_l = l1_sum / num_total
     eik_l = eik_weight * eik_sum / n_eik if use_eikonal else torch.zeros_like(sdf_l)
+    if not want_wgrad:
+        # frozen decoder: only the latent cotangents (msd_tpu/ops/fused_train.py:673-680)
+        dlat = torch.zeros_like(lat_rows, dtype=torch.float32)
+        for layer, (_, _, wz) in enumerate(parts):
+            if wz is not None:
+                dlat = dlat + dc[layer] @ wz
+        return None, None, dlat, sdf_l, eik_l
 
     L = plan.L
     dweights, dbiases = [], []
@@ -451,31 +481,41 @@ def point_grads(impl, decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: f
 
 class FusedSdfLoss(torch.autograd.Function):
     """Counterpart of the ``custom_vjp`` in ``make_fused_sdf_l1``
-    (``msd_tpu/ops/fused_train.py:558-617``), for the Stage-1 loss.
+    (``msd_tpu/ops/fused_train.py:558-617``), for the Stage-1 loss and the
+    Stage-2 SDF-consistency term.
 
     ``FusedSdfLoss.apply(cfg, lat_rows, xyz, gt, *weights, *biases)`` with
     ``cfg = (decoder, clamp_dist, use_eikonal, num_total, eik_weight,
-    dtype)`` returns (sdf + eikonal, sdf, eikonal); the last two are for
-    logging and carry no gradient. The forward computes every gradient; the
-    backward scales them by the cotangent, and autograd carries them on into
-    weight norm and the latent-table gather."""
+    dtype, want_wgrad)`` returns (sdf + eikonal, sdf, eikonal); the last two
+    are for logging and carry no gradient. The forward computes every
+    gradient; the backward scales them by the cotangent, and autograd
+    carries them on into weight norm and the latent-table gather. With
+    ``want_wgrad`` false (variant d) the weights and biases get no gradient."""
 
     @staticmethod
     def forward(ctx, cfg, lat_rows, xyz, gt, *wb):
-        decoder, clamp_dist, use_eikonal, num_total, eik_weight, dtype = cfg
+        decoder, clamp_dist, use_eikonal, num_total, eik_weight, dtype, want_wgrad = cfg
         k = len(wb) // 2
         dW, db, dlat, sdf_l, eik_l = fused_point_grads(
             decoder, wb[:k], wb[k:], lat_rows.detach(), xyz, gt, clamp_dist, use_eikonal,
-            num_total, eik_weight, dtype,
+            num_total, eik_weight, dtype, want_wgrad,
         )
-        ctx.save_for_backward(dlat, *dW, *db)
+        ctx.n_wb = len(wb)
+        ctx.save_for_backward(dlat, *(dW + db if want_wgrad else ()))
         ctx.mark_non_differentiable(sdf_l, eik_l)
         return sdf_l + eik_l, sdf_l, eik_l
 
     @staticmethod
     def backward(ctx, ct, _ct_sdf, _ct_eik):
         dlat, *rest = ctx.saved_tensors
-        return (None, dlat * ct, None, None, *[g * ct for g in rest])
+        wb = [g * ct for g in rest] if rest else [None] * ctx.n_wb
+        return (None, dlat * ct, None, None, *wb)
+
+
+def _decoder_weights(decoder):
+    n = decoder.num_layers - 1
+    return ([decoder.layer_weight(layer) for layer in range(n)],
+            [getattr(decoder, f"lin{layer}").bias for layer in range(n)])
 
 
 def fused_sdf_loss(decoder, lat_rows, xyz, gt, clamp_dist, use_eikonal, num_total,
@@ -483,9 +523,23 @@ def fused_sdf_loss(decoder, lat_rows, xyz, gt, clamp_dist, use_eikonal, num_tota
     """(sdf + eikonal, sdf, eikonal) of one (micro)batch through K2,
     differentiable with respect to ``lat_rows`` and the decoder's
     parameters. ``gt`` [B, P] unclipped."""
-    n = decoder.num_layers - 1
-    weights = [decoder.layer_weight(layer) for layer in range(n)]
-    biases = [getattr(decoder, f"lin{layer}").bias for layer in range(n)]
-    cfg = (decoder, clamp_dist, use_eikonal, num_total, eik_weight, dtype)
+    weights, biases = _decoder_weights(decoder)
+    cfg = (decoder, clamp_dist, use_eikonal, num_total, eik_weight, dtype, True)
     return FusedSdfLoss.apply(cfg, lat_rows, xyz, gt, *weights, *biases)
 
+
+def fused_sdf_l1(decoder, lat_rows, xyz, gt, clamp_dist, train_net: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+    """The Stage-2 SDF-consistency term through K2, the counterpart of
+    ``make_fused_sdf_l1`` (``msd_tpu/ops/fused_train.py:558-617``):
+    ``sum |clip(pred) - clip(gt)| / (B * P)`` of the decoder at ``lat_rows``
+    [B, L] on ``xyz`` [B, P, 3] against ``gt`` [B, P] (unclipped),
+    differentiable with respect to ``lat_rows`` and, with ``train_net``
+    (variant a), the decoder's parameters. ``train_net=False`` runs variant
+    d: no weight-gradient products, and the decoder gets no gradient."""
+    B, P = xyz.shape[:2]
+    weights, biases = _decoder_weights(decoder)
+    if not train_net:
+        weights, biases = [w.detach() for w in weights], [b.detach() for b in biases]
+    cfg = (decoder, clamp_dist, False, B * P, 0.0, dtype, bool(train_net))
+    return FusedSdfLoss.apply(cfg, lat_rows, xyz, gt, *weights, *biases)[0]

@@ -45,6 +45,7 @@ from msd_tpu_torch.lr_schedules import StepLearningRateOnPlateauSchedule, get_le
 from msd_tpu_torch.models import build_decoder
 from msd_tpu_torch.ops.fused_train import fused_sdf_loss, supports_fused_train
 from msd_tpu_torch.utils import checkpoint as ckpt
+from msd_tpu_torch.utils.logging_utils import open_summary_writer
 from msd_tpu_torch.utils.optim import GroupAdam, project_code_bound
 
 # MatmulPrecision spec values that keep the bf16 products K2 computes in
@@ -64,22 +65,6 @@ def step_seed(seed: int, step: int) -> int:
     """Seed of the point draw of global step ``step``: a resumed run draws
     what an unbroken run would."""
     return (int(seed) * 1_000_003 + int(step)) % (2**63)
-
-
-class _NullWriter:
-    """Stands in for a TensorBoard writer when no writer package imports."""
-
-    def add_scalar(self, *args, **kwargs):
-        pass
-
-    def add_hparams(self, *args, **kwargs):
-        pass
-
-    def flush(self):
-        pass
-
-    def close(self):
-        pass
 
 
 class Stage1Trainer:
@@ -181,22 +166,9 @@ class Stage1Trainer:
 
     @property
     def writer(self):
-        """TensorBoard writer (tensorboardX, else torch.utils.tensorboard),
-        imported at first use; without either, a stand-in that writes
-        nothing (Logs.pth keeps every history)."""
+        """TensorBoard writer, opened at first use (``open_summary_writer``)."""
         if self._writer is None:
-            try:
-                from tensorboardX import SummaryWriter
-            except ImportError:
-                try:
-                    from torch.utils.tensorboard import SummaryWriter
-                except ImportError:
-                    SummaryWriter = None
-            if SummaryWriter is None:
-                logging.warning("no tensorboardX or tensorboard package: no TensorBoard event files are written")
-                self._writer = _NullWriter()
-            else:
-                self._writer = SummaryWriter(log_dir=ws.get_tensorboard_dir(self.experiment_directory))
+            self._writer = open_summary_writer(ws.get_tensorboard_dir(self.experiment_directory))
         return self._writer
 
     # ------------------------------------------------------------------

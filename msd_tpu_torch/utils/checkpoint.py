@@ -3,14 +3,18 @@
 between the reference, ``msd_tpu`` and this port in every direction:
 
 * ModelParameters/<E>.pth     = {"epoch", "model_state_dict"} with the
-  reference's parameter names (ref: train_deep_sdf.py:32-79);
+  reference's parameter names (ref: train_deep_sdf.py:32-79); Stage 2:
+  {"epoch", "vae_state_dict", "sdf_decoder_state_dict"} (msd_tpu/train/
+  stage2.py:1062-1075);
 * LatentCodes/<E>.pth         = {"epoch", "latent_codes": {"weight"}}, an
-  Embedding state dict (the legacy [S, 1, L] tensor is read too);
+  Embedding state dict (the legacy [S, 1, L] tensor is read too); Stage 2
+  stores the VAE's mu there;
 * OptimizerParameters/<E>.pth = {"epoch", "optimizer_state_dict":
   {"msd_tpu_adam": [count, mu leaves..., nu leaves...]}}, ``msd_tpu``'s
   layout: its Adam state flattened in JAX's order (sorted dict keys: "lat"
-  before "net", then "bn<i>"/"lin<i>" by name, then "b" before "w", or
-  "b", "g", "v"; "bias" before "scale"), weights stored [in, out];
+  before "net", "sdf" before "vae", then "bn<i>"/"lin<i>" by name, then "b"
+  before "w", or "b", "g", "v"; "bias" before "scale"; list entries in
+  order), weights stored [in, out];
 * Logs.pth                    = loss/lr/timing/magnitude histories + epoch.
 """
 
@@ -86,49 +90,106 @@ def msd_tpu_names(decoder):
     return sorted(out, key=lambda e: tuple(e[0].split(".")))
 
 
+def vae_msd_tpu_names(vae):
+    """[(msd_tpu leaf path, port parameter name, transposed)] in JAX's
+    flatten order of ``msd_tpu``'s ResidualMLPVAE params: paths like
+    ("encoder", "backbone", "stages", 0, "blocks", 0, "fc1", "w")."""
+    out = []
+    for name, _ in vae.named_parameters():
+        parts = name.split(".")
+        if parts[-2] == "norm":
+            leaf, transposed = _LN_LEAF[parts[-1]], False
+        else:
+            leaf, transposed = _LEAF[parts[-1]]
+        path = tuple(int(q) if q.isdigit() else q for q in parts[:-1]) + (leaf,)
+        out.append((path, name, transposed))
+    return sorted(out, key=lambda e: e[0])
+
+
 def _to_jax(t, transposed):
+    """A port tensor in msd_tpu's layout: ``transposed`` True for [out, in]
+    weights, False for the rest (weight_g [out, 1] becomes [out]), None
+    for a tensor kept as it is."""
     t = t.detach().float().cpu()
     if transposed:
         return t.t().contiguous()
-    return t.reshape(-1).clone() if t.dim() == 2 and t.shape[1] == 1 else t.clone()
+    if transposed is False and t.dim() == 2 and t.shape[1] == 1:
+        return t.reshape(-1).clone()
+    return t.clone()
 
 
-def save_optimizer(experiment_directory, filename, decoder, optimizer, epoch):
-    """``optimizer``: ``utils.optim.GroupAdam`` over groups "net" (the
-    decoder's parameters by name) and "lat" (the latent table)."""
+def _save_flat(experiment_directory, filename, optimizer, entries, epoch):
+    """``entries``: [(group, parameter name, transposed)] of ``optimizer``
+    (a ``utils.optim.GroupAdam``) in msd_tpu's flatten order."""
     d = ws.get_optimizer_params_dir(experiment_directory, True)
-    names = msd_tpu_names(decoder)
     flat = [torch.tensor(optimizer.count, dtype=torch.int32)]
     for moments in (optimizer.mu, optimizer.nu):
-        flat.append(moments["lat"]["weight"].detach().float().cpu().clone())
-        flat += [_to_jax(moments["net"][tname], tr) for _, tname, tr in names]
+        flat += [_to_jax(moments[g][n], tr) for g, n, tr in entries]
     torch.save(
         {"epoch": epoch, "optimizer_state_dict": {"msd_tpu_adam": flat}},
         os.path.join(d, filename),
     )
 
 
-def load_optimizer(experiment_directory, filename, decoder, optimizer):
-    """Fill ``optimizer`` (count and moments, on their devices) from a file
-    in ``msd_tpu``'s layout; returns the epoch."""
+def _load_flat(experiment_directory, filename, optimizer, entries):
     full = os.path.join(ws.get_optimizer_params_dir(experiment_directory), filename)
     if not os.path.isfile(full):
         raise Exception(f'optimizer state dict "{full}" does not exist')
     data = torch.load(full, map_location="cpu", weights_only=False)
     flat = list(data["optimizer_state_dict"]["msd_tpu_adam"])
-    names = msd_tpu_names(decoder)
-    if len(flat) != 1 + 2 * (1 + len(names)):
+    if len(flat) != 1 + 2 * len(entries):
         raise Exception("optimizer state structure mismatch")
     optimizer.count = int(torch.as_tensor(flat[0]))
     it = iter(flat[1:])
     for moments in (optimizer.mu, optimizer.nu):
-        dst = moments["lat"]["weight"]
-        dst.copy_(torch.as_tensor(next(it)).reshape(dst.shape))
-        for _, tname, tr in names:
-            dst = moments["net"][tname]
+        for g, n, tr in entries:
+            dst = moments[g][n]
             src = torch.as_tensor(next(it)).float()
             dst.copy_((src.t() if tr else src).reshape(dst.shape))
     return data["epoch"]
+
+
+def _stage1_entries(decoder):
+    return [("lat", "weight", None)] + [("net", n, tr) for _, n, tr in msd_tpu_names(decoder)]
+
+
+def save_optimizer(experiment_directory, filename, decoder, optimizer, epoch):
+    """``optimizer``: ``utils.optim.GroupAdam`` over groups "net" (the
+    decoder's parameters by name) and "lat" (the latent table)."""
+    _save_flat(experiment_directory, filename, optimizer, _stage1_entries(decoder), epoch)
+
+
+def load_optimizer(experiment_directory, filename, decoder, optimizer):
+    """Fill ``optimizer`` (count and moments, on their devices) from a file
+    in ``msd_tpu``'s layout; returns the epoch."""
+    return _load_flat(experiment_directory, filename, optimizer, _stage1_entries(decoder))
+
+
+def _stage2_entries(vae, sdf_decoder):
+    entries = [] if sdf_decoder is None else [("sdf", n, tr) for _, n, tr in msd_tpu_names(sdf_decoder)]
+    return entries + [("vae", n, tr) for _, n, tr in vae_msd_tpu_names(vae)]
+
+
+def save_stage2_optimizer(experiment_directory, filename, vae, sdf_decoder, optimizer, epoch):
+    """Stage 2's optimizer file: ``optimizer`` has group "vae" and, when
+    the SDF decoder trains, "sdf" (``sdf_decoder`` None otherwise)."""
+    _save_flat(experiment_directory, filename, optimizer, _stage2_entries(vae, sdf_decoder), epoch)
+
+
+def load_stage2_optimizer(experiment_directory, filename, vae, sdf_decoder, optimizer):
+    return _load_flat(experiment_directory, filename, optimizer, _stage2_entries(vae, sdf_decoder))
+
+
+def save_stage2_model(experiment_directory, filename, vae, sdf_decoder, epoch):
+    d = ws.get_model_params_dir(experiment_directory, True)
+    torch.save(
+        {
+            "epoch": epoch,
+            "vae_state_dict": {k: v.detach().cpu() for k, v in vae.state_dict().items()},
+            "sdf_decoder_state_dict": {k: v.detach().cpu() for k, v in sdf_decoder.state_dict().items()},
+        },
+        os.path.join(d, filename),
+    )
 
 
 def save_logs(experiment_directory, loss_log, lr_log, timing_log, lat_mag_log, param_mag_log, epoch):

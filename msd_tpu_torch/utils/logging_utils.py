@@ -49,3 +49,34 @@ def configure_logging(args=None, logfile: str | None = None):
         fh = logging.FileHandler(logfile)
         fh.setFormatter(formatter)
         logger.addHandler(fh)
+
+
+class _NullWriter:
+    """Stands in for a TensorBoard writer when no writer package imports."""
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    def add_hparams(self, *args, **kwargs):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def open_summary_writer(log_dir: str):
+    """A TensorBoard writer on ``log_dir`` (tensorboardX, else
+    torch.utils.tensorboard), imported here; without either, a stand-in
+    that writes nothing (the trainers' Logs.pth keeps every history)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            logging.warning("no tensorboardX or tensorboard package: no TensorBoard event files are written")
+            return _NullWriter()
+    return SummaryWriter(log_dir=log_dir)

@@ -217,6 +217,68 @@ def test_k2_matches_plain_flagship_width(use_eikonal, dev, monkeypatch):
     _k2_check(dec, 4, 4096, use_eikonal, dev)
 
 
+def _k2_d_check(dec, B, P, dev):
+    """Variant d (want_wgrad=False) against its plain version: loss sum
+    1e-5 relative (float32 sums of the same per-point values in two orders)
+    and dlat 1e-2 relative Frobenius (two bf16 summation orders); no weight
+    gradients."""
+    from msd_tpu_torch.ops import fused_train as ft
+
+    args = (dec, *_k2_inputs(dec, B, P, dev), 0.1, False, B * P)
+    launches = ft.LAUNCHES
+    out = ft.fused_point_grads(*args, want_wgrad=False)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES == launches + 1
+    ref = ft.point_grads(ft.fused_train_plain, *args, want_wgrad=False)
+    assert out[0] is None and out[1] is None
+    assert abs(float(out[3]) - float(ref[3])) <= 1e-5 * abs(float(ref[3]))
+    assert torch.isfinite(out[2]).all() and _rel(out[2], ref[2]) <= 1e-2
+    # the same dlat as variant a's kernel
+    a = ft.fused_point_grads(*args)
+    assert _rel(out[2], a[2]) <= 1e-2
+
+
+@pytest.mark.parametrize("name", list(K2_CONFIGS))
+def test_k2_d_matches_plain(name, dev):
+    dec = _decoder(K2_CONFIGS[name][1], dev)
+    _k2_d_check(dec, 4, 256, dev)
+
+
+def test_k2_d_matches_plain_flagship_width(dev, monkeypatch):
+    from msd_tpu_torch.ops import fused_train as ft
+
+    with open(os.path.join(ROOT, "examples", "ADNI", "minimal_eikonal", "specs.json")) as f:
+        specs = json.load(f)
+    dec = build_decoder(specs["NetworkArch"], specs["CodeLength"], specs["NetworkSpecs"],
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    give_surface_(dec, torch.zeros(specs["CodeLength"]))
+    monkeypatch.setattr(ft, "CHUNK_POINTS", 2 * 4096)  # two chunks
+    _k2_d_check(dec, 4, 4096, dev)
+
+
+def test_fused_sdf_l1_on_card(dev):
+    """The Stage-2 term on the card: bf16 K2 d and a against float32
+    autograd of the same term; the latent gradient points the same way
+    (cosine over 0.95, as the Stage-1 trainer test allows for bf16: 0.984
+    measured on an H100 at this width)."""
+    from msd_tpu_torch.ops import fused_train as ft
+
+    dec = _decoder(K2_CONFIGS["a_latent_in"][1], dev)
+    _, _, lat, xyz, gt = _k2_inputs(dec, 4, 256, dev)
+    z = lat.clone().requires_grad_(True)
+    pred = dec(torch.cat([z.repeat_interleave(256, 0), xyz.reshape(-1, 3)], 1)).clamp(-0.1, 0.1)
+    ref = (pred[:, 0] - gt.reshape(-1).clamp(-0.1, 0.1)).abs().mean()
+    (g_ref,) = torch.autograd.grad(ref, z)
+    for train_net in (False, True):
+        z = lat.clone().requires_grad_(True)
+        dec.zero_grad()
+        v = ft.fused_sdf_l1(dec, z, xyz, gt, 0.1, train_net=train_net)
+        v.backward()
+        assert abs(float(v.detach()) - float(ref)) <= 1e-2 * float(ref)
+        assert float(torch.nn.functional.cosine_similarity(z.grad.reshape(-1), g_ref.reshape(-1), 0)) > 0.95
+        assert all((p.grad is not None) == train_net for p in dec.parameters())
+
+
 def test_k2_cuda_tensor_never_falls_back(dev, monkeypatch):
     from msd_tpu_torch.ops import _build
     from msd_tpu_torch.ops import fused_train as ft
@@ -225,6 +287,9 @@ def test_k2_cuda_tensor_never_falls_back(dev, monkeypatch):
     args = (dec, *_k2_inputs(dec, 2, 128, dev), 0.1, True, 256)
     with pytest.raises(ValueError, match="bfloat16"):
         ft.fused_point_grads(*args, dtype=torch.float32)
+    d_args = (dec, *_k2_inputs(dec, 2, 128, dev), 0.1, False, 256)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ft.fused_point_grads(*d_args, dtype=torch.float32, want_wgrad=False)
 
     def broken(name):
         raise RuntimeError("nvcc failed")
@@ -232,6 +297,8 @@ def test_k2_cuda_tensor_never_falls_back(dev, monkeypatch):
     monkeypatch.setattr(_build, "load_library", broken)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         ft.fused_point_grads(*args)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ft.fused_point_grads(*d_args, want_wgrad=False)
     ln = _decoder(CONFIGS["layer_norm"], dev)
     with pytest.raises(ft.UnsupportedConfig):
         ft.fused_point_grads(ln, *_k2_inputs(ln, 2, 128, dev), 0.1, True, 256)
@@ -289,3 +356,29 @@ def test_trainer_k2_variant_c_raises_on_card(dev, train_data, tmp_path):
 
     with pytest.raises(NotImplementedError, match="variant c"):
         Stage1Trainer(str(tmp_path / "c"), specs=dict(train_data, EikonalNumPoints=128), device="cuda")
+
+
+def test_stage2_trainer_takes_k2d_once_per_step(dev, train_data, tmp_path):
+    """The Stage-2 trainer with the flagship switches (frozen decoder) takes
+    K2 variant d once per step, in bf16, and its metrics are finite."""
+    from chip_smoke import write_labels
+    from msd_tpu_torch.ops import fused_train as ft
+    from msd_tpu_torch.train.stage2 import Stage2Trainer
+
+    with open(os.path.join(ROOT, "examples", "ADNI", "MLP_VAE_SDF_disentangle_all_true_label_age", "specs.json")) as f:
+        specs = json.load(f)
+    for key in ("DataSourceMesh", "TestSplit", "PretrainedLatentPath", "PretrainedSDFDecoderPath", "EvalGTMeshDir"):
+        specs.pop(key)
+    with open(train_data["TrainSplit"]) as f:
+        write_labels(train_data["DataSource"], json.load(f), seed=1)
+    specs.update(DataSource=train_data["DataSource"], TrainSplit=train_data["TrainSplit"],
+                 NetworkSpecs=TRAIN_SPECS["NetworkSpecs"], CodeLength=16, VAEInputDim=16, SamplesPerScene=256,
+                 ScenesPerBatch=2, TrainLatentHoldoutFraction=0.0, EvalTrainFrequency=0, EvalTestFrequency=0)
+    teacher = (0.1 * np.random.default_rng(0).standard_normal((4, 16))).astype(np.float32)
+    tr = Stage2Trainer(str(tmp_path / "s2"), specs=specs, teacher_latents=teacher, device="cuda")
+    assert tr.fused_ok and tr.k2_dtype == torch.bfloat16 and not tr.train_sdf_decoder
+    launches = ft.LAUNCHES
+    m = tr.train_epoch(1)
+    assert ft.LAUNCHES == launches + 2  # 4 scenes, 2 per batch
+    assert all(np.isfinite(v) for v in m.values())
+    assert not any(p.grad is not None for p in tr.sdf_decoder.parameters())

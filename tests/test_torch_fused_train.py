@@ -1,4 +1,4 @@
-"""msd_tpu_torch's K2 (the Stage-1 fused loss and gradients) on the CPU:
+"""msd_tpu_torch's K2 (the fused SDF loss and gradients) on the CPU:
 its plain PyTorch version against msd_tpu's Pallas kernel in interpret mode
 and against a torch-autograd oracle, in float32 on small decoders. Weights
 are made by msd_tpu from a seed; latents, points and ground truth by numpy.
@@ -196,8 +196,126 @@ def test_flop_and_byte_counts_at_flagship_width():
     from chip_smoke import design_bytes, step_flops
 
     dec = DeepSDFDecoder(256, dims=[512] * 8, latent_in=[4])
-    assert step_flops(dec, 1, True) == 2 * 6 * 1573376  # 18.9 MFLOP per point
-    assert step_flops(dec, 1, False) == 2 * 3 * 1573376
+    assert step_flops(dec, 1, "b") == 2 * 6 * 1573376  # 18.9 MFLOP per point
+    assert step_flops(dec, 1, "a") == 2 * 3 * 1573376
+    assert step_flops(dec, 1, "d") == 2 * 2 * 1573376  # 6.29 MFLOP per point
     hidden = (7 * 512 + 256) * 2  # bf16 bytes of one point's hidden widths, 253 padded to 256
-    assert design_bytes(dec, 1, True) == hidden * 15 + 64
-    assert design_bytes(dec, 1, False) == hidden * 7 + 64
+    assert design_bytes(dec, 1, "b") == hidden * 15 + 64
+    assert design_bytes(dec, 1, "a") == hidden * 7 + 64
+    # d: h written once and read twice; delta of layers 1-7 written and read once
+    assert design_bytes(dec, 1, "d") == hidden * 3 + (hidden - 512 * 2) * 2 + 64
+
+
+# K2 variant d (want_wgrad=False, the frozen decoder of the Stage-2 step):
+# loss and dlat only, against msd_tpu's Pallas kernel built with
+# want_wgrad=False in interpret mode.
+D_CASES = {
+    "latent_in": dict(),
+    "weight_norm": dict(weight_norm=True),
+    "no_latent_in": dict(latent_in=()),
+}
+
+
+def _port_d(tdec, lat, xyz, gt, dtype=torch.float32):
+    B, P = xyz.shape[:2]
+    n = tdec.num_layers - 1
+    with torch.no_grad():
+        weights = [tdec.layer_weight(layer) for layer in range(n)]
+        biases = [getattr(tdec, f"lin{layer}").bias for layer in range(n)]
+        return ft.fused_point_grads(tdec, weights, biases, torch.tensor(lat), torch.tensor(xyz),
+                                    torch.tensor(gt), CLAMP, False, B * P, dtype=dtype, want_wgrad=False)
+
+
+@pytest.mark.parametrize("case", list(D_CASES))
+def test_variant_d_plain_matches_pallas_interpret(case):
+    """Loss to rtol 1e-5 and dlat to rtol 2e-4 / atol 1e-7 (the float32
+    tolerances of the other variants); no weight gradients at all."""
+    jdec, params, tdec, lat, xyz, gt = make_case(seed=11, **D_CASES[case])
+    B, P = xyz.shape[:2]
+    g_net, g_lat, aux = jax_ft.fused_point_grads(
+        jdec, jax.tree.map(jnp.asarray, params), jnp.asarray(lat), jnp.asarray(xyz),
+        jnp.asarray(gt[..., None]), CLAMP, False, B * P, dtype=jnp.float32, interpret=True,
+        want_net_grads=False,
+    )
+    dW, db, dlat, sdf, eik = _port_d(tdec, lat, xyz, gt)
+    assert dW is None and db is None
+    assert all(float(jnp.max(jnp.abs(leaf))) == 0.0 for leaf in jax.tree.leaves(g_net))
+    np.testing.assert_allclose(float(sdf), float(aux["sdf"]), rtol=1e-5, atol=1e-7)
+    assert float(eik) == 0.0
+    np.testing.assert_allclose(dlat.numpy(), np.asarray(g_lat), rtol=2e-4, atol=1e-7)
+
+
+def test_variant_d_bf16_matches_pallas_interpret_bf16():
+    """bf16 operands, as on the card: loss to 1e-5 relative and dlat to 1e-5
+    relative Frobenius against the Pallas kernel's bf16 rounding."""
+    jdec, params, tdec, lat, xyz, gt = make_case(seed=12)
+    B, P = xyz.shape[:2]
+    _, g_lat, aux = jax_ft.fused_point_grads(
+        jdec, jax.tree.map(jnp.asarray, params), jnp.asarray(lat), jnp.asarray(xyz),
+        jnp.asarray(gt[..., None]), CLAMP, False, B * P, dtype=jnp.bfloat16, interpret=True,
+        want_net_grads=False,
+    )
+    _, _, dlat, sdf, _ = _port_d(tdec, lat, xyz, gt, torch.bfloat16)
+    np.testing.assert_allclose(float(sdf), float(aux["sdf"]), rtol=1e-5)
+    ref = np.asarray(g_lat)
+    assert np.linalg.norm(dlat.numpy() - ref) <= 1e-5 * np.linalg.norm(ref)
+
+
+def test_variant_d_equals_variant_a_dlat(monkeypatch):
+    """d is a without the weight gradients: the same loss and dlat, bit for
+    bit, also across scene chunks."""
+    _, _, tdec, lat, xyz, gt = make_case(seed=13)
+    B, P = xyz.shape[:2]
+    n = tdec.num_layers - 1
+    with torch.no_grad():
+        weights = [tdec.layer_weight(layer) for layer in range(n)]
+        biases = [getattr(tdec, f"lin{layer}").bias for layer in range(n)]
+        a = ft.fused_point_grads(tdec, weights, biases, torch.tensor(lat), torch.tensor(xyz), torch.tensor(gt),
+                                 CLAMP, False, B * P, dtype=torch.float32)
+    d = _port_d(tdec, lat, xyz, gt)
+    assert torch.equal(a[2], d[2]) and torch.equal(a[3], d[3])
+    monkeypatch.setattr(ft, "CHUNK_POINTS", 2 * P)
+    chunked = _port_d(tdec, lat, xyz, gt)
+    np.testing.assert_allclose(chunked[2].numpy(), d[2].numpy(), rtol=1e-5, atol=1e-8)
+    np.testing.assert_allclose(float(chunked[3]), float(d[3]), rtol=1e-6)
+
+
+def test_variant_d_refuses_eikonal():
+    _, _, tdec, lat, xyz, gt = make_case(seed=13, B=1, P=128)
+    n = tdec.num_layers - 1
+    with torch.no_grad(), pytest.raises(ValueError, match="want_wgrad"):
+        ft.fused_point_grads(tdec, [tdec.layer_weight(i) for i in range(n)],
+                             [getattr(tdec, f"lin{i}").bias for i in range(n)], torch.tensor(lat),
+                             torch.tensor(xyz), torch.tensor(gt), CLAMP, True, 128, want_wgrad=False)
+
+
+@pytest.mark.parametrize("train_net", [True, False], ids=["a", "d"])
+def test_fused_sdf_l1_matches_make_fused_sdf_l1(train_net):
+    """The port's Stage-2 SDF-consistency term against msd_tpu's
+    make_fused_sdf_l1 (interpret mode) through a nonlinear consumer, as
+    tests/test_fused_train.py:353-430: value rtol 1e-5, gradients rtol 2e-4 /
+    atol 1e-7; with train_net=False the decoder takes no gradient."""
+    jdec, params, tdec, lat, xyz, gt = make_case(weight_norm=True, seed=14)
+    fused_j = jax_ft.make_fused_sdf_l1(jdec, CLAMP, dtype=jnp.float32, interpret=True, train_net=train_net)
+
+    def chained(p, z):
+        return jnp.tanh(3.0 * fused_j(p, z, jnp.asarray(xyz), jnp.asarray(gt[..., None]))) * 2.0
+
+    v_j, (g_net_j, g_lat_j) = jax.value_and_grad(chained, argnums=(0, 1))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(lat))
+    tdec.zero_grad()
+    z = torch.tensor(lat, requires_grad=True)
+    v = torch.tanh(3.0 * ft.fused_sdf_l1(tdec, z, torch.tensor(xyz), torch.tensor(gt), CLAMP,
+                                         train_net=train_net, dtype=torch.float32)) * 2.0
+    v.backward()
+    np.testing.assert_allclose(float(v.detach()), float(v_j), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(z.grad.numpy(), np.asarray(g_lat_j), rtol=2e-4, atol=1e-7)
+    if not train_net:
+        assert all(p.grad is None for p in tdec.parameters())
+        return
+    ours = to_jax_layout(tdec, {n: p.grad for n, p in tdec.named_parameters()})
+    flat = {".".join(p.key for p in path): np.asarray(x)
+            for path, x in jax.tree_util.tree_flatten_with_path(g_net_j)[0]}
+    assert sorted(ours) == sorted(flat)
+    for k in flat:
+        np.testing.assert_allclose(ours[k], flat[k], rtol=2e-4, atol=1e-7, err_msg=k)

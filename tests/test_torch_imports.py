@@ -1,5 +1,6 @@
 """The port stands alone: no module of msd_tpu_torch, and not chip_smoke.py,
-imports JAX or any module of msd_tpu."""
+imports JAX, any module of msd_tpu, or scikit-learn (the card's machine has
+no scikit-learn)."""
 
 import ast
 import os
@@ -31,7 +32,7 @@ def _imported_modules(path):
 
 def _forbidden(module):
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "msd_tpu", "flax", "optax")
+    return top in ("jax", "jaxlib", "msd_tpu", "flax", "optax", "sklearn")
 
 
 def test_port_files_exist():
