@@ -60,6 +60,25 @@ non-zero and prints no result. Phases, one JSON line each:
    split, and the trainer's step on K2 d against its float32 autograd path
    (loss and VAE gradient).
 
+9. k2ce: K2 variants c (EikonalNumPoints 4096 of 16384 points per scene)
+   and e (per-scene 0/1 weights; eikonal on, one pad scene) against float32
+   autograd and their plain version on 4 seeded scenes x 16384 points, then
+   against the plain version at 32 x 16384 points (e: scene 31 weighted
+   0), where both are timed beside the operation bound; a pad scene's dlat
+   must be exactly 0.
+10. training_eik4096: ``python -m msd_tpu_torch.train_deep_sdf --device
+   cuda`` on the training phase's data with EikonalNumPoints 4096 (the
+   flagship's configuration of ``bench.py``'s "bench-eik4096") for 8 steps,
+   K2 c once per step; then its step time, K2's share of the step and
+   launches per step.
+11. dp: the flagship Stage-1 at ScenesPerBatch 32 on 3 ranks, so the batch
+   pads to 33 and every rank runs K2 e, for 3 steps, against one process
+   on the same batches (step-1 losses and summed pre-Adam gradients); then
+   2 epochs of the Stage-2 experiment on 2 ranks (K2 d split by scenes)
+   against one process. NCCL with one GPU per rank where there are enough
+   GPUs, else gloo with every rank on cuda:0: a correctness drive of the
+   multi-rank path, not a scaling figure.
+
 Then the ``kernels`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero.
@@ -277,10 +296,11 @@ def k2_inputs(decoder, B, P, seed, dev):
     return weights, biases, lat, xyz, gt
 
 
-def autograd_grads(decoder, weights, biases, lat, xyz, gt, clamp, use_eikonal, num_total):
+def autograd_grads(decoder, weights, biases, lat, xyz, gt, clamp, use_eikonal, num_total, eik_points=None):
     """(dweights, dbiases, dlat, sdf, eikonal) of the Stage-1 point losses
     by float32 autograd, written out as the trainer's autograd path computes
-    them: the float32 oracle K2 is held against."""
+    them: the float32 oracle K2 is held against. ``eik_points`` E: the
+    eikonal over the first E points of each scene only."""
     import torch
 
     from msd_tpu_torch.losses.sdf import eikonal_loss
@@ -294,6 +314,8 @@ def autograd_grads(decoder, weights, biases, lat, xyz, gt, clamp, use_eikonal, n
     eik = torch.zeros((), device=xyz.device)
     if use_eikonal:
         (gx,) = torch.autograd.grad(pred.sum(), x, create_graph=True)
+        if eik_points is not None:  # a point's prediction depends on its own xyz only
+            gx = gx.reshape(xyz.shape)[:, :eik_points].reshape(-1, 3)
         eik = eikonal_loss(gx)
     (sdf + eik).backward()
     lins = [getattr(decoder, f"lin{layer}") for layer in range(decoder.num_layers - 1)]
@@ -347,11 +369,13 @@ def k2_errors(decoder, out, ref):
 K2_SWEEPS = {"b": 6, "a": 3, "d": 2}
 
 
-def step_flops(decoder, n_points, variant):
-    """Floating-point operations of K2 ``variant`` ("b", "a" or "d") on
-    ``n_points``: 2 per multiply-add of the per-point products (the
+def step_flops(decoder, n_points, variant, eik_share=1.0):
+    """Floating-point operations of K2 ``variant`` ("b", "a", "c" or "d")
+    on ``n_points``: 2 per multiply-add of the per-point products (the
     latent's share is per scene and not counted): 18.9, 9.44 and 6.29
-    MFLOP per point at the flagship width."""
+    MFLOP per point at the flagship width. Variant c runs a's sweeps over
+    every point and the eikonal's three (u-chain, t-chain, their weight
+    gradients) over the gated share ``eik_share`` of them."""
     from msd_tpu_torch.ops.fused_train import layer_plan
 
     plan = layer_plan(decoder)
@@ -359,10 +383,11 @@ def step_flops(decoder, n_points, variant):
     for layer in range(plan.nl):
         k = (plan.prev[layer] or 0) + (3 if plan.kinds[layer] != "plain" else 0)
         per_point += k * plan.out[layer]
-    return 2.0 * per_point * n_points * K2_SWEEPS[variant]
+    sweeps = K2_SWEEPS["a"] * (1 + eik_share) if variant == "c" else K2_SWEEPS[variant]
+    return 2.0 * per_point * n_points * sweeps
 
 
-def design_bytes(decoder, n_points, variant):
+def design_bytes(decoder, n_points, variant, eik_share=1.0):
     """Bytes K2's design moves through device memory for ``n_points``
     (activations only; weights and per-scene terms are small): each bf16
     chain activation, its width padded to WIDTH_PAD, is written once and
@@ -379,6 +404,10 @@ def design_bytes(decoder, n_points, variant):
     elif variant == "a":
         # h: 1 write + 3 reads; delta: 1 write + 2 reads
         per_point = hidden * (4 + 3)
+    elif variant == "c":
+        # a's, and over the gated share: h read twice more (u and t masks),
+        # u and t 1 write + 2 reads each
+        per_point = hidden * (7 + 8 * eik_share)
     else:
         # h: 1 write + 2 reads (next product, delta mask); delta: 1 write +
         # 1 read, except the layer-0 delta, which is not stored
@@ -536,6 +565,29 @@ def profile_steps(step, n):
             "wall_ms_per_step": wall_ms / n, "device_idle_share": 1 - device_ms / (wall_ms / n)}
 
 
+def step_times(trainer, seed, n=11):
+    """Milliseconds of ``n`` Stage-1 steps of ``trainer`` on one seeded
+    batch of its first B scenes (host clock around synchronised steps),
+    and that batch."""
+    import torch
+
+    from msd_tpu_torch.data.sdf_samples import sample_sdf_batch
+
+    dev = trainer.device
+    B, P = trainer.scene_per_batch, trainer.num_samp_per_scene
+    pos, pc, neg, nc = trainer.dataset.device_arrays(dev)
+    idx = torch.arange(B, device=dev)
+    batch = sample_sdf_batch(pos, pc, neg, nc, idx, P, torch.Generator(device=dev).manual_seed(seed))
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.step(idx, batch, 9, 5e-4, 1e-3)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms, idx, batch
+
+
 def train(root, specs, seed):
     """The port's Stage-1 path on a temporary experiment; returns the phase
     summary and K2's launches in the two runs."""
@@ -596,21 +648,13 @@ def train(root, specs, seed):
         if not torch.equal(a, b.cpu()):
             raise AssertionError(f"load_model: {n} differs from the trained decoder")
 
-    # step times on the trained state (host clock around synchronised steps)
+    # step times on the trained state
+    step_ms, idx, batch = step_times(resumed, seed)
+    step_med = float(np.median(step_ms[1:]))
     dev = resumed.device
     B, P = resumed.scene_per_batch, resumed.num_samp_per_scene
     pos, pc, neg, nc = resumed.dataset.device_arrays(dev)
-    idx = torch.arange(B, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    batch = sample_sdf_batch(pos, pc, neg, nc, idx, P, gen)
-    step_ms = []
-    for _ in range(11):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        resumed.step(idx, batch, 9, 5e-4, 1e-3)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-    step_med = float(np.median(step_ms[1:]))
 
     def k2_call():
         with torch.no_grad():
@@ -803,6 +847,286 @@ def stage2(root, seed, device="cuda", changes=None):
     }, k2_first + k2_resumed, k1_first + k1_resumed
 
 
+# K2 c and e: K2 b's limits against the plain version, with the loss sums at
+# the step shape held closer: the clamped L1 to 1e-5 relative (one float32
+# sum of the same per-point values in two orders; 3.3e-7 measured for b),
+# the eikonal to 1e-4 (its per-point values come through the bf16 u-chain,
+# which the kernel and the plain version round apart: 1.7e-5 measured for
+# c, 1.4e-6 for e, 3.5e-5 for b on 4 scenes).
+K2CE_LOSS_STEP = {"sdf": 1e-5, "eikonal": 1e-4}
+
+
+def check_k2ce(decoder, seed, dev):
+    """K2 variants c (EikonalNumPoints 4096 of 16384) and e (a pad scene of
+    weight 0, eikonal on) against float32 autograd and their plain version
+    on 4 scenes x 16384 points, and against their plain version at the step
+    shape, 32 x 16384 points (e: scene 31 weighted 0), where both are timed
+    beside the operation bound. e is also held against its plain version on
+    the share the dp phase gives its last rank: 11 scenes, the last a pad
+    scene, with the 32-scene batch's normalizers. A pad scene's dlat must be
+    exactly 0."""
+    import torch
+
+    from msd_tpu_torch.ops.fused_train import eikonal_rows, fused_point_grads, fused_train_plain, point_grads
+
+    P, E = 16384, 4096
+    L = decoder.latent_size
+    results = {}
+
+    def check_step(out, ref, n_real, shape):
+        r = k2_check_plain(decoder, out, ref, name, shape)
+        if any(r["loss_rel"][k] > lim for k, lim in K2CE_LOSS_STEP.items()):
+            raise AssertionError(f"K2 {name} loss sums vs plain at {shape}: {r['loss_rel']}")
+        if name == "e" and not bool((out[2][n_real:] == 0).all()):
+            raise AssertionError(f"K2 e at {shape}: the pad scene's dlat is not exactly 0")
+        return r
+
+    for name in ("c", "e"):
+        def case(B, s):
+            weights, biases, lat, xyz, gt = k2_inputs(decoder, B, P, s, dev)
+            if name == "c":
+                kw, n_real = dict(eik_points=E), B
+            else:
+                n_real = B - 1
+                kw = dict(scene_weights=(torch.arange(B, device=dev) < n_real).float(), n_real=n_real)
+            return (decoder, weights, biases, lat, xyz, gt, 0.1, True, n_real * P), kw, n_real
+
+        args, kw, n_real = case(4, seed + 4)
+        out = fused_point_grads(*args, **kw)
+        torch.cuda.synchronize()
+        vs_plain_4 = k2_check_plain(decoder, out, point_grads(fused_train_plain, *args, **kw), name, "4 x 16384")
+        _, weights, biases, lat, xyz, gt = args[:6]
+        if name == "c":
+            ref = autograd_grads(decoder, weights, biases, lat, xyz, gt, 0.1, True, 4 * P, eik_points=E)
+        else:  # the real scenes alone; the pad scene's dlat is 0
+            ref = autograd_grads(decoder, weights, biases, lat[:n_real], xyz[:n_real], gt[:n_real], 0.1, True,
+                                 n_real * P)
+            ref = ref[:2] + (torch.cat([ref[2], torch.zeros(1, L, device=dev)]),) + ref[3:]
+            if not bool((out[2][n_real:] == 0).all()):
+                raise AssertionError("K2 e: the pad scene's dlat is not exactly 0")
+        vs_autograd = k2_errors(decoder, out, ref)
+        if (max(vs_autograd["loss_rel"].values()) > K2_TOL["autograd_loss"]
+                or vs_autograd["worst_grad_rel"] > K2_TOL["autograd_grad"]
+                or vs_autograd["min_grad_cos"] < K2_TOL["autograd_cos"]):
+            raise AssertionError(f"K2 {name} vs float32 autograd: {json.dumps(vs_autograd)}")
+        del out, ref
+
+        B = 32
+        full, kw, n_real = case(B, seed + 5)
+        out = fused_point_grads(*full, **kw)
+        torch.cuda.synchronize()
+        vs_plain = check_step(out, point_grads(fused_train_plain, *full, **kw), n_real, "32 x 16384")
+        del out
+        vs_plain_rank = None
+        if name == "e":
+            # the dp phase's last rank: 32 scenes pad to 33 over 3 ranks, so
+            # it runs scenes 22-32 (K2 chunks of 4 + 4 + 3, the pad scene in
+            # the tail chunk) with the batch's normalizers
+            weights, biases, lat, xyz, gt = k2_inputs(decoder, 11, P, seed + 6, dev)
+            rank_args = (decoder, weights, biases, lat, xyz, gt, 0.1, True, 32 * P)
+            rank_kw = dict(scene_weights=(torch.arange(11, device=dev) < 10).float(), n_real=32, eik_scenes=32)
+            out = fused_point_grads(*rank_args, **rank_kw)
+            torch.cuda.synchronize()
+            vs_plain_rank = check_step(out, point_grads(fused_train_plain, *rank_args, **rank_kw), 10,
+                                       "11 x 16384 (the dp phase's last rank)")
+            del out
+        share = eikonal_rows(P, E) / P if name == "c" else 1.0
+        variant = "c" if name == "c" else "b"  # e weights b: the same work
+        flops = step_flops(decoder, B * P, variant, share)
+        r = {"variant": name, "points": B * P, "eik_points": E if name == "c" else None,
+             "eik_rows": eikonal_rows(P, E) if name == "c" else P, "real_scenes": n_real,
+             "vs_plain": vs_plain,
+             "vs_plain_4_scenes": {k: vs_plain_4[k] for k in ("loss_rel", "worst_grad_rel", "max_abs_err")},
+             "vs_autograd_4_scenes": {k: vs_autograd[k]
+                                      for k in ("loss_rel", "dlat", "worst_grad_rel", "min_grad_cos")},
+             "vs_plain_dp_last_rank": vs_plain_rank and {k: vs_plain_rank[k]
+                                                         for k in ("loss_rel", "worst_grad_rel", "max_abs_err")},
+             "ms": time_ms(lambda: fused_point_grads(*full, **kw)),
+             "plain_ms": time_ms(lambda: point_grads(fused_train_plain, *full, **kw)),
+             "flop": flops, "bound_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3, "bound_by": "operations",
+             "design_bytes_ms": design_bytes(decoder, B * P, variant, share) / HBM_BYTES_PER_S * 1e3,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+        phase("k2ce", **r)
+        results[name] = r
+    return results
+
+
+def train_eik(root, specs, seed):
+    """The Stage-1 CLI with EikonalNumPoints 4096 (K2 c) on the training
+    phase's data; returns the phase summary and K2 c's launches."""
+    import torch
+
+    import msd_tpu_torch.workspace as ws
+    from msd_tpu_torch import train_deep_sdf
+    from msd_tpu_torch.ops import fused_train
+    from msd_tpu_torch.ops.fused_train import eikonal_rows, fused_sdf_loss
+
+    exp = os.path.join(root, "train_eik4096_experiment")
+    split_path = os.path.join(root, "train_split.json")
+    changes = {"DataSource": os.path.join(root, "train_data", "SdfSamples"), "TrainSplit": split_path,
+               "TestSplit": split_path, "NumEpochs": 4, "SnapshotFrequency": 2, "AdditionalSnapshots": [],
+               "EikonalNumPoints": 4096}
+    ws.save_experiment_specifications(exp, dict(specs, **changes))
+    fused_train.reset_launches()
+    t0 = time.time()
+    trainer = train_deep_sdf.main(["-e", exp, "--device", "cuda", "--quiet"])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(fused_train.VARIANT_LAUNCHES)
+    steps = len(trainer.loss_log)
+    if not trainer.use_fused or launches["c"] != steps or fused_train.LAUNCHES != steps or steps != 8:
+        raise AssertionError(f"K2 c launches {launches} in {steps} steps, want one per step (8)")
+    if not all(math.isfinite(v) for v in trainer.loss_log):
+        raise AssertionError(f"bad loss log: {trainer.loss_log}")
+
+    fused_train.reset_launches()
+    step_ms, idx, batch = step_times(trainer, seed)
+    per_step = fused_train.VARIANT_LAUNCHES["c"] / len(step_ms)
+    step_med = float(np.median(step_ms[1:]))
+    B, P = trainer.scene_per_batch, trainer.num_samp_per_scene
+
+    def k2_call():
+        with torch.no_grad():
+            fused_sdf_loss(trainer.decoder, trainer.latents[idx], batch[:3].permute(1, 2, 0).contiguous(), batch[3],
+                           trainer.clamp_dist, True, B * P, eik_points=4096)
+
+    k2_ms = time_ms(k2_call)
+    profile = profile_steps(lambda: trainer.step(idx, batch, 9, 5e-4, 1e-3), 3)
+    return {"changed": changes, "steps": steps, "seconds": seconds, "epoch_losses": trainer.loss_log_epoch,
+            "eik_rows": eikonal_rows(P, 4096), "step_ms_median": step_med, "step_ms": step_ms,
+            "k2c_launches_per_step": per_step, "k2_ms_in_step": k2_ms, "k2_share_of_step": k2_ms / step_med,
+            "profile": profile}, launches["c"]
+
+
+# The data-parallel phase: step-1 losses against the one-process run's to
+# 1e-5 relative, the summed pre-Adam gradients to 1e-3 relative Frobenius
+# (the same bf16 per-point values, float32 sums in another order).
+DP_TOL = {"loss": 1e-5, "grad": 1e-3}
+
+
+def dp_steps(trainer, seed, steps):
+    """``steps`` Stage-1 steps on seeded batches; returns (per-step
+    metrics, the first step's pre-Adam gradients of the decoder and the
+    latent table, on the CPU, step milliseconds)."""
+    import torch
+
+    from msd_tpu_torch.data.sdf_samples import sample_sdf_batch
+    from msd_tpu_torch.train.stage1 import step_seed
+
+    dev = trainer.device
+    B, P = trainer.scene_per_batch, trainer.num_samp_per_scene
+    pos, pc, neg, nc = trainer.dataset.device_arrays(dev)
+    rng = np.random.default_rng(seed)
+    auxs, grads, ms = [], None, []
+    for s in range(steps):
+        idx = torch.as_tensor(rng.permutation(trainer.num_scenes)[:B], device=dev)
+        batch = sample_sdf_batch(pos, pc, neg, nc, idx, P, torch.Generator(device=dev).manual_seed(step_seed(seed, s)))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        aux = trainer.step(idx, batch, 1, 5e-4, 1e-3)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        auxs.append({k: float(v) for k, v in aux.items()})
+        if s == 0:
+            grads = torch.cat([p.grad.reshape(-1) for p in trainer.decoder.parameters()]
+                              + [trainer.latents.grad.reshape(-1)]).cpu()
+    return auxs, grads, ms
+
+
+def dp_stage1_rank(group, exp, seed, steps):
+    """A rank of the data-parallel Stage-1 run (spawned by ``dp``)."""
+    from msd_tpu_torch.ops import fused_train
+    from msd_tpu_torch.train.stage1 import Stage1Trainer
+
+    trainer = Stage1Trainer(exp, group=group)
+    fused_train.reset_launches()
+    auxs, grads, ms = dp_steps(trainer, seed, steps)
+    return auxs, grads, ms, dict(fused_train.VARIANT_LAUNCHES), fused_train.LAUNCHES
+
+
+def dp_stage2_rank(group, exp, epochs):
+    """A rank of the data-parallel Stage-2 run (spawned by ``dp``)."""
+    from msd_tpu_torch.ops import fused_train
+    from msd_tpu_torch.train.stage2 import Stage2Trainer
+
+    trainer = Stage2Trainer(exp, group=group)
+    fused_train.reset_launches()
+    trainer.train(num_epochs=epochs)
+    return trainer.loss_log, dict(fused_train.VARIANT_LAUNCHES)
+
+
+def dp(root, specs, seed, steps=3, ranks=3):
+    """Data-parallel training on ``ranks`` ranks: the flagship Stage-1 at
+    ScenesPerBatch 32, which pads to 33 so that every rank runs K2 e, for
+    ``steps`` steps, against the one-process run on the same batches; then
+    two epochs of the Stage-2 phase's experiment on 2 ranks (K2 d split by
+    scenes) against one process. NCCL with one GPU per rank where there are
+    enough GPUs, else gloo with every rank on cuda:0. Returns the phase
+    summary and K2 e's launches."""
+    import torch
+
+    import msd_tpu_torch.workspace as ws
+    from msd_tpu_torch.parallel import run_ranks
+    from msd_tpu_torch.train.stage1 import Stage1Trainer
+    from msd_tpu_torch.train.stage2 import Stage2Trainer
+
+    def placement(n):
+        if torch.cuda.device_count() >= n:
+            return "nccl", [f"cuda:{r}" for r in range(n)]
+        return "gloo", ["cuda:0"] * n
+
+    split_path = os.path.join(root, "train_split.json")
+    exp = os.path.join(root, "dp_experiment")
+    ws.save_experiment_specifications(exp, dict(
+        specs, DataSource=os.path.join(root, "train_data", "SdfSamples"), TrainSplit=split_path,
+        TestSplit=split_path, ScenesPerBatch=32))
+    backend, devices = placement(ranks)
+    t0 = time.time()
+    out = run_ranks(dp_stage1_rank, ranks, (exp, seed, steps), backend=backend, devices=devices, timeout=600,
+                    workdir=root)
+    dp_seconds = time.time() - t0
+    one = Stage1Trainer(exp, device="cuda")
+    ref_auxs, ref_grads, ref_ms = dp_steps(one, seed, steps)
+    per_rank = []
+    for r, (auxs, grads, ms, launches, total) in enumerate(out):
+        loss_rel = {k: abs(auxs[0][k] - ref_auxs[0][k]) / max(abs(ref_auxs[0][k]), 1e-30)
+                    for k in ("sdf", "eikonal", "reg", "total")}
+        g = _cmp(grads, ref_grads)
+        if max(loss_rel.values()) > DP_TOL["loss"] or g["rel"] > DP_TOL["grad"]:
+            raise AssertionError(f"rank {r} step 1 vs one process: {json.dumps({'loss': loss_rel, 'grad': g})}")
+        if launches["e"] != steps or total != steps:
+            raise AssertionError(f"rank {r}: K2 launches {launches} ({total}), want K2 e once per step")
+        per_rank.append({"rank": r, "step1_loss_rel": loss_rel, "step1_grad": g, "step_ms": ms,
+                         "losses": [a["total"] for a in auxs], "k2_launches": launches})
+    stage1 = {"backend": backend, "devices": devices, "ranks": ranks, "scenes_per_batch": 32,
+              "padded_to": 33, "steps": steps, "seconds": dp_seconds, "per_rank": per_rank,
+              "one_process": {"losses": [a["total"] for a in ref_auxs], "step_ms": ref_ms}}
+    del one
+
+    s2_specs = ws.load_experiment_specifications(os.path.join(root, "stage2_experiment"))
+    s2 = {}
+    for name in ("stage2_dp_experiment", "stage2_one_experiment"):
+        s2[name] = os.path.join(root, name)
+        ws.save_experiment_specifications(s2[name], dict(s2_specs, NumEpochs=2))
+    backend2, devices2 = placement(2)
+    out2 = run_ranks(dp_stage2_rank, 2, (s2["stage2_dp_experiment"], 2), backend=backend2, devices=devices2,
+                     timeout=600, workdir=root)
+    one2 = Stage2Trainer(s2["stage2_one_experiment"], device="cuda")
+    one2.train(num_epochs=2)
+    ref = np.asarray(one2.loss_log)
+    for r, (losses, launches) in enumerate(out2):
+        rel = float(np.max(np.abs(np.asarray(losses) - ref) / np.abs(ref)))
+        if len(losses) != len(ref) or rel > 1e-4 or launches["d"] != len(ref):
+            raise AssertionError(f"Stage-2 rank {r}: losses {losses} vs {ref.tolist()}, K2 {launches}")
+    stage2 = {"backend": backend2, "devices": devices2, "ranks": 2, "steps": len(ref),
+              "losses": [lo for lo, _ in out2], "one_process_losses": ref.tolist(),
+              "k2_launches": [la for _, la in out2]}
+    return {"stage1": stage1, "stage2": stage2,
+            "note": "a correctness drive of the multi-rank code and kernels; several ranks on one card "
+                    "share it, so the times are no scaling figure"}, sum(o[3]["e"] for o in out)
+
+
 def serve(root, specs, decoder, seed):
     """The port's serving path on a temporary experiment; returns
     (per-shape summaries, evaluate results, seconds of evaluate, K1
@@ -910,7 +1234,12 @@ def main(argv=None):
         training, k2_launches = train(root, specs, args.seed)
         phase("training", **training)
         stage2_summary, k2d_launches, k1_stage2 = stage2(root, args.seed)
-    phase("stage2", **stage2_summary)
+        phase("stage2", **stage2_summary)
+        k2ce = check_k2ce(decoder, args.seed, dev)
+        training_eik, k2c_launches = train_eik(root, specs, args.seed)
+        phase("training_eik4096", **training_eik)
+        dp_summary, k2e_launches = dp(root, specs, args.seed)
+        phase("dp", **dp_summary)
 
     bf16 = k1["bfloat16"]
 
@@ -947,6 +1276,12 @@ def main(argv=None):
                         "max_rel_frobenius": k2d["vs_plain"]["dlat"]["rel"], "loss_rel": k2d["vs_plain"]["loss_rel"],
                         "launches": k2d_launches, "step_ms": stage2_summary["step_ms_median"],
                         "autograd_step_ms": stage2_summary["autograd_step_ms"], "library_ms": None},
+        **{f"variant_{v}": {k: k2ce[v][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "design_bytes_ms")}
+           | {"max_abs_err": k2ce[v]["vs_plain"]["max_abs_err"],
+              "max_rel_frobenius": k2ce[v]["vs_plain"]["worst_grad_rel"], "loss_rel": k2ce[v]["vs_plain"]["loss_rel"],
+              "launches": n, "library_ms": None, "step_ms": step}
+           for v, n, step in (("c", k2c_launches, training_eik["step_ms_median"]),
+                              ("e", k2e_launches, float(np.median(dp_summary["stage1"]["per_rank"][0]["step_ms"]))))},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-// Fused SDF loss and gradients (K2, variants b, a and d) for NVIDIA Hopper
+// Fused SDF loss and gradients (K2, variants a to e) for NVIDIA Hopper
 // (sm_90a).
 //
 // Replaces msd_tpu/ops/fused_train.py:_make_kernel, the Pallas TPU kernel
@@ -22,6 +22,16 @@
 // and the delta chain for the per-scene dc sums only: no weight gradients,
 // and the layer-0 delta, which nothing reads but its column sums, is not
 // stored (chain_kernel with out == null).
+//
+// Variant c (EikonalNumPoints) runs the eikonal work on the first E points
+// of each scene only, as the TPU kernel's pl.when on the tile index: the
+// u and t chains, eik_kernel and the u (x) t, u (x) gbar and t (x) m tau
+// products run over S E "gated rows", with u, t, gbar and m tau stored
+// compactly; gated row i is point (i / E) P + i % E, which the chain
+// kernel's D mask and eik_kernel's per-point operands read through. Every
+// other point's delta seed is the L1 seed alone. Variant e (pad-and-mask
+// batches) multiplies the L1 and eikonal lanes, the L1 seed and gbar by a
+// per-scene 0/1 weight, so a weight-0 scene adds exactly zero everywhere.
 //
 // Bound on an H100: operations. Variant b costs 18.9 MFLOP per point at the
 // flagship width (9.44 for a, 6.29 for d), so the flagship step (32 x 16384
@@ -189,8 +199,10 @@ struct ChainParams {
   const float* wx;    // [N][4] its weights (bf16-rounded), or null
   const float* cvec;  // [n / P][N] per-scene constants, or null
   int P;              // points per scene
+  int R;              // gated rows per scene (variant c): output row i reads mask
+                      // row (i / R) P + i % R; 0: mask rows are the output rows
   int relu;           // 1: ReLU; 0: multiply by D = 1[mask > 0]
-  const bf16* mask;   // [n][N] (relu == 0)
+  const bf16* mask;   // [rows][N] (relu == 0)
   bf16* out;          // [n][N], or null when only colsum is wanted
   float* colsum;      // [n / 64][N] column sums of the float32 output, or null
 };
@@ -246,8 +258,12 @@ __global__ void __launch_bounds__(NTHREADS) chain_kernel(const ChainParams p) {
       v += x[0] * w[0] + x[1] * w[1] + x[2] * w[2];
     }
     if (p.cvec != nullptr) v += p.cvec[(pr / p.P) * p.N + pc];
-    if (p.relu) v = fmaxf(v, 0.0f);
-    else v = bf(p.mask[pr * p.N + pc]) > 0.0f ? v : 0.0f;
+    if (p.relu) {
+      v = fmaxf(v, 0.0f);
+    } else {
+      const long long mr = p.R ? (pr / p.R) * p.P + pr % p.R : pr;
+      v = bf(p.mask[mr * p.N + pc]) > 0.0f ? v : 0.0f;
+    }
     if (p.out != nullptr) p.out[pr * p.N + pc] = __float2bfloat16_rn(v);
     cs[2 * ((i >> 2) & 3) + (i & 1)] += v;
   }
@@ -270,10 +286,9 @@ __global__ void __launch_bounds__(NTHREADS) chain_kernel(const ChainParams p) {
 }
 
 struct WgradParams {
-  const bf16* A[2];  // [n][M] (delta_l, u_l)
-  const bf16* B[2];  // [n][N] (h_{l-1}, t_{l-1})
-  int pairs;
-  long long n;
+  const bf16* A[2];  // [n_q][M] (delta_l, u_l)
+  const bf16* B[2];  // [n_q][N] (h_{l-1}, t_{l-1})
+  long long n[2];    // rows of each pair (0: no second pair)
   int M, N, nsplit;
   float* out;  // [nsplit][M][N] partial sums
 };
@@ -283,8 +298,8 @@ __global__ void __launch_bounds__(NTHREADS) wgrad_kernel(const WgradParams p) {
   bf16* As = reinterpret_cast<bf16*>(smem);  // [STAGES][BK][SAT]
   bf16* Bs = As + STAGES * BK * SAT;         // [STAGES][BK][SBT]
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, split = blockIdx.z;
-  const long long per_pair = p.n / BK;
-  const long long total = per_pair * p.pairs;
+  const long long tiles0 = p.n[0] / BK;
+  const long long total = tiles0 + p.n[1] / BK;
   const long long chunk = (total + p.nsplit - 1) / p.nsplit;
   const long long kb = split * chunk;
   const long long ke = kb + chunk < total ? kb + chunk : total;
@@ -294,8 +309,8 @@ __global__ void __launch_bounds__(NTHREADS) wgrad_kernel(const WgradParams p) {
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
 
   auto load = [&](int buf, long long kt) {
-    const int q = static_cast<int>(kt / per_pair);
-    const long long row = (kt % per_pair) * BK;
+    const int q = kt < tiles0 ? 0 : 1;
+    const long long row = (q ? kt - tiles0 : kt) * BK;
     load_tile<BK, BM>(As + buf * BK * SAT, SAT, p.A[q] + row * p.M + m0, p.M);
     load_tile<BK, BN>(Bs + buf * BK * SBT, SBT, p.B[q] + row * p.N + n0, p.N);
   };
@@ -336,12 +351,13 @@ struct LastParams {
   int K;
   const float* clast; // [n / P] per-scene constant of the last layer
   const float* gt;    // [n] clipped ground truth
+  const float* w;     // [n / P] per-scene 0/1 weights (variant e), or null
   long long n;
-  int P, eikonal;
+  int P, E;           // E: rows per scene that run the eikonal chains (0: none)
   float clamp, inv_ntot;
   float* pt;          // [n][4] (y, m tau, l1 seed, 0)
-  float* mtc;         // [n][4] (bf16(m tau), 0, 0, 0)
-  float* sb;          // [n][4] (bf16(delta_last), 0, 0, 0); written when !eikonal
+  float* mtc;         // [n / P * E][4] (bf16(m tau), 0, 0, 0) of the gated rows, compact
+  float* sb;          // [n][4] (bf16(delta_last), 0, 0, 0); written outside the gated rows
   float* loss;        // [n / 128][4] (l1 sum, eikonal sum, delta_last sum, 0)
 };
 
@@ -349,6 +365,9 @@ __global__ void __launch_bounds__(NTHREADS) last_kernel(const LastParams p) {
   __shared__ float l1s[PT_TILE], sbs[PT_TILE];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const long long base = static_cast<long long>(blockIdx.x) * PT_TILE;
+  // a tile lies wholly inside or outside the gated rows (E and P are
+  // multiples of the tile)
+  const bool gated = base % p.P < p.E;
   for (int r = w; r < PT_TILE; r += NTHREADS / 32) {
     const long long pt = base + r;
     const bf16* h = p.h + pt * p.K;
@@ -365,12 +384,20 @@ __global__ void __launch_bounds__(NTHREADS) last_kernel(const LastParams p) {
       const float d = yc - p.gt[pt];
       const float sgn = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
       const float mt = m * tau;
-      const float seed = mt * sgn * p.inv_ntot;
+      float seed = mt * sgn * p.inv_ntot;
+      float l1 = fabsf(d);
+      if (p.w != nullptr) {  // msd_tpu/ops/fused_train.py:225-226, :295-296
+        const float wt = p.w[pt / p.P];
+        l1 *= wt;
+        seed *= wt;
+      }
       float4* o = reinterpret_cast<float4*>(p.pt) + pt;
       *o = make_float4(y, mt, seed, 0.0f);
-      reinterpret_cast<float4*>(p.mtc)[pt] = make_float4(rnd(mt), 0.0f, 0.0f, 0.0f);
-      if (!p.eikonal) reinterpret_cast<float4*>(p.sb)[pt] = make_float4(rnd(seed), 0.0f, 0.0f, 0.0f);
-      l1s[r] = fabsf(d);
+      if (gated)
+        reinterpret_cast<float4*>(p.mtc)[(pt / p.P) * p.E + pt % p.P] = make_float4(rnd(mt), 0.0f, 0.0f, 0.0f);
+      else
+        reinterpret_cast<float4*>(p.sb)[pt] = make_float4(rnd(seed), 0.0f, 0.0f, 0.0f);
+      l1s[r] = l1;
       sbs[r] = seed;
     }
   }
@@ -380,11 +407,13 @@ __global__ void __launch_bounds__(NTHREADS) last_kernel(const LastParams p) {
     const float sbar = warp_sum128(sbs);
     if (lane == 0) {
       p.loss[4 * blockIdx.x] = l1;
-      if (!p.eikonal) p.loss[4 * blockIdx.x + 2] = sbar;
+      if (!gated) p.loss[4 * blockIdx.x + 2] = sbar;
     }
   }
 }
 
+// Over the gated rows only: row i of the compact operands (u, gb) is point
+// (i / E) P + i % E of the chunk (pt, sb, loss).
 struct EikParams {
   const bf16* u0;     // [n][W0]
   const float* mx0;   // [W0][4]
@@ -392,29 +421,32 @@ struct EikParams {
   const bf16* uL;     // [n][WL] latent_in layer, or null
   const float* mxL;   // [WL][4]
   int WL;
-  const float* pt;    // [n][4] from last_kernel
-  long long n;
+  const float* pt;    // [points][4] from last_kernel
+  const float* w;     // [n / E] per-scene 0/1 weights (variant e), or null
+  long long n;        // gated rows
+  int P, E;
   float eik_coef;
   float* gb;          // [n][4] (bf16(gbar), 0)
-  float* sb;          // [n][4] (bf16(delta_last), 0, 0, 0)
-  float* loss;        // [n / 128][4]
+  float* sb;          // [points][4] (bf16(delta_last), 0, 0, 0)
+  float* loss;        // [points / 128][4]
 };
 
 __global__ void __launch_bounds__(NTHREADS) eik_kernel(const EikParams p) {
   __shared__ float eks[PT_TILE], sbs[PT_TILE];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const long long base = static_cast<long long>(blockIdx.x) * PT_TILE;
+  const long long pbase = (base / p.E) * p.P + base % p.E;  // the tile's first point
   for (int r = w; r < PT_TILE; r += NTHREADS / 32) {
-    const long long pt = base + r;
+    const long long i = base + r, pt = pbase + r;
     float g[3] = {0.0f, 0.0f, 0.0f};
-    const bf16* u = p.u0 + pt * p.W0;
+    const bf16* u = p.u0 + i * p.W0;
     for (int o = lane; o < p.W0; o += 32) {
       const float v = bf(u[o]);
 #pragma unroll
       for (int j = 0; j < 3; ++j) g[j] += v * p.mx0[4 * o + j];
     }
     if (p.uL != nullptr) {
-      u = p.uL + pt * p.WL;
+      u = p.uL + i * p.WL;
       for (int o = lane; o < p.WL; o += 32) {
         const float v = bf(u[o]);
 #pragma unroll
@@ -430,17 +462,23 @@ __global__ void __launch_bounds__(NTHREADS) eik_kernel(const EikParams p) {
       const float gsq = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
       const float gn = sqrtf(fmaxf(gsq, 1e-24f));
       const float coef = p.eik_coef * (gn - 1.0f) / gn;
+      // variant e scales the eikonal lane and gbar, hence its whole reverse
+      // pass (msd_tpu/ops/fused_train.py:248-258)
+      const float wt = p.w != nullptr ? p.w[i / p.E] : 1.0f;
       float gbar[3], gdot = 0.0f;
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         gbar[j] = coef * g[j];
+        if (p.w != nullptr) gbar[j] *= wt;
         gdot += gbar[j] * g[j];
       }
       const float4 q = reinterpret_cast<const float4*>(p.pt)[pt];  // (y, m tau, l1 seed, 0)
       const float sbar = q.z + (-2.0f * q.x) * gdot;
-      reinterpret_cast<float4*>(p.gb)[pt] = make_float4(rnd(gbar[0]), rnd(gbar[1]), rnd(gbar[2]), 0.0f);
+      reinterpret_cast<float4*>(p.gb)[i] = make_float4(rnd(gbar[0]), rnd(gbar[1]), rnd(gbar[2]), 0.0f);
       reinterpret_cast<float4*>(p.sb)[pt] = make_float4(rnd(sbar), 0.0f, 0.0f, 0.0f);
-      eks[r] = (1.0f - gn) * (1.0f - gn);
+      float ek = (1.0f - gn) * (1.0f - gn);
+      if (p.w != nullptr) ek *= wt;
+      eks[r] = ek;
       sbs[r] = sbar;
     }
   }
@@ -449,30 +487,29 @@ __global__ void __launch_bounds__(NTHREADS) eik_kernel(const EikParams p) {
     const float ek = warp_sum128(eks);
     const float sbar = warp_sum128(sbs);
     if (lane == 0) {
-      p.loss[4 * blockIdx.x + 1] = ek;
-      p.loss[4 * blockIdx.x + 2] = sbar;
+      p.loss[4 * (pbase / PT_TILE) + 1] = ek;
+      p.loss[4 * (pbase / PT_TILE) + 2] = sbar;
     }
   }
 }
 
 struct SkinnyParams {
-  const bf16* A[2];   // [n][W]
-  const float* V[2];  // [n][4]
-  int pairs;
-  long long n;
+  const bf16* A[2];   // [n_q][W]
+  const float* V[2];  // [n_q][4]
+  long long n[2];     // rows of each pair (0: no second pair)
   int W, nseg;
-  float* out;         // [nseg][W][4]: sum over the segment's points of A[p][o] V[p][0:3]
+  float* out;         // [nseg][W][4]: sum over the segment's rows of A[p][o] V[p][0:3]
 };
 
 __global__ void __launch_bounds__(128) skinny_kernel(const SkinnyParams p) {
   const int o = blockIdx.x * 128 + threadIdx.x;
   const int seg = blockIdx.y;
-  const long long len = (p.n + p.nseg - 1) / p.nseg;
-  const long long b = seg * len;
-  const long long e = b + len < p.n ? b + len : p.n;
   float acc[3] = {0.0f, 0.0f, 0.0f};
   if (o < p.W) {
-    for (int q = 0; q < p.pairs; ++q) {
+    for (int q = 0; q < 2; ++q) {
+      const long long len = (p.n[q] + p.nseg - 1) / p.nseg;
+      const long long b = seg * len;
+      const long long e = b + len < p.n[q] ? b + len : p.n[q];
       for (long long pt = b; pt < e; ++pt) {
         const float a = bf(p.A[q][pt * p.W + o]);
         const float* v = p.V[q] + 4 * pt;
@@ -503,10 +540,12 @@ extern "C" {
 // do not synchronise.
 
 int msd_ft_chain(const void* A, const void* B, long long n, int N, int K, const void* xv, const void* wx,
-                 const void* cvec, int P, int relu, const void* mask, void* out, void* colsum, void* stream) {
+                 const void* cvec, int P, int R, int relu, const void* mask, void* out, void* colsum,
+                 void* stream) {
   if (n <= 0 || n % PT_TILE || N <= 0 || N % BN || K < 0 || K % BK || (K > 0) != (A != nullptr) ||
-      (K > 0 && B == nullptr) || (xv == nullptr) != (wx == nullptr) || (cvec != nullptr && P <= 0) ||
-      (!relu && mask == nullptr) || (out == nullptr && colsum == nullptr) || n / BM > 65535)
+      (K > 0 && B == nullptr) || (xv == nullptr) != (wx == nullptr) || ((cvec != nullptr || R) && P <= 0) ||
+      R < 0 || R > P || (R && (R % BM || n % R)) || (!relu && mask == nullptr) ||
+      (out == nullptr && colsum == nullptr) || n / BM > 65535)
     return bad();
   ChainParams p;
   p.A = static_cast<const bf16*>(A);
@@ -518,6 +557,7 @@ int msd_ft_chain(const void* A, const void* B, long long n, int N, int K, const 
   p.wx = static_cast<const float*>(wx);
   p.cvec = static_cast<const float*>(cvec);
   p.P = P;
+  p.R = R;
   p.relu = relu;
   p.mask = static_cast<const bf16*>(mask);
   p.out = static_cast<bf16*>(out);
@@ -529,18 +569,19 @@ int msd_ft_chain(const void* A, const void* B, long long n, int N, int K, const 
   return err(cudaGetLastError());
 }
 
-int msd_ft_wgrad(const void* A0, const void* B0, const void* A1, const void* B1, long long n, int M, int N,
-                 int nsplit, void* out, void* stream) {
-  if (n <= 0 || n % BK || M <= 0 || M % BM || N <= 0 || N % BN || nsplit < 1 || nsplit > 65535 ||
-      A0 == nullptr || B0 == nullptr || (A1 == nullptr) != (B1 == nullptr) || out == nullptr)
+int msd_ft_wgrad(const void* A0, const void* B0, long long n0, const void* A1, const void* B1, long long n1,
+                 int M, int N, int nsplit, void* out, void* stream) {
+  if (n0 <= 0 || n0 % BK || n1 < 0 || n1 % BK || (n1 > 0) != (A1 != nullptr) || M <= 0 || M % BM ||
+      N <= 0 || N % BN || nsplit < 1 || nsplit > 65535 || A0 == nullptr || B0 == nullptr ||
+      (A1 == nullptr) != (B1 == nullptr) || out == nullptr)
     return bad();
   WgradParams p;
   p.A[0] = static_cast<const bf16*>(A0);
   p.B[0] = static_cast<const bf16*>(B0);
   p.A[1] = static_cast<const bf16*>(A1);
   p.B[1] = static_cast<const bf16*>(B1);
-  p.pairs = A1 != nullptr ? 2 : 1;
-  p.n = n;
+  p.n[0] = n0;
+  p.n[1] = n1;
   p.M = M;
   p.N = N;
   p.nsplit = nsplit;
@@ -552,12 +593,12 @@ int msd_ft_wgrad(const void* A0, const void* B0, const void* A1, const void* B1,
   return err(cudaGetLastError());
 }
 
-int msd_ft_last(const void* h, const void* wl, int K, const void* clast, const void* gt, long long n, int P,
-                float clamp, float inv_ntot, int eikonal, void* pt, void* mtc, void* sb, void* loss,
+int msd_ft_last(const void* h, const void* wl, int K, const void* clast, const void* gt, const void* w,
+                long long n, int P, int E, float clamp, float inv_ntot, void* pt, void* mtc, void* sb, void* loss,
                 void* stream) {
-  if (n <= 0 || n % PT_TILE || P <= 0 || P % PT_TILE || K <= 0 || h == nullptr || wl == nullptr ||
-      clast == nullptr || gt == nullptr || pt == nullptr || mtc == nullptr || loss == nullptr ||
-      (!eikonal && sb == nullptr))
+  if (n <= 0 || n % PT_TILE || P <= 0 || P % PT_TILE || n % P || E < 0 || E > P || E % PT_TILE || K <= 0 ||
+      h == nullptr || wl == nullptr || clast == nullptr || gt == nullptr || pt == nullptr ||
+      (E > 0 && mtc == nullptr) || loss == nullptr || (E < P && sb == nullptr))
     return bad();
   LastParams p;
   p.h = static_cast<const bf16*>(h);
@@ -565,9 +606,10 @@ int msd_ft_last(const void* h, const void* wl, int K, const void* clast, const v
   p.K = K;
   p.clast = static_cast<const float*>(clast);
   p.gt = static_cast<const float*>(gt);
+  p.w = static_cast<const float*>(w);
   p.n = n;
   p.P = P;
-  p.eikonal = eikonal;
+  p.E = E;
   p.clamp = clamp;
   p.inv_ntot = inv_ntot;
   p.pt = static_cast<float*>(pt);
@@ -579,8 +621,10 @@ int msd_ft_last(const void* h, const void* wl, int K, const void* clast, const v
 }
 
 int msd_ft_eik(const void* u0, const void* mx0, int W0, const void* uL, const void* mxL, int WL, const void* pt,
-               long long n, float eik_coef, void* gb, void* sb, void* loss, void* stream) {
-  if (n <= 0 || n % PT_TILE || u0 == nullptr || mx0 == nullptr || W0 <= 0 || (uL == nullptr) != (mxL == nullptr) ||
+               const void* w, long long n, int P, int E, float eik_coef, void* gb, void* sb, void* loss,
+               void* stream) {
+  if (n <= 0 || n % PT_TILE || P <= 0 || E <= 0 || E > P || E % PT_TILE || P % PT_TILE || n % E ||
+      u0 == nullptr || mx0 == nullptr || W0 <= 0 || (uL == nullptr) != (mxL == nullptr) ||
       (uL != nullptr && WL <= 0) || pt == nullptr || gb == nullptr || sb == nullptr || loss == nullptr)
     return bad();
   EikParams p;
@@ -591,7 +635,10 @@ int msd_ft_eik(const void* u0, const void* mx0, int W0, const void* uL, const vo
   p.mxL = static_cast<const float*>(mxL);
   p.WL = WL;
   p.pt = static_cast<const float*>(pt);
+  p.w = static_cast<const float*>(w);
   p.n = n;
+  p.P = P;
+  p.E = E;
   p.eik_coef = eik_coef;
   p.gb = static_cast<float*>(gb);
   p.sb = static_cast<float*>(sb);
@@ -600,18 +647,18 @@ int msd_ft_eik(const void* u0, const void* mx0, int W0, const void* uL, const vo
   return err(cudaGetLastError());
 }
 
-int msd_ft_skinny(const void* A0, const void* V0, const void* A1, const void* V1, long long n, int W, int nseg,
-                  void* out, void* stream) {
-  if (n <= 0 || W <= 0 || nseg < 1 || nseg > 65535 || A0 == nullptr || V0 == nullptr ||
-      (A1 == nullptr) != (V1 == nullptr) || out == nullptr)
+int msd_ft_skinny(const void* A0, const void* V0, long long n0, const void* A1, const void* V1, long long n1, int W,
+                  int nseg, void* out, void* stream) {
+  if (n0 <= 0 || n1 < 0 || (n1 > 0) != (A1 != nullptr) || W <= 0 || nseg < 1 || nseg > 65535 || A0 == nullptr ||
+      V0 == nullptr || (A1 == nullptr) != (V1 == nullptr) || out == nullptr)
     return bad();
   SkinnyParams p;
   p.A[0] = static_cast<const bf16*>(A0);
   p.V[0] = static_cast<const float*>(V0);
   p.A[1] = static_cast<const bf16*>(A1);
   p.V[1] = static_cast<const float*>(V1);
-  p.pairs = A1 != nullptr ? 2 : 1;
-  p.n = n;
+  p.n[0] = n0;
+  p.n[1] = n1;
   p.W = W;
   p.nseg = nseg;
   p.out = static_cast<float*>(out);

@@ -43,25 +43,26 @@ _SIGNATURES = {
         "msd_ft_chain": (
             ctypes.c_int,
             [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_int,
-             ctypes.c_int, _P, _P, _P, _P],
+             ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
         ),
         "msd_ft_wgrad": (
             ctypes.c_int,
-            [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
+            [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             _P, _P],
         ),
         "msd_ft_last": (
             ctypes.c_int,
-            [_P, _P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-             ctypes.c_float, ctypes.c_int, _P, _P, _P, _P, _P],
+            [_P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_float, _P, _P, _P, _P, _P],
         ),
         "msd_ft_eik": (
             ctypes.c_int,
-            [_P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_float,
-             _P, _P, _P, _P],
+            [_P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_int, ctypes.c_float, _P, _P, _P, _P],
         ),
         "msd_ft_skinny": (
             ctypes.c_int,
-            [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P],
+            [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P],
         ),
         "msd_ft_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },

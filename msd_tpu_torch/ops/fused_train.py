@@ -1,4 +1,4 @@
-"""Fused SDF loss and gradients (K2, variants b, a and d), on Hopper.
+"""Fused SDF loss and gradients (K2, variants a to e), on Hopper.
 
 Replaces ``msd_tpu/ops/fused_train.py:_make_kernel``, the Pallas TPU kernel
 called at ``build_fused_train`` (``pl.pallas_call`` at ``:423``), and its
@@ -8,16 +8,23 @@ none) and every gradient of their sum, from one forward and hand-derived
 backward pass over the points (the derivation is in ``csrc/fused_train.cu``
 and ``msd_tpu/ops/fused_train.py:11-24``). Variant d (``want_wgrad=False``,
 the frozen decoder of the Stage-2 step) returns the loss and the latent
-gradient only: no weight-gradient products run. The rounding points are the
-TPU kernel's: xyz, h, u, t, gbar and delta are rounded to the operand type
-before their products; products accumulate in float32 and every epilogue
-runs in float32.
+gradient only: no weight-gradient products run. Variant c
+(``EikonalNumPoints``) runs the eikonal chains on the first
+``eikonal_rows(P, E)`` points of each scene only; variant e scales every
+loss lane and gradient seed by a per-scene 0/1 weight, for the padded
+batches of data-parallel training, which ``fused_point_grads_sharded``
+splits over the ranks. The rounding points are the TPU kernel's: xyz, h,
+u, t, gbar and delta are rounded to the operand type before their
+products; products accumulate in float32 and every epilogue runs in
+float32.
 
 The CUDA kernels are ``msd_tpu_torch/csrc/fused_train.cu``. What bounds
 them on an H100: operations. Variant b costs 18.9 MFLOP per point at the
 flagship width (9.44 for a, 6.29 for d), so the flagship step of 32 x 16384
 points needs at least 10.0 ms (5.0 ms, 3.3 ms) at the 989 TFLOP/s dense
-bf16 peak. The bytes the design moves are its second bound: the chains
+bf16 peak; variant c costs a's 9.44 plus 9.44 x E / P (11.8 MFLOP per
+point, 6.3 ms, at E = 4096 of 16384), variant e the cost of the variant
+it weights. The bytes the design moves are its second bound: the chains
 keep h, u, t and delta of a chunk of whole scenes in device memory as bf16
 (32 KB per point at width 512 for b, 16 KB for a and d); h is written once
 and read five times (three for a, two for d), u, t and delta twice (once
@@ -64,8 +71,19 @@ WGRAD_SPLIT = 8
 SKINNY_SEGMENTS = 256
 
 # Calls of the CUDA path (each runs the kernels once over the batch);
-# callers reset it to 0 to count the calls of a run.
+# callers reset it to 0 to count the calls of a run. VARIANT_LAUNCHES counts
+# them by variant: "b" (eikonal), "a" (none), "c" (gated eikonal), "d"
+# (frozen decoder); "e" counts the weighted calls, also counted as a, b or c.
 LAUNCHES = 0
+VARIANT_LAUNCHES = dict.fromkeys("abcde", 0)
+
+
+def reset_launches():
+    """Set every K2 launch count to 0."""
+    global LAUNCHES
+    LAUNCHES = 0
+    for k in VARIANT_LAUNCHES:
+        VARIANT_LAUNCHES[k] = 0
 
 
 class UnsupportedConfig(ValueError):
@@ -139,8 +157,27 @@ def _chunks(S: int, P: int):
     return [(s, min(S, s + step)) for s in range(0, S, step)]
 
 
+def eikonal_rows(P: int, eik_points, use_eikonal: bool = True) -> int:
+    """Points per scene that run the eikonal chains under
+    ``EikonalNumPoints`` = ``eik_points`` (variant c): the TPU kernel's
+    tiled count, not E itself. ``_fused_point_grads_core``
+    (msd_tpu/ops/fused_train.py:657-663) asks for a 512-point tile when E
+    rounded up to 256 is a multiple of 512, else 256; ``build_fused_train``
+    (:350-358) halves the tile until it divides P and keeps
+    ``ceil(E / tile)`` tiles of each scene (at least one, at most all).
+    P = 384, E = 100 gives 128. P when nothing is gated."""
+    if not use_eikonal or eik_points is None or not 0 < int(eik_points) < P:
+        return P
+    e = int(eik_points)
+    tile = 512 if (-(-e // 256) * 256) % 512 == 0 else 256
+    while tile > TILE and P % tile:
+        tile //= 2
+    return min(P // tile, max(1, -(-e // tile))) * tile
+
+
 def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, inv_ntot: float,
-                      eik_coef: float, use_eikonal: bool, dtype: torch.dtype, want_wgrad: bool = True):
+                      eik_coef: float, use_eikonal: bool, dtype: torch.dtype, want_wgrad: bool = True,
+                      scene_weights=None, eik_rows=None):
     """Plain PyTorch version of K2 over scene chunks.
 
     Mp, Mx: per-layer float32 lists (None where absent); consts: per-layer
@@ -148,12 +185,23 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
     Returns (l1_sum, eik_sum, dMp, dMx, dc) with dMp/dMx float32 lists
     shaped like Mp/Mx and dc per-layer [S, out]. ``want_wgrad=False``
     (variant d, no eikonal) skips every weight-gradient product; dMp and
-    dMx are then None."""
+    dMx are then None.
+
+    ``scene_weights`` [S] float32 (variant e): per-scene 0/1 weights that
+    scale the L1 and eikonal loss lanes, the L1 seed and gbar where the
+    TPU kernel scales them (msd_tpu/ops/fused_train.py:225-226, :248-258,
+    :295-296), so a weight-0 scene adds exactly zero to every sum.
+    ``eik_rows`` (variant c): only the first ``eik_rows`` points of each
+    scene run the u-chain, the eikonal lane and the second-order chain;
+    the others add nothing to the eikonal seed (:277-289)."""
     if use_eikonal and not want_wgrad:
         raise ValueError("fused_train: the eikonal chain needs want_wgrad")
     nl, latent_li = plan.nl, plan.latent_li
     dev = xyz.device
     S = consts[0].shape[0]
+    E = P if eik_rows is None else int(eik_rows)
+    if not 0 < E <= P or E % TILE:
+        raise ValueError(f"fused_train: eikonal rows {E} not a multiple of {TILE} in (0, {P}]")
 
     def rnd(t):
         return t.to(dtype).float()
@@ -190,17 +238,26 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
         tau = 1.0 - y * y
         m = (y.abs() < clamp).float()
         yc = y.clamp(-clamp, clamp)
-        l1_sum = l1_sum + (yc - g_t).abs().sum()
+        w_pt = None if scene_weights is None else scene_weights[s0:s1][scene]
+        l1_lane = (yc - g_t).abs()
+        l1_sum = l1_sum + (l1_lane if w_pt is None else l1_lane * w_pt).sum()
         sgn = torch.sign(yc - g_t)
         mt = m * tau
 
-        def mask(layer):
-            return (h[layer] > 0).float()
-
         sbar = mt * sgn * inv_ntot
+        if w_pt is not None:
+            sbar = sbar * w_pt
         if use_eikonal:
+            # the gated rows: every point, or the first E of each scene
+            sel = slice(None) if E == P else torch.arange((s1 - s0) * P, device=dev) % P < E
+            he = [t[sel] for t in h]
+
+            def mask(layer):
+                return (he[layer] > 0).float()
+
+            mte, ye = mt[sel], y[sel]
             u = [None] * (nl - 1)
-            u_next = rnd(mt)[:, None]
+            u_next = rnd(mte)[:, None]
             for layer in range(nl - 1, 0, -1):
                 u[layer - 1] = rnd((u_next @ W[layer]) * mask(layer - 1))
                 u_next = u[layer - 1]
@@ -208,8 +265,12 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
             if latent_li is not None:
                 g = g + u[latent_li] @ WX[latent_li]
             gn = torch.sqrt(torch.clamp((g * g).sum(1), min=1e-24))
-            eik_sum = eik_sum + ((1.0 - gn) ** 2).sum()
+            eik_lane = (1.0 - gn) ** 2
             gbar = (eik_coef * (gn - 1.0) / gn)[:, None] * g
+            if w_pt is not None:
+                eik_lane = eik_lane * w_pt[sel]
+                gbar = gbar * w_pt[sel][:, None]
+            eik_sum = eik_sum + eik_lane.sum()
             gdot = (gbar * g).sum(1)
             gbar_c = rnd(gbar)
             # second-order chain
@@ -217,13 +278,16 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
             ubar = gbar_c @ WX[0].t()
             for layer in range(1, nl):
                 t_prev = rnd(mask(layer - 1) * ubar)
-                u_l = u[layer] if layer < nl - 1 else rnd(mt)[:, None]
+                u_l = u[layer] if layer < nl - 1 else rnd(mte)[:, None]
                 dMp[layer] += u_l.t() @ t_prev
                 if layer == latent_li:
                     dMx[layer] += u_l.t() @ gbar_c
                 if layer < nl - 1:
                     ubar = layer_in(layer, t_prev, gbar_c)
-            sbar = sbar + (-2.0 * y) * gdot
+            sbar[sel] = sbar[sel] + (-2.0 * ye) * gdot
+
+        def mask(layer):
+            return (h[layer] > 0).float()
 
         # delta chain
         delta = sbar[:, None]
@@ -259,10 +323,15 @@ def _ptr(t):
 
 
 def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, inv_ntot: float,
-                     eik_coef: float, use_eikonal: bool, dtype: torch.dtype, want_wgrad: bool = True):
+                     eik_coef: float, use_eikonal: bool, dtype: torch.dtype, want_wgrad: bool = True,
+                     scene_weights=None, eik_rows=None):
     """K2 on the card; same contract as ``fused_train_plain``. bf16 only.
     Variant d (``want_wgrad=False``) launches the primal and delta chains
-    and the last layer only, and stores no layer-0 delta."""
+    and the last layer only, and stores no layer-0 delta. Variant c
+    (``eik_rows`` E < P) launches the u and t chains, the eikonal lane and
+    their weight-gradient halves over the first E points of each scene
+    only; variant e passes ``scene_weights`` to the last-layer and eikonal
+    kernels."""
     if use_eikonal and not want_wgrad:
         raise ValueError("fused_train: the eikonal chain needs want_wgrad")
     if dtype != torch.bfloat16:
@@ -271,6 +340,11 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
         raise ValueError("fused_train kernel: xyz and gt must be float32")
     if P % TILE:
         raise UnsupportedConfig(f"fused_train kernel: points per scene {P} not a multiple of {TILE}")
+    E = P if eik_rows is None else int(eik_rows)
+    if not 0 < E <= P or E % TILE:
+        raise ValueError(f"fused_train kernel: eikonal rows {E} not a multiple of {TILE} in (0, {P}]")
+    if not use_eikonal:
+        E = 0
     from msd_tpu_torch.ops._build import load_library
 
     lib = load_library("fused_train")
@@ -280,6 +354,7 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
     H = nl - 1  # hidden layers
     S = consts[0].shape[0]
     bf = torch.bfloat16
+    wts = None if scene_weights is None else scene_weights.float().contiguous()
 
     def check(rc, what):
         if rc != 0:
@@ -306,28 +381,33 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
 
     for s0, s1 in _chunks(S, P):
         n = (s1 - s0) * P
+        ne = (s1 - s0) * E  # gated rows: the eikonal chains' operands, stored compactly
         rows = slice(s0 * P, s1 * P)
         X = _vec4(xyz[rows].to(bf).float())
         G = gt[rows].contiguous()
         cs = [c[s0:s1].contiguous() for c in cpad]
+        wc = None if wts is None else wts[s0:s1]
 
-        def act():
-            return [torch.empty(n, w, dtype=bf, device=dev) for w in wpad]
+        def act(rows_):
+            return [torch.empty(rows_, w, dtype=bf, device=dev) for w in wpad]
 
-        h, d = act(), act()
+        h, d = act(n), act(n)
         if not want_wgrad:
             d[0] = None  # only its column sums are read
-        u, t = (act(), act()) if use_eikonal else (None, None)
+        u, t = (act(ne), act(ne)) if use_eikonal else (None, None)
         pt = torch.empty(n, 4, dtype=torch.float32, device=dev)
-        mtc = torch.empty(n, 4, dtype=torch.float32, device=dev)
+        mtc = torch.empty(ne, 4, dtype=torch.float32, device=dev) if use_eikonal else None
         sb = torch.empty(n, 4, dtype=torch.float32, device=dev)
-        gb = torch.empty(n, 4, dtype=torch.float32, device=dev) if use_eikonal else None
+        gb = torch.empty(ne, 4, dtype=torch.float32, device=dev) if use_eikonal else None
         loss = torch.zeros(n // TILE, 4, dtype=torch.float32, device=dev)
         colsum = [torch.empty(n // 64, w, dtype=torch.float32, device=dev) for w in wpad]
 
-        def chain(A, B, N, K, xv, wxl, cvec, relu, mask, out, csum, what):
-            check(lib.msd_ft_chain(_ptr(A), _ptr(B), n, N, K, _ptr(xv), _ptr(wxl), _ptr(cvec), P,
-                                   int(relu), _ptr(mask), _ptr(out), _ptr(csum), stream), what)
+        def chain(A, B, N, K, xv, wxl, cvec, relu, mask, out, csum, what, gated=False):
+            # gated: the launch runs over the ne gated rows; its D mask is
+            # read from the chunk's points (row i -> (i / E) P + i % E)
+            check(lib.msd_ft_chain(_ptr(A), _ptr(B), ne if gated else n, N, K, _ptr(xv), _ptr(wxl), _ptr(cvec),
+                                   P, E if gated and E < P else 0, int(relu), _ptr(mask), _ptr(out), _ptr(csum), stream),
+                  what)
 
         # primal
         for l in range(H):
@@ -335,24 +415,27 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
             chain(None if l == 0 else h[l - 1], fwd[l], wpad[l], K,
                   X if wx[l] is not None else None, wx[l], cs[l], True, None, h[l], None, f"primal {l}")
         check(lib.msd_ft_last(_ptr(h[H - 1]), _ptr(w_last), wpad[H - 1], _ptr(c_last[s0:s1].contiguous()),
-                              _ptr(G), n, P, clamp, inv_ntot, int(use_eikonal), _ptr(pt), _ptr(mtc),
+                              _ptr(G), _ptr(wc), n, P, E, clamp, inv_ntot, _ptr(pt), _ptr(mtc),
                               _ptr(sb), _ptr(loss), stream), "last layer")
         if use_eikonal:
             # u-chain
-            chain(None, None, wpad[H - 1], 0, mtc, wx_last, None, False, h[H - 1], u[H - 1], None, "u last")
+            chain(None, None, wpad[H - 1], 0, mtc, wx_last, None, False, h[H - 1], u[H - 1], None, "u last",
+                  gated=True)
             for l in range(H - 1, 0, -1):
                 chain(u[l], bwd[l], wpad[l - 1], wpad[l], None, None, None, False, h[l - 1], u[l - 1], None,
-                      f"u {l - 1}")
+                      f"u {l - 1}", gated=True)
             check(lib.msd_ft_eik(_ptr(u[0]), _ptr(wx[0]), wpad[0],
                                  _ptr(u[Li]) if Li is not None else None,
                                  _ptr(wx[Li]) if Li is not None else None,
                                  wpad[Li] if Li is not None else 0,
-                                 _ptr(pt), n, eik_coef, _ptr(gb), _ptr(sb), _ptr(loss), stream), "eikonal")
+                                 _ptr(pt), _ptr(wc), ne, P, E, eik_coef, _ptr(gb), _ptr(sb), _ptr(loss), stream),
+                  "eikonal")
             # second-order chain
             for l in range(H):
                 K = 0 if l == 0 else wpad[l - 1]
                 chain(None if l == 0 else t[l - 1], fwd[l], wpad[l], K,
-                      gb if wx[l] is not None else None, wx[l], None, False, h[l], t[l], None, f"t {l}")
+                      gb if wx[l] is not None else None, wx[l], None, False, h[l], t[l], None, f"t {l}",
+                      gated=True)
         # delta chain
         chain(None, None, wpad[H - 1], 0, sb, wx_last, None, False, h[H - 1], d[H - 1], colsum[H - 1], "delta last")
         for l in range(H - 1, 0, -1):
@@ -366,27 +449,31 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
         eik_sum += lsum[:, 1].sum()
         if not want_wgrad:
             continue
-        # weight gradients
+        # weight gradients: the delta products over the chunk's n points,
+        # the eikonal ones over its ne gated rows
         for l in range(1, H):
             part = torch.empty(WGRAD_SPLIT, wpad[l], wpad[l - 1], dtype=torch.float32, device=dev)
-            check(lib.msd_ft_wgrad(_ptr(d[l]), _ptr(h[l - 1]),
-                                   _ptr(u[l]) if use_eikonal else None, _ptr(t[l - 1]) if use_eikonal else None,
-                                   n, wpad[l], wpad[l - 1], WGRAD_SPLIT, _ptr(part), stream), f"wgrad {l}")
+            check(lib.msd_ft_wgrad(_ptr(d[l]), _ptr(h[l - 1]), n,
+                                   _ptr(u[l]) if use_eikonal else None, _ptr(t[l - 1]) if use_eikonal else None, ne,
+                                   wpad[l], wpad[l - 1], WGRAD_SPLIT, _ptr(part), stream), f"wgrad {l}")
             dmp[l] += part.sum(0)
 
         def skinny(A0, V0, A1, V1, W, acc, what):
             part = torch.empty(SKINNY_SEGMENTS, W, 4, dtype=torch.float32, device=dev)
-            check(lib.msd_ft_skinny(_ptr(A0), _ptr(V0), _ptr(A1), _ptr(V1), n, W, SKINNY_SEGMENTS,
-                                    _ptr(part), stream), what)
+            check(lib.msd_ft_skinny(_ptr(A0), _ptr(V0), n, _ptr(A1), _ptr(V1), ne if A1 is not None else 0, W,
+                                    SKINNY_SEGMENTS, _ptr(part), stream), what)
             acc += part.sum(0)
 
         for l in dmx:
             skinny(d[l], X, u[l] if use_eikonal else None, gb, wpad[l], dmx[l], f"dMx {l}")
-        skinny(h[H - 1], sb, t[H - 1] if use_eikonal else None, mtc if use_eikonal else None,
+        skinny(h[H - 1], sb, t[H - 1] if use_eikonal else None, mtc,
                wpad[H - 1], dmp_last, "dMp last")
 
     global LAUNCHES
     LAUNCHES += 1
+    VARIANT_LAUNCHES["d" if not want_wgrad else "a" if not use_eikonal else "c" if E < P else "b"] += 1
+    if wts is not None:
+        VARIANT_LAUNCHES["e"] += 1
     out_dc = [dc[l][:, : plan.out[l]] for l in range(H)] + [dc_last[:, None]]
     if not want_wgrad:
         return l1_sum, eik_sum, [None] * plan.nl, [None] * plan.nl, out_dc
@@ -398,14 +485,19 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
 
 def fused_point_grads(decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: float, use_eikonal: bool,
                       num_total: int, eik_weight: float = 0.002, dtype: torch.dtype = torch.bfloat16,
-                      want_wgrad: bool = True):
-    """Fused loss and gradients for one (micro)batch; the unweighted
-    counterpart of ``msd_tpu.ops.fused_train.fused_point_grads_t``.
+                      want_wgrad: bool = True, eik_points=None, scene_weights=None, n_real=None, eik_scenes=None):
+    """Fused loss and gradients for one (micro)batch; the counterpart of
+    ``msd_tpu.ops.fused_train.fused_point_grads_t``.
 
     weights/biases: the decoder's effective [out, in] weights and biases;
     lat_rows [B, L]; xyz [B, P, 3]; gt [B, P] (unclipped); ``num_total`` is
-    the clamped-L1 normalizer (the full batch's points, also under
-    batch_split); the eikonal mean runs over this call's B*P points.
+    the clamped-L1 normalizer (the full batch's real points, also under
+    batch_split). ``eik_points`` (EikonalNumPoints, variant c): the eikonal
+    runs on the first ``eikonal_rows(P, eik_points)`` points of each scene
+    only. ``scene_weights`` [B] (variant e): per-scene 0/1 weights of a
+    padded batch; ``n_real`` (its real scenes) is then required. The
+    eikonal mean runs over ``eik_scenes`` (default: ``n_real`` when
+    weighted, else B) times the eikonal rows per scene.
     Returns (dweights, dbiases, dlat, sdf_loss, eikonal_loss);
     ``want_wgrad=False`` (variant d) returns None for dweights and dbiases.
 
@@ -414,18 +506,19 @@ def fused_point_grads(decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: f
     if xyz.device.type == "cpu":
         impl = fused_train_plain
     elif xyz.device.type == "cuda":
-        if any(t.device != xyz.device for t in (lat_rows, gt, *weights, *biases)):
+        others = (lat_rows, gt, *weights, *biases) + (() if scene_weights is None else (scene_weights,))
+        if any(t.device != xyz.device for t in others):
             raise ValueError(f"fused_point_grads: every input must be on {xyz.device}")
         impl = fused_train_cuda
     else:
         raise ValueError(f"fused_point_grads: unsupported device {xyz.device}")
     return point_grads(impl, decoder, weights, biases, lat_rows, xyz, gt, clamp_dist, use_eikonal,
-                       num_total, eik_weight, dtype, want_wgrad)
+                       num_total, eik_weight, dtype, want_wgrad, eik_points, scene_weights, n_real, eik_scenes)
 
 
 def point_grads(impl, decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: float, use_eikonal: bool,
                 num_total: int, eik_weight: float = 0.002, dtype: torch.dtype = torch.bfloat16,
-                want_wgrad: bool = True):
+                want_wgrad: bool = True, eik_points=None, scene_weights=None, n_real=None, eik_scenes=None):
     """``fused_point_grads`` through ``impl`` (``fused_train_plain`` or
     ``fused_train_cuda``) on any device; comparisons of the kernels with
     their plain version call it directly."""
@@ -433,6 +526,12 @@ def point_grads(impl, decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: f
     B, P = xyz.shape[0], xyz.shape[1]
     if not supports_fused_train(decoder, P):
         raise UnsupportedConfig("fused_train: decoder or points per scene not supported (supports_fused_train)")
+    if scene_weights is not None:
+        if n_real is None:
+            raise ValueError("fused_train: scene_weights needs n_real (the real scenes of the batch)")
+        if eik_scenes is None:
+            eik_scenes = int(n_real)
+        scene_weights = scene_weights.float().contiguous()
     parts = split_weights(plan, [w.float() for w in weights])
     consts = []
     for (_, _, wz), b in zip(parts, biases):
@@ -440,12 +539,15 @@ def point_grads(impl, decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: f
         if wz is not None:
             c = c + lat_rows.float() @ wz.t()
         consts.append(c.contiguous())
-    n_eik = B * P
+    # the eikonal normalizer counts the rows the kernel gates on
+    # (msd_tpu/ops/fused_train.py:361-368)
+    E = eikonal_rows(P, eik_points, use_eikonal)
+    n_eik = (B if eik_scenes is None else int(eik_scenes)) * E
     args = (plan, [p[0] for p in parts], [p[1] for p in parts], consts,
             xyz.reshape(-1, 3).float().contiguous(),
             gt.reshape(-1).float().clamp(-clamp_dist, clamp_dist).contiguous(),
             P, float(clamp_dist), 1.0 / num_total, 2.0 * eik_weight / n_eik, bool(use_eikonal), dtype,
-            bool(want_wgrad))
+            bool(want_wgrad), scene_weights, E)
     l1_sum, eik_sum, dMp, dMx, dc = impl(*args)
     sdf_l = l1_sum / num_total
     eik_l = eik_weight * eik_sum / n_eik if use_eikonal else torch.zeros_like(sdf_l)
@@ -479,29 +581,54 @@ def point_grads(impl, decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: f
     return dweights, dbiases, dlat, sdf_l, eik_l
 
 
+def fused_point_grads_sharded(decoder, weights, biases, lat_rows, xyz, gt, clamp_dist: float, use_eikonal: bool,
+                              num_total: int, group, eik_weight: float = 0.002,
+                              dtype: torch.dtype = torch.bfloat16, want_wgrad: bool = True, eik_points=None,
+                              scene_weights=None, n_real=None):
+    """K2 over the scene axis of a data-parallel group, the counterpart of
+    ``msd_tpu.ops.fused_train.fused_point_grads_sharded`` (:708-785).
+
+    ``lat_rows`` [B, L], ``xyz`` [B, P, 3], ``gt`` [B, P] and
+    ``scene_weights`` [B] are the whole batch, the same on every rank, with
+    B a multiple of the world size. Each rank runs K2 on its own scenes
+    (``group.scene_slice(B)``) with the global normalizers: ``num_total``
+    counts the batch's real points, and the eikonal mean runs over
+    ``n_real`` scenes when weighted, else B. The decoder gradients and the
+    loss sums are then summed over the ranks (``all_reduce``), so every
+    rank holds what the single-device call returns; the latent gradient
+    stays local: dlat [B / world, L] of this rank's scenes. A group of one
+    rank is the single-device call."""
+    B = xyz.shape[0]
+    rows = group.scene_slice(B)
+    eik_scenes = int(n_real) if scene_weights is not None else B
+    dW, db, dlat, sdf_l, eik_l = fused_point_grads(
+        decoder, weights, biases, lat_rows[rows], xyz[rows], gt[rows], clamp_dist, use_eikonal, num_total,
+        eik_weight, dtype, want_wgrad, eik_points,
+        None if scene_weights is None else scene_weights[rows], n_real, eik_scenes,
+    )
+    group.all_reduce_((dW or []) + (db or []) + [sdf_l, eik_l])
+    return dW, db, dlat, sdf_l, eik_l
+
+
 class FusedSdfLoss(torch.autograd.Function):
     """Counterpart of the ``custom_vjp`` in ``make_fused_sdf_l1``
     (``msd_tpu/ops/fused_train.py:558-617``), for the Stage-1 loss and the
     Stage-2 SDF-consistency term.
 
-    ``FusedSdfLoss.apply(cfg, lat_rows, xyz, gt, *weights, *biases)`` with
-    ``cfg = (decoder, clamp_dist, use_eikonal, num_total, eik_weight,
-    dtype, want_wgrad)`` returns (sdf + eikonal, sdf, eikonal); the last two
-    are for logging and carry no gradient. The forward computes every
-    gradient; the backward scales them by the cotangent, and autograd
-    carries them on into weight norm and the latent-table gather. With
-    ``want_wgrad`` false (variant d) the weights and biases get no gradient."""
+    ``FusedSdfLoss.apply(grads, lat_rows, *weights, *biases)``, where
+    ``grads(weights, biases, lat_rows)`` returns what ``fused_point_grads``
+    returns, gives (sdf + eikonal, sdf, eikonal); the last two are for
+    logging and carry no gradient. The forward computes every gradient; the
+    backward scales them by the cotangent, and autograd carries them on
+    into weight norm and the latent-table gather. Where ``grads`` returns no
+    weight gradients (variant d) the weights and biases get none."""
 
     @staticmethod
-    def forward(ctx, cfg, lat_rows, xyz, gt, *wb):
-        decoder, clamp_dist, use_eikonal, num_total, eik_weight, dtype, want_wgrad = cfg
+    def forward(ctx, grads, lat_rows, *wb):
         k = len(wb) // 2
-        dW, db, dlat, sdf_l, eik_l = fused_point_grads(
-            decoder, wb[:k], wb[k:], lat_rows.detach(), xyz, gt, clamp_dist, use_eikonal,
-            num_total, eik_weight, dtype, want_wgrad,
-        )
+        dW, db, dlat, sdf_l, eik_l = grads(wb[:k], wb[k:], lat_rows.detach())
         ctx.n_wb = len(wb)
-        ctx.save_for_backward(dlat, *(dW + db if want_wgrad else ()))
+        ctx.save_for_backward(dlat, *(dW + db if dW is not None else ()))
         ctx.mark_non_differentiable(sdf_l, eik_l)
         return sdf_l + eik_l, sdf_l, eik_l
 
@@ -509,7 +636,7 @@ class FusedSdfLoss(torch.autograd.Function):
     def backward(ctx, ct, _ct_sdf, _ct_eik):
         dlat, *rest = ctx.saved_tensors
         wb = [g * ct for g in rest] if rest else [None] * ctx.n_wb
-        return (None, dlat * ct, None, None, *wb)
+        return (None, dlat * ct, *wb)
 
 
 def _decoder_weights(decoder):
@@ -518,28 +645,59 @@ def _decoder_weights(decoder):
             [getattr(decoder, f"lin{layer}").bias for layer in range(n)])
 
 
+def _grads_fn(decoder, xyz, gt, clamp_dist, use_eikonal, num_total, eik_weight, dtype, want_wgrad,
+              eik_points=None, scene_weights=None, n_real=None, group=None):
+    """``grads(weights, biases, lat_rows)`` for ``FusedSdfLoss``: K2 on one
+    device, or over ``group``'s ranks with the latent gradient of every
+    scene summed over the ranks (each rank's is zero outside its scenes),
+    so that what follows the loss runs the same on every rank."""
+    if group is None or group.world_size == 1:
+        def grads(w, b, z):
+            return fused_point_grads(decoder, w, b, z, xyz, gt, clamp_dist, use_eikonal, num_total, eik_weight,
+                                     dtype, want_wgrad, eik_points, scene_weights, n_real)
+        return grads
+
+    def grads_sharded(w, b, z):
+        dW, db, dlat_local, sdf_l, eik_l = fused_point_grads_sharded(
+            decoder, w, b, z, xyz, gt, clamp_dist, use_eikonal, num_total, group, eik_weight, dtype,
+            want_wgrad, eik_points, scene_weights, n_real)
+        dlat = torch.zeros_like(z, dtype=torch.float32)
+        dlat[group.scene_slice(z.shape[0])] = dlat_local
+        group.all_reduce_([dlat])
+        return dW, db, dlat, sdf_l, eik_l
+    return grads_sharded
+
+
 def fused_sdf_loss(decoder, lat_rows, xyz, gt, clamp_dist, use_eikonal, num_total,
-                   eik_weight: float = 0.002, dtype: torch.dtype = torch.bfloat16):
+                   eik_weight: float = 0.002, dtype: torch.dtype = torch.bfloat16, eik_points=None,
+                   scene_weights=None, n_real=None, group=None):
     """(sdf + eikonal, sdf, eikonal) of one (micro)batch through K2,
     differentiable with respect to ``lat_rows`` and the decoder's
-    parameters. ``gt`` [B, P] unclipped."""
+    parameters. ``gt`` [B, P] unclipped; ``eik_points``, ``scene_weights``
+    and ``n_real`` as ``fused_point_grads``. With a ``group`` of several
+    ranks, every rank passes the whole batch and runs K2 on its share of
+    the scenes (``fused_point_grads_sharded``); the losses and every
+    gradient come back summed over the ranks."""
     weights, biases = _decoder_weights(decoder)
-    cfg = (decoder, clamp_dist, use_eikonal, num_total, eik_weight, dtype, True)
-    return FusedSdfLoss.apply(cfg, lat_rows, xyz, gt, *weights, *biases)
+    grads = _grads_fn(decoder, xyz, gt, clamp_dist, use_eikonal, num_total, eik_weight, dtype, True, eik_points,
+                      scene_weights, n_real, group)
+    return FusedSdfLoss.apply(grads, lat_rows, *weights, *biases)
 
 
 def fused_sdf_l1(decoder, lat_rows, xyz, gt, clamp_dist, train_net: bool = True,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, group=None):
     """The Stage-2 SDF-consistency term through K2, the counterpart of
     ``make_fused_sdf_l1`` (``msd_tpu/ops/fused_train.py:558-617``):
     ``sum |clip(pred) - clip(gt)| / (B * P)`` of the decoder at ``lat_rows``
     [B, L] on ``xyz`` [B, P, 3] against ``gt`` [B, P] (unclipped),
     differentiable with respect to ``lat_rows`` and, with ``train_net``
     (variant a), the decoder's parameters. ``train_net=False`` runs variant
-    d: no weight-gradient products, and the decoder gets no gradient."""
+    d: no weight-gradient products, and the decoder gets no gradient. A
+    ``group`` of several ranks splits the scenes over them (B a multiple
+    of the world size), as ``fused_sdf_loss``."""
     B, P = xyz.shape[:2]
     weights, biases = _decoder_weights(decoder)
     if not train_net:
         weights, biases = [w.detach() for w in weights], [b.detach() for b in biases]
-    cfg = (decoder, clamp_dist, False, B * P, 0.0, dtype, bool(train_net))
-    return FusedSdfLoss.apply(cfg, lat_rows, xyz, gt, *weights, *biases)[0]
+    grads = _grads_fn(decoder, xyz, gt, clamp_dist, False, B * P, 0.0, dtype, bool(train_net), group=group)
+    return FusedSdfLoss.apply(grads, lat_rows, *weights, *biases)[0]

@@ -1,0 +1,6 @@
+from msd_tpu_torch.parallel.mesh_utils import (  # noqa: F401
+    DataParallelGroup,
+    init_group,
+    pad_to_multiple,
+    run_ranks,
+)

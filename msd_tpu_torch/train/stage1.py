@@ -1,5 +1,5 @@
 """Stage-1 DeepSDF auto-decoder trainer (counterpart of
-``msd_tpu/train/stage1.py``, single device).
+``msd_tpu/train/stage1.py``), on one device or data-parallel over ranks.
 
 One step: CodeBound renorm of the batch's latent rows, a balanced pos/neg
 point draw on the device, the clamped-L1 + eikonal loss and every gradient
@@ -15,14 +15,31 @@ operands are bf16 on a GPU; on the CPU its plain version runs in float32,
 as ``msd_tpu`` on the CPU runs its bf16 precision in float32. Otherwise
 the autograd path runs: the decoder's forward, the eikonal by
 ``torch.autograd.grad(..., create_graph=True)``, all in float32 with TF32
-off.
+off. ``EikonalNumPoints`` E (``msd_tpu/train/stage1.py:111-118``) puts the
+eikonal on the first E points of each scene: K2 variant c gates on its
+tiled count (``fused_train.eikonal_rows``), the autograd path on E itself
+(:431-466), as ``msd_tpu``.
+
+Data-parallel (``group=``, a ``parallel.DataParallelGroup``; the
+counterpart of ``Stage1Trainer(mesh=)``, reached through the API only, as
+there): every rank draws the batch's points as the single-process trainer
+does, pads the batch with scenes that alias scene 0 to a multiple of the
+world size, and runs K2 on its share of the scenes; pad scenes carry
+weight 0 (variant e) and CodeBound and the code regulariser see the real
+scenes only (:577-616). The losses and the decoder and latent gradients
+are summed over the ranks (``all_reduce``), so every rank's clip and
+Adam step are the single-device step. Unlike ``msd_tpu``, which pads the
+latent table and shards it over the mesh, the table is replicated on
+every rank; checkpoints are the same either way (``msd_tpu`` strips its
+padding), so they cross between the two and between any rank counts.
+Only rank 0 writes checkpoints, logs and TensorBoard; every rank resumes.
 
 Differences from ``msd_tpu`` (documented): the random streams (torch
 generators, not JAX keys), so runs of the two packages draw different
 points from the same seed; the scene batches come from the same numpy
 generator and agree. Epoch blocks (``train/epoch_blocks.py``) were a relay
-workaround and are not ported. Covariance, GMM prior, isometry,
-grad-metric isotropy and ``EikonalNumPoints`` raise as not ported yet.
+workaround and are not ported. Covariance, GMM prior, isometry and
+grad-metric isotropy raise as not ported yet.
 """
 
 from __future__ import annotations
@@ -40,10 +57,11 @@ from msd_tpu_torch.config import get_spec_with_default, note_noop_keys, validate
 from msd_tpu_torch.data.sdf_samples import SdfDataset, sample_sdf_batch
 from msd_tpu_torch.data.splits import load_split
 from msd_tpu_torch.device import resolve_device
-from msd_tpu_torch.losses.sdf import clamped_l1_sum, code_regularization, eikonal_loss
+from msd_tpu_torch.losses.sdf import code_regularization, safe_l2norm
 from msd_tpu_torch.lr_schedules import StepLearningRateOnPlateauSchedule, get_learning_rate_schedules
 from msd_tpu_torch.models import build_decoder
 from msd_tpu_torch.ops.fused_train import fused_sdf_loss, supports_fused_train
+from msd_tpu_torch.parallel import pad_to_multiple
 from msd_tpu_torch.utils import checkpoint as ckpt
 from msd_tpu_torch.utils.logging_utils import open_summary_writer
 from msd_tpu_torch.utils.optim import GroupAdam, project_code_bound
@@ -69,8 +87,12 @@ def step_seed(seed: int, step: int) -> int:
 
 class Stage1Trainer:
     def __init__(self, experiment_directory: str, specs: dict | None = None,
-                 dataset: SdfDataset | None = None, device="cuda"):
-        self.device = resolve_device(device)
+                 dataset: SdfDataset | None = None, device="cuda", group=None):
+        """``group``: a ``parallel.DataParallelGroup`` to train
+        data-parallel over its ranks (on its device); None trains on
+        ``device`` alone."""
+        self.group = group
+        self.device = resolve_device(group.device if group is not None else device)
         self.experiment_directory = experiment_directory
         self.specs = specs if specs is not None else ws.load_experiment_specifications(experiment_directory)
         specs = self.specs
@@ -80,10 +102,6 @@ class Stage1Trainer:
         for key, what in _NOT_PORTED.items():
             if get_spec_with_default(specs, key, False):
                 raise NotImplementedError(f"{key}: {what} is not ported to msd_tpu_torch yet")
-        if get_spec_with_default(specs, "EikonalNumPoints", None):
-            raise NotImplementedError(
-                "EikonalNumPoints: K2 variant c (tile-gated eikonal) is not ported yet (ROADMAP B.1)"
-            )
         if get_spec_with_default(specs, "ProfileEpochs", None):
             logging.info("ProfileEpochs: profiling is not ported to msd_tpu_torch yet; ignored")
 
@@ -105,6 +123,8 @@ class Stage1Trainer:
         self.do_code_regularization = get_spec_with_default(specs, "CodeRegularization", True)
         self.code_reg_lambda = get_spec_with_default(specs, "CodeRegularizationLambda", 1e-4)
         self.use_eikonal = get_spec_with_default(specs, "UseEikonal", False)
+        eik_points = get_spec_with_default(specs, "EikonalNumPoints", None)
+        self.eikonal_num_points = int(eik_points) if eik_points else None
         self.seed = get_spec_with_default(specs, "Seed", 0)
         self.lr_schedules = get_learning_rate_schedules(specs)
 
@@ -140,6 +160,9 @@ class Stage1Trainer:
         self.use_fused = not reasons
         if reasons:
             logging.info("Stage-1 step takes the autograd path: %s", "; ".join(reasons))
+        if self.world_size > 1:
+            logging.info("data-parallel over %d ranks; scene batch %d padded to %d", self.world_size,
+                         self.scene_per_batch, pad_to_multiple(self.scene_per_batch, self.world_size))
         # K2's operand type: bf16 on the card; float32 for its plain version
         # on the CPU
         self.k2_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
@@ -172,20 +195,59 @@ class Stage1Trainer:
         return self._writer
 
     # ------------------------------------------------------------------
-    def _autograd_losses(self, lat_rows, xyz, gt, num_total):
+    @property
+    def world_size(self) -> int:
+        return 1 if self.group is None else self.group.world_size
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0, or the single-device trainer: the one that writes."""
+        return self.group is None or self.group.is_main
+
+    def _autograd_losses(self, lat_rows, xyz, gt, num_total, scene_weights=None):
         """Counterpart of ``point_losses`` (msd_tpu/train/stage1.py:399-482)
-        for the clamped L1 and the eikonal term; float32 autograd."""
+        for the clamped L1 and the eikonal term; float32 autograd. With
+        EikonalNumPoints E < P the eikonal runs on the first E points of
+        each scene and the other P - E run the forward only (:431-466).
+        ``scene_weights`` [b] masks pad scenes out of both terms; the
+        eikonal mean then runs over the real scenes. Over several ranks
+        each rank takes its share of the scenes with the batch's
+        normalizers; the caller sums the ranks' results."""
         b, P = xyz.shape[:2]
+        eik_scenes = b if scene_weights is None else float(scene_weights.sum())
+        if self.world_size > 1:
+            rows = self.group.scene_slice(b)
+            lat_rows, xyz, gt = lat_rows[rows], xyz[rows], gt[rows]
+            scene_weights = None if scene_weights is None else scene_weights[rows]
+            b = xyz.shape[0]
         c = self.clamp_dist
-        x = xyz.reshape(-1, 3)
-        if self.use_eikonal:
-            x = x.detach().requires_grad_(True)
-        pred = self.decoder(torch.cat([lat_rows.repeat_interleave(P, 0), x], dim=1)).clamp(-c, c)
+        E = self.eikonal_num_points
+        E = 0 if not self.use_eikonal else (E if E is not None and 0 < E < P else P)
+
+        def pred(x):  # clamped decoder at the scenes' latents, points x [b, n, 3] -> [b, n]
+            n = x.shape[1]
+            inputs = torch.cat([lat_rows.repeat_interleave(n, 0), x.reshape(-1, 3)], dim=1)
+            return self.decoder(inputs).clamp(-c, c).reshape(b, n)
+
+        x_e = xyz[:, :E].detach().requires_grad_(True) if E else None
+        pred_e = pred(x_e) if E else None
+        if E == P:
+            p = pred_e
+        elif E:
+            p = torch.cat([pred_e, pred(xyz[:, E:])], dim=1)
+        else:
+            p = pred(xyz)
+        err = (p - gt.clamp(-c, c)).abs()
+        if scene_weights is not None:
+            err = err * scene_weights[:, None]
+        sdf = err.sum() / num_total
         eik = torch.zeros((), device=xyz.device)
-        if self.use_eikonal:
-            (g,) = torch.autograd.grad(pred.sum(), x, create_graph=True)
-            eik = eikonal_loss(g)
-        sdf = clamped_l1_sum(pred, gt.reshape(-1, 1), c, num_total)
+        if E:
+            (g,) = torch.autograd.grad(pred_e.sum(), x_e, create_graph=True)
+            sq = (1.0 - safe_l2norm(g, dim=2)) ** 2
+            if scene_weights is not None:
+                sq = sq * scene_weights[:, None]
+            eik = 0.002 * sq.sum() / (eik_scenes * E)
         return sdf + eik, sdf.detach(), eik.detach()
 
     def step(self, scene_idx, batch, epoch, lr_net, lr_lat, batch_split: int = 1):
@@ -194,9 +256,17 @@ class Stage1Trainer:
         device scalars. Counterpart of ``step`` in
         msd_tpu/train/stage1.py:576-685: ``batch_split`` chunks accumulate
         gradients, the clamped L1 keeps the full batch's normalizer and
-        the chunks' eikonal means are summed."""
+        the chunks' eikonal means are summed. Over several ranks every rank
+        passes the same batch; a chunk is padded to a multiple of the world
+        size with scenes that alias scene 0 and carry weight 0."""
         B, P = self.scene_per_batch, self.num_samp_per_scene
         num_total = B * P
+        world = self.world_size
+        bs = scene_idx.shape[0] // batch_split
+        if batch_split > 1 and bs % world:
+            raise NotImplementedError(
+                f"batch_split > 1 with a scene batch padded for {world} ranks is unsupported; pick "
+                "ScenesPerBatch / batch_split divisible by the rank count, or batch_split=1")
         if self.code_bound is not None:
             with torch.no_grad():
                 self.latents[scene_idx] = project_code_bound(self.latents[scene_idx], self.code_bound)
@@ -205,29 +275,42 @@ class Stage1Trainer:
                 p.grad = None
         dev = self.latents.device
         aux = {k: torch.zeros((), device=dev) for k in ("sdf", "eikonal", "reg")}
-        bs = scene_idx.shape[0] // batch_split
+        # over ranks the autograd path sums its gradients after the chunks;
+        # the code regulariser, alike on every rank, enters rank 0's only
+        sum_after = world > 1 and not self.use_fused
         for i in range(batch_split):
             idx_c = scene_idx[i * bs:(i + 1) * bs]
             data_c = batch[:, i * bs:(i + 1) * bs]
+            pad = pad_to_multiple(bs, world) - bs
+            weights = None
+            if pad:
+                idx_c = torch.cat([idx_c, idx_c.new_zeros(pad)])
+                data_c = torch.cat([data_c, data_c.new_zeros(4, pad, P)], dim=1)
+                weights = (torch.arange(bs + pad, device=dev) < bs).float()
             lat_rows = self.latents[idx_c]
             xyz = data_c[:3].permute(1, 2, 0).contiguous()
             gt = data_c[3]
             if self.use_fused:
                 total, sdf, eik = fused_sdf_loss(
                     self.decoder, lat_rows, xyz, gt, self.clamp_dist, self.use_eikonal, num_total,
-                    dtype=self.k2_dtype,
+                    dtype=self.k2_dtype, eik_points=self.eikonal_num_points, scene_weights=weights,
+                    n_real=bs, group=self.group,
                 )
             else:
-                total, sdf, eik = self._autograd_losses(lat_rows, xyz, gt, num_total)
+                total, sdf, eik = self._autograd_losses(lat_rows, xyz, gt, num_total, weights)
             if self.do_code_regularization:
                 # over the per-point rows (ref: train_deep_sdf.py:609-616):
-                # P copies of each scene's row
-                reg = code_regularization(lat_rows, num_total / P, self.code_reg_lambda, epoch)
-                total = total + reg
+                # P copies of each real scene's row
+                reg = code_regularization(lat_rows[:bs], num_total / P, self.code_reg_lambda, epoch)
                 aux["reg"] = aux["reg"] + reg.detach()
+                if not sum_after or self.group.is_main:
+                    total = total + reg
             total.backward()
             aux["sdf"] = aux["sdf"] + sdf
             aux["eikonal"] = aux["eikonal"] + eik
+        if sum_after:
+            self.group.all_reduce_([p.grad for p in self.decoder.parameters()]
+                                   + [self.latents.grad, aux["sdf"], aux["eikonal"]])
         norms = self.optimizer.step({"net": lr_net, "lat": lr_lat}, max_norm=self.grad_clip)
         if "net" in norms:
             aux["net_grad_norm"] = norms["net"]
@@ -299,6 +382,8 @@ class Stage1Trainer:
         for name, mag in mags.items():
             self.param_mag_log.setdefault(name, []).append(mag)
         logging.info("epoch %d loss=%.6f sdf=%.6f time=%.2fs", epoch, mean["total"], mean["sdf"], seconds)
+        if not self.is_main:
+            return
         w = self.writer
         w.add_scalar("Loss/train", mean["total"], epoch)
         w.add_scalar("Loss/train_sdf", mean["sdf"], epoch)
@@ -328,11 +413,15 @@ class Stage1Trainer:
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, name: str):
+        if not self.is_main:
+            return
         ckpt.save_model(self.experiment_directory, name + ".pth", self.decoder, self.epoch)
         ckpt.save_optimizer(self.experiment_directory, name + ".pth", self.decoder, self.optimizer, self.epoch)
         ckpt.save_latent_vectors(self.experiment_directory, name + ".pth", self.latents, self.epoch)
 
     def save_logs(self):
+        if not self.is_main:
+            return
         ckpt.save_logs(self.experiment_directory, self.loss_log, self.lr_log, self.timing_log,
                        self.lat_mag_log, self.param_mag_log, self.epoch)
 

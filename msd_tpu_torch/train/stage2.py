@@ -1,5 +1,6 @@
 """Stage-2 disentanglement-VAE trainer (counterpart of
-``msd_tpu/train/stage2.py``, single device, latent encoders).
+``msd_tpu/train/stage2.py``, latent encoders), on one device or
+data-parallel over ranks.
 
 One step: the residual MLP-VAE over the batch's Stage-1 latents, the chosen
 VAE objective (beta-VAE, DIP-VAE, beta-TCVAE), every enabled
@@ -26,8 +27,17 @@ them from a torch generator seeded from (Seed, step) when they are not
 given; the scene batches and label mixing come from the same numpy
 generator as ``msd_tpu`` and agree. Epoch blocks were a relay workaround
 and are not ported. Point encoders (``EncoderType`` other than
-``residual_mlp``/``mlp``/``latent``, ROADMAP M9) and ``mesh=`` (M11) raise
-as not ported yet.
+``residual_mlp``/``mlp``/``latent``, ROADMAP M9) raise as not ported yet.
+
+Data-parallel (``group=``, a ``parallel.DataParallelGroup``; the
+counterpart of ``Stage2Trainer(mesh=)``, msd_tpu/train/stage2.py:512-553):
+the VAE and every batch-statistic loss run on every rank, on the same
+inputs and noise. The SDF-consistency term through K2 is split over the
+ranks by scenes when ScenesPerBatch is a multiple of the world size, its
+latent gradient and loss summed over them; otherwise, and on the autograd
+path, every rank computes the whole term. Every rank's update is then the
+single-device update. Only rank 0 writes checkpoints, logs and
+TensorBoard and runs the eval blocks; every rank resumes.
 """
 
 from __future__ import annotations
@@ -98,10 +108,13 @@ def eval_mode(*modules):
 
 class Stage2Trainer:
     def __init__(self, experiment_directory: str, specs: dict | None = None, dataset: SdfDataset | None = None,
-                 teacher_latents: np.ndarray | None = None, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("Stage2Trainer(mesh=): multi-GPU training is not ported yet (ROADMAP M11)")
-        self.device = resolve_device(device)
+                 teacher_latents: np.ndarray | None = None, device="cuda", group=None):
+        """``group``: a ``parallel.DataParallelGroup`` to train
+        data-parallel over its ranks (on its device); None trains on
+        ``device`` alone."""
+        self.group = group
+        self.is_main = group is None or group.is_main
+        self.device = resolve_device(group.device if group is not None else device)
         self.experiment_directory = experiment_directory
         self.specs = specs if specs is not None else ws.load_experiment_specifications(experiment_directory)
         note_noop_keys(self.specs)
@@ -521,8 +534,11 @@ class Stage2Trainer:
         reg_w = code_reg_weight if self.do_code_regularization else 0.0
         w = self.sdf_loss_weight
         if self.fused_ok and batch_split == 1:
+            # over ranks, split by scenes where the batch divides (:538-541)
+            split = self.group is not None and B % self.group.world_size == 0
             sdf_l = fused_sdf_l1(self.sdf_decoder, z_hat, xyz, gt, self.clamp_dist,
-                                 train_net=self.train_sdf_decoder, dtype=self.k2_dtype)
+                                 train_net=self.train_sdf_decoder, dtype=self.k2_dtype,
+                                 group=self.group if split else None)
             # the per-point code regulariser over the expanded latents is
             # the scene-level lam * w * sum_scenes ||z_hat|| / B
             sdf_reg = self.code_reg_lambda * reg_w * safe_l2norm(z_hat, dim=1).sum() / B
@@ -666,6 +682,8 @@ class Stage2Trainer:
         self.logs_history["timing"].append(seconds)
         logging.info("epoch %d total=%.6f vae_recon=%.6f sdf=%.6f time=%.2fs",
                      epoch, mean["total"], mean["vae_recon"], mean["sdf"], seconds)
+        if not self.is_main:
+            return
         w = self.writer
         w.add_scalar("Loss/train", mean["total"], epoch)
         w.add_scalar("Loss/train_sdf", mean["sdf"], epoch)
@@ -696,6 +714,8 @@ class Stage2Trainer:
         return torch.cat(mu).cpu().numpy()
 
     def save_checkpoint(self, name: str):
+        if not self.is_main:
+            return
         ckpt.save_stage2_model(self.experiment_directory, name + ".pth", self.vae, self.sdf_decoder, self.epoch)
         ckpt.save_stage2_optimizer(self.experiment_directory, name + ".pth", self.vae,
                                    self.sdf_decoder if self.train_sdf_decoder else None, self.optimizer, self.epoch)
@@ -726,6 +746,8 @@ class Stage2Trainer:
 
     def save_logs(self):
         """Reference-format Stage-2 Logs.pth (ref: train_MLP_VAE_deep_sdf.py:140-192)."""
+        if not self.is_main:
+            return
         torch.save(dict(self.logs_history, epoch=self.epoch, loss=self.loss_log),
                    ws.get_logs_filename(self.experiment_directory))
 

@@ -256,6 +256,73 @@ def test_k2_d_matches_plain_flagship_width(dev, monkeypatch):
     _k2_d_check(dec, 4, 4096, dev)
 
 
+# K2 variants c (EikonalNumPoints: the eikonal on the first E points of each
+# scene) and e (per-scene 0/1 weights of a padded batch) against the plain
+# version on the card, with K2 b's tolerances; a pad scene's latent row gets
+# exactly zero. name: (use_eikonal, EikonalNumPoints, scene weights)
+K2_CE_CASES = {
+    "c": (True, 256, None),
+    "e_eikonal": (True, None, [1, 1, 1, 0]),
+    "e_no_eikonal": (False, None, [1, 0, 1, 1]),
+    "c_and_e": (True, 200, [1, 1, 0, 1]),
+}
+
+
+def _k2_ce_check(dec, B, P, use_eikonal, eik_points, w, dev, check_gate=True):
+    from msd_tpu_torch.ops import fused_train as ft
+
+    kw = dict(eik_points=eik_points)
+    if w is not None:
+        kw.update(scene_weights=torch.tensor(w, dtype=torch.float32, device=dev), n_real=sum(w))
+    args = (dec, *_k2_inputs(dec, B, P, dev), 0.1, use_eikonal, (B if w is None else sum(w)) * P)
+    before = dict(ft.VARIANT_LAUNCHES)
+    out = ft.fused_point_grads(*args, **kw)
+    torch.cuda.synchronize()
+    gated = use_eikonal and ft.eikonal_rows(P, eik_points) < P
+    assert ft.VARIANT_LAUNCHES["c"] - before["c"] == int(gated)
+    assert ft.VARIANT_LAUNCHES["e"] - before["e"] == int(w is not None)
+    ref = ft.point_grads(ft.fused_train_plain, *args, **kw)
+    for i in (3, 4):
+        assert abs(float(out[i]) - float(ref[i])) <= 1e-3 * abs(float(ref[i])) + 1e-12
+    for grads, grads_ref in zip(out[:2], ref[:2]):
+        for layer, (g, r) in enumerate(zip(grads, grads_ref)):
+            assert torch.isfinite(g).all()
+            assert _rel(g, r) <= 2e-2, (layer, _rel(g, r))
+    assert _rel(out[2], ref[2]) <= 2e-2
+    if w is not None:
+        assert bool((out[2][torch.tensor(w, device=dev) == 0] == 0).all())
+    if gated and check_gate:  # the gate does something
+        full = ft.fused_point_grads(*args, **dict(kw, eik_points=None))
+        assert float(full[4]) != float(out[4])
+
+
+@pytest.mark.parametrize("name", list(K2_CE_CASES))
+def test_k2_c_e_match_plain(name, dev):
+    use_eikonal, eik_points, w = K2_CE_CASES[name]
+    dec = _decoder(K2_CONFIGS["b_latent_in"][1], dev)
+    _k2_ce_check(dec, 4, 512, use_eikonal, eik_points, w, dev)
+
+
+def test_k2_c_e_tile_step_down(dev):
+    """P = 384, E = 100: the kernel's tiling gates on 128 points."""
+    dec = _decoder(K2_CONFIGS["b_no_latent_in"][1], dev)
+    _k2_ce_check(dec, 4, 384, True, 100, [1, 1, 1, 0], dev)
+
+
+def test_k2_c_e_match_plain_flagship_width(dev, monkeypatch):
+    from msd_tpu_torch.ops import fused_train as ft
+
+    with open(os.path.join(ROOT, "examples", "ADNI", "minimal_eikonal", "specs.json")) as f:
+        specs = json.load(f)
+    dec = build_decoder(specs["NetworkArch"], specs["CodeLength"], specs["NetworkSpecs"],
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    give_surface_(dec, torch.zeros(specs["CodeLength"]))
+    monkeypatch.setattr(ft, "CHUNK_POINTS", 2 * 4096)  # two chunks
+    # latents far from the surface's: the field is flat and clamped, so every
+    # eikonal lane is 1 with or without the gate
+    _k2_ce_check(dec, 4, 4096, True, 1024, [1, 1, 1, 0], dev, check_gate=False)
+
+
 def test_fused_sdf_l1_on_card(dev):
     """The Stage-2 term on the card: bf16 K2 d and a against float32
     autograd of the same term; the latent gradient points the same way
@@ -351,11 +418,56 @@ def test_trainer_takes_k2_once_per_step(dev, train_data, tmp_path):
     assert float(torch.dot(a, b) / (a.norm() * b.norm())) > 0.95
 
 
-def test_trainer_k2_variant_c_raises_on_card(dev, train_data, tmp_path):
+def test_trainer_k2_variant_c_on_card(dev, train_data, tmp_path):
+    """EikonalNumPoints 128 of 512 points: the trainer takes K2 variant c
+    (gated on 256 points) once per step."""
+    from msd_tpu_torch.ops import fused_train as ft
     from msd_tpu_torch.train.stage1 import Stage1Trainer
 
-    with pytest.raises(NotImplementedError, match="variant c"):
-        Stage1Trainer(str(tmp_path / "c"), specs=dict(train_data, EikonalNumPoints=128), device="cuda")
+    tr = Stage1Trainer(str(tmp_path / "c"), specs=dict(train_data, EikonalNumPoints=128, SamplesPerScene=512),
+                       device="cuda")
+    assert tr.use_fused and tr.eikonal_num_points == 128 and ft.eikonal_rows(512, 128) == 256
+    before = dict(ft.VARIANT_LAUNCHES)
+    m = tr.train_epoch(1)
+    assert ft.VARIANT_LAUNCHES["c"] == before["c"] + 2 and ft.VARIANT_LAUNCHES["b"] == before["b"]
+    assert all(np.isfinite(v) for v in m.values())
+
+
+def _dp_rank(group, specs, exp, idx, batch):
+    from msd_tpu_torch.ops import fused_train as ft
+    from msd_tpu_torch.train.stage1 import Stage1Trainer
+
+    tr = Stage1Trainer(exp, specs=specs, group=group)
+    ft.reset_launches()
+    aux = tr.step(torch.as_tensor(idx, device=tr.device), batch.to(tr.device), 3.0, 1e-3, 5e-3)
+    grads = torch.cat([p.grad.reshape(-1) for p in tr.decoder.parameters()] + [tr.latents.grad.reshape(-1)])
+    return {k: float(v) for k, v in aux.items()}, grads.cpu(), dict(ft.VARIANT_LAUNCHES)
+
+
+def test_trainer_data_parallel_on_card(dev, train_data, tmp_path):
+    """3 scenes on 2 ranks (gloo, both on this card) pad to 4: each rank
+    runs K2 e once, and the step's losses (1e-5 relative) and summed
+    gradients (1e-3 relative Frobenius: float32 sums in another order)
+    equal the one-process step's."""
+    from msd_tpu_torch.data.sdf_samples import sample_sdf_batch
+    from msd_tpu_torch.parallel import run_ranks
+    from msd_tpu_torch.train.stage1 import Stage1Trainer
+
+    specs = dict(train_data, ScenesPerBatch=3)
+    exp = str(tmp_path / "dp")
+    one = Stage1Trainer(exp, specs=specs, device="cuda")
+    idx = np.array([2, 0, 3])
+    pos, pc, neg, nc = one.dataset.device_arrays(one.device)
+    batch = sample_sdf_batch(pos, pc, neg, nc, torch.as_tensor(idx, device=dev), 256,
+                             torch.Generator(device=dev).manual_seed(1))
+    ref = one.step(torch.as_tensor(idx, device=dev), batch, 3.0, 1e-3, 5e-3)
+    ref_grads = torch.cat([p.grad.reshape(-1) for p in one.decoder.parameters()] + [one.latents.grad.reshape(-1)])
+    ranks = run_ranks(_dp_rank, 2, (specs, exp, idx, batch.cpu()), devices=[str(dev)] * 2, timeout=300)
+    for aux, grads, launches in ranks:
+        assert launches["e"] == 1 and launches["b"] == 1
+        for k in ("sdf", "eikonal", "reg", "total"):
+            assert abs(aux[k] - float(ref[k])) <= 1e-5 * abs(float(ref[k])), k
+        assert _rel(grads, ref_grads.cpu()) <= 1e-3
 
 
 def test_stage2_trainer_takes_k2d_once_per_step(dev, train_data, tmp_path):

@@ -214,5 +214,26 @@ def test_not_ported_features_raise(tmp_path):
     for key in ("UseCovarianceLoss", "UseGMMPriorLoss", "UseIsometryLoss", "UseGradMetricIsotropyLoss"):
         with pytest.raises(NotImplementedError, match="not ported"):
             Stage1Trainer(exp, specs=dict(SPECS, **{key: True}), device="cpu")
-    with pytest.raises(NotImplementedError, match="variant c"):
-        Stage1Trainer(exp, specs=dict(SPECS, EikonalNumPoints=128), device="cpu")
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["k2_c", "autograd"])
+def test_eikonal_num_points_step_matches_jax(tmp_path, monkeypatch, fused):
+    """EikonalNumPoints = 200 of 512 points: K2 variant c gates on the
+    kernel's tiled count (256), as msd_tpu's fused step (run here through
+    the Pallas interpreter); the autograd path on the first 200 points, as
+    msd_tpu's XLA step. Loss parts, parameters, latents and Adam moments to
+    1e-5."""
+    exp = _experiment(tmp_path, EikonalNumPoints=200, UseFusedTrainKernel=fused)
+    if fused:
+        monkeypatch.setenv("MSD_FUSED_FORCE", "interpret")
+    jt, port = JaxTrainer(exp), Stage1Trainer(exp, device="cpu")
+    assert port.use_fused == fused and port.eikonal_num_points == 200
+    _port_from_jax(port, jt)
+    idx = np.array([2, 5, 0, 3])
+    key = jax.random.PRNGKey(9)
+    state, opt, aux = _jax_step(jt, idx, key, 3.0, (1e-3, 5e-3))
+    assert jt._fused_active == fused
+    ours = port.step(torch.tensor(idx), _jax_batch(jt, idx, key), 3.0, 1e-3, 5e-3)
+    for k in ("sdf", "eikonal", "reg", "total", "net_grad_norm"):
+        np.testing.assert_allclose(float(ours[k]), aux[k], rtol=1e-5, atol=1e-8, err_msg=k)
+    _assert_state_matches(port, state, opt)

@@ -236,8 +236,6 @@ def test_unported_options_raise(tmp_path):
         specs = json.load(f)
     with pytest.raises(NotImplementedError, match="point encoders"):
         Stage2Trainer(exp, specs=dict(specs, EncoderType="pointnet"), device="cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
-        Stage2Trainer(exp, device="cpu", mesh=object())
 
 
 def test_checkpoints_cross_both_ways(tmp_path):
