@@ -28,8 +28,15 @@ non-zero and prints no result. Phases, one JSON line each:
    16384 points (8 chunks of the kernels' scratch), where both are timed
    (CUDA events) beside the operation bound and the design's byte bound.
    Errors: loss sums, and per layer dMp, dMx, db and dlat, relative
-   Frobenius error and cosine similarity.
-6. training: the port's Stage-1 path as a user runs it. The flagship
+   Frobenius error and cosine similarity. The GEMM kernels' registers,
+   spills and shared memory (ptxas).
+6. k2gemm: K2's two GEMM kernels alone at the step's shapes, one launch
+   each (a masked 512 x 512 chain product with column sums over 65536
+   points, a primal product, the product with a plain-store epilogue, a
+   variant-b weight-gradient launch), against float32 torch products,
+   timed on the device beside their operations and bytes bounds and
+   torch.matmul of the same bf16 product.
+7. training: the port's Stage-1 path as a user runs it. The flagship
    specs.json with its DataSource, splits, NumEpochs (6), SnapshotFrequency
    (3) and AdditionalSnapshots ([]) changed, on 64 seeded ellipsoids
    (100k + 100k SdfSamples each); ``python -m msd_tpu_torch.train_deep_sdf
@@ -38,13 +45,13 @@ non-zero and prints no result. Phases, one JSON line each:
    torch.profiler split of the step's device time by kernel with the
    device's idle share, the point sampler's time at chunk 128 and 1, and
    the trainer's step on K2 a and on its float32 autograd path.
-7. k2d: K2's frozen-decoder variant d (loss and latent gradient only, the
+8. k2d: K2's frozen-decoder variant d (loss and latent gradient only, the
    Stage-2 step's kernel) against its plain version and float32 autograd on
    4 seeded scenes x 16384 points, and against its plain version at the
    Stage-2 step shape, 32 x 16384 points, where both are timed beside the
    operation bound and the design's byte bound. Errors: loss sum relative,
    dlat relative Frobenius and cosine.
-8. stage2: the port's Stage-2 path as a user runs it, on top of the
+9. stage2: the port's Stage-2 path as a user runs it, on top of the
    training phase's Stage-1 experiment (64 ellipsoids, flagship width).
    ``labels.pt`` gets a 0/1 diagnosis from each ellipsoid's axis ratio and
    a seeded age; the flagship Stage-2 specs.json
@@ -54,24 +61,24 @@ non-zero and prints no result. Phases, one JSON line each:
    --device cuda`` runs in process for 40 steps (58 training scenes, one
    batch of 32 per epoch) with one eval epoch (run_eval, SAP, Locatello SAP,
    correlation, the tables, 2 meshes at N=257 through K1 and their Chamfer
-   where a mesh has a surface: the 16-step Stage-1 decoder of phase 6 may
+   where a mesh has a surface: the 16-step Stage-1 decoder of phase 7 may
    give a field with none), then ``-c latest`` with NumEpochs 42. Then
    the step's time, K2 d's share and launches per step, a torch.profiler
    split, and the trainer's step on K2 d against its float32 autograd path
    (loss and VAE gradient).
 
-9. k2ce: K2 variants c (EikonalNumPoints 4096 of 16384 points per scene)
+10. k2ce: K2 variants c (EikonalNumPoints 4096 of 16384 points per scene)
    and e (per-scene 0/1 weights; eikonal on, one pad scene) against float32
    autograd and their plain version on 4 seeded scenes x 16384 points, then
    against the plain version at 32 x 16384 points (e: scene 31 weighted
    0), where both are timed beside the operation bound; a pad scene's dlat
    must be exactly 0.
-10. training_eik4096: ``python -m msd_tpu_torch.train_deep_sdf --device
+11. training_eik4096: ``python -m msd_tpu_torch.train_deep_sdf --device
    cuda`` on the training phase's data with EikonalNumPoints 4096 (the
    flagship's configuration of ``bench.py``'s "bench-eik4096") for 8 steps,
    K2 c once per step; then its step time, K2's share of the step and
    launches per step.
-11. dp: the flagship Stage-1 at ScenesPerBatch 32 on 3 ranks, so the batch
+12. dp: the flagship Stage-1 at ScenesPerBatch 32 on 3 ranks, so the batch
    pads to 33 and every rank runs K2 e, for 3 steps, against one process
    on the same batches (step-1 losses and summed pre-Adam gradients); then
    2 epochs of the Stage-2 experiment on 2 ranks (K2 d split by scenes)
@@ -193,8 +200,11 @@ def kernel_weights(decoder):
     return total
 
 
-def time_ms(fn, reps=10, warmup=2):
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+def time_ms(fn, reps=10, warmup=2, device_only=False):
+    """Median milliseconds of ``fn`` on the current stream (CUDA events).
+    ``device_only``: a millisecond of device sleep is queued before each
+    start event, so the host's time to launch ``fn`` is not counted (for
+    one kernel launch, not for a host-bound step)."""
     import torch
 
     for _ in range(warmup):
@@ -203,6 +213,8 @@ def time_ms(fn, reps=10, warmup=2):
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -468,8 +480,135 @@ def check_k2(decoder, seed, dev):
              "design_bytes_ms": design_bytes(decoder, B * P, name) / HBM_BYTES_PER_S * 1e3,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+        if name == "b":
+            from msd_tpu_torch.ops import _build
+
+            r["gemm_kernels"] = gemm_report(_build.BUILD_LOGS.get("fused_train", ""))
         phase("k2", **r)
         results[name] = r
+    return results
+
+
+def gemm_report(log, kernels=("chain_kernel", "wgrad_kernel")):
+    """Registers, spills and ptxas warnings of each named kernel, from
+    nvcc's ``-Xptxas -v`` log, with its dynamic shared memory."""
+    from msd_tpu_torch.ops._build import load_library
+
+    lib = load_library("fused_train")
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((k for k in kernels if k in ln), None)
+            if cur:
+                out[cur] = {"ptxas": [], "dynamic_smem_bytes": lib.msd_ft_gemm_smem(kernels.index(cur))}
+        elif cur and ("registers" in ln or "spill" in ln or "arning" in ln):
+            out[cur]["ptxas"].append(ln.strip())
+    return out
+
+
+# The GEMM kernels on their own against float32 products of the same bf16
+# operands: the chain's bf16 output within its rounding (half an ulp, plus
+# the summation order), column sums and weight gradients within 1e-5
+# relative (float32 sums in two orders).
+K2GEMM_TOL = {"out": 1.0, "colsum": 1e-5, "wgrad": 1e-5}
+
+
+def check_k2gemm(seed, dev, n=65536, W=512, P=16384):
+    """K2's two GEMM kernels at the flagship step's shapes, one launch each:
+    a masked 512 x 512 chain product over a 65536-point chunk with column
+    sums (the delta chain's), a primal product (ReLU, per-scene constants),
+    the same product with its epilogue cut to a plain store (ReLU only: the
+    TMA-fed wgmma ceiling of this design), and a variant-b weight-gradient
+    launch (two 65536-point pairs). Each is held against a float32 torch
+    product on the card (TF32 off), timed on the device (device_only) beside
+    its operations and bytes bounds and, as ``library_ms``, torch.matmul of
+    the same bf16 product (a yardstick timed only here)."""
+    import torch
+
+    from msd_tpu_torch.ops._build import load_library
+    from msd_tpu_torch.ops.fused_train import wgrad_split
+
+    lib = load_library("fused_train")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def bounds(flop, nbytes):
+        t_ops, t_bytes = flop / PEAK_FLOPS["bfloat16"] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    A = torch.relu(torch.randn(n, W, generator=g, device=dev)).to(bf)
+    B = (torch.randn(W, W, generator=g, device=dev) / W**0.5).to(bf)
+    mask = torch.randn(n, W, generator=g, device=dev).to(bf)
+    cvec = 0.1 * torch.randn(n // P, W, generator=g, device=dev)
+    out = torch.empty(n, W, dtype=bf, device=dev)
+    colsum = torch.empty(n // 64, W, device=dev)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = {}
+    try:
+        product = A.float() @ B.float().t()
+        # name: (per-scene constants, D mask, column sums); no mask means ReLU
+        for name, (cv, mk, cs) in {"chain_masked": (None, mask, colsum), "chain_primal": (cvec, None, None),
+                                   "chain_store": (None, None, None)}.items():
+
+            def launch(cv=cv, mk=mk, cs=cs):
+                rc = lib.msd_ft_chain(ptr(A), ptr(B), n, W, W, None, None, ptr(cv), P, 0, int(mk is None), ptr(mk),
+                                      ptr(out), ptr(cs), stream)
+                if rc:
+                    raise RuntimeError(f"chain_kernel: {lib.msd_ft_error_string(rc).decode()}")
+
+            launch()
+            torch.cuda.synchronize()
+            v = product + cv.repeat_interleave(P, 0) if cv is not None else product
+            v = torch.relu(v) if mk is None else v * (mk.float() > 0)
+            err = {"out": float(((out.float() - v).abs() / (2**-8 * v.abs() + 1e-5 * v.abs().max())).max())}
+            if cs is not None:
+                ref_cs = v.reshape(n // 64, 64, W).sum(1)
+                err["colsum"] = float((cs - ref_cs).abs().max() / ref_cs.abs().max())
+            if any(err[k] > K2GEMM_TOL[k] for k in err):
+                raise AssertionError(f"K2 {name} vs float32: {err}")
+            nbytes = 2.0 * (n * W + W * W + n * W) + sum(4.0 * t.numel() for t in (cv, cs) if t is not None) \
+                + (2.0 * mk.numel() if mk is not None else 0)
+            results[name] = {"n": n, "N": W, "K": W, "errors": err, "ms": time_ms(launch, device_only=True),
+                             "library_ms": time_ms(lambda: torch.matmul(A, B.t()), device_only=True),
+                             **bounds(2.0 * n * W * W, nbytes)}
+        del product, v
+        del mask, out, colsum
+        pairs = [(A, torch.randn(n, W, generator=g, device=dev).to(bf)),
+                 ((torch.randn(n, W, generator=g, device=dev) * 1e-2).to(bf),
+                  torch.randn(n, W, generator=g, device=dev).to(bf))]
+        nsplit = wgrad_split(W, W, 2 * n // 64, torch.cuda.get_device_properties(dev).multi_processor_count)
+        part = torch.empty(nsplit, W, W, device=dev)
+
+        def wgrad():
+            rc = lib.msd_ft_wgrad(ptr(pairs[0][0]), ptr(pairs[0][1]), n, ptr(pairs[1][0]), ptr(pairs[1][1]), n,
+                                  W, W, nsplit, ptr(part), stream)
+            if rc:
+                raise RuntimeError(f"wgrad_kernel: {lib.msd_ft_error_string(rc).decode()}")
+
+        wgrad()
+        torch.cuda.synchronize()
+        ref = sum(a.float().t() @ b.float() for a, b in pairs)
+        rel = float((part.sum(0) - ref).norm() / ref.norm())
+        if not rel <= K2GEMM_TOL["wgrad"]:
+            raise AssertionError(f"K2 wgrad vs float32: {rel}")
+        Acat, Bcat = torch.cat([a for a, _ in pairs]), torch.cat([b for _, b in pairs])
+        results["wgrad_b"] = {"n": [n, n], "M": W, "N": W, "nsplit": nsplit, "errors": {"rel_frobenius": rel},
+                              "ms": time_ms(wgrad, device_only=True),
+                              "library_ms": time_ms(lambda: torch.matmul(Acat.t(), Bcat), device_only=True),
+                              **bounds(2.0 * 2 * n * W * W, 2.0 * 4 * n * W + 4.0 * W * W)}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    for r in results.values():
+        r["tflops"] = r["flop"] / (r["ms"] * 1e-3) / 1e12
+    phase("k2gemm", **results,
+          library_note="torch.matmul of the same bf16 operands (bf16 out; for wgrad over the two pairs "
+                       "concatenated, without the mask, constants or column sums): a yardstick, not called by the port")
     return results
 
 
@@ -1229,6 +1368,7 @@ def main(argv=None):
           note="seeded weights, not trained: the Chamfer is no quality figure")
 
     k2 = check_k2(decoder, args.seed, dev)
+    k2gemm = check_k2gemm(args.seed, dev)
     k2d = check_k2d(decoder, args.seed, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
         training, k2_launches = train(root, specs, args.seed)
@@ -1266,6 +1406,8 @@ def main(argv=None):
         "library_ms": None, "library_note": "no single PyTorch call computes the loss and every gradient",
         "variant": "b (eikonal)", "points": b["points"], "design_bytes_ms": b["design_bytes_ms"],
         "step_ms": training["step_ms_median"], **autograd_step,
+        "gemm": {k: {f: r[f] for f in ("ms", "library_ms", "bound_ms", "bound_by", "tflops")}
+                 for k, r in k2gemm.items()},
         "variant_a": {k: a[k] for k in ("ms", "plain_ms", "bound_ms", "design_bytes_ms")}
                      | {"max_abs_err": a["vs_plain"]["max_abs_err"],
                         "max_rel_frobenius": a["vs_plain"]["worst_grad_rel"],

@@ -33,31 +33,53 @@
 // batches) multiplies the L1 and eikonal lanes, the L1 seed and gbar by a
 // per-scene 0/1 weight, so a weight-0 scene adds exactly zero everywhere.
 //
-// Bound on an H100: operations. Variant b costs 18.9 MFLOP per point at the
-// flagship width (9.44 for a, 6.29 for d), so the flagship step (32 x 16384
-// points) needs at least 10.0 ms (5.0 ms, 3.3 ms) at the 989 TFLOP/s dense
-// bf16 peak.
+// Bound on an H100: operations for the whole step. Variant b costs 18.9
+// MFLOP per point at the flagship width (9.44 for a, 6.29 for d), so the
+// flagship step (32 x 16384 points) needs at least 10.0 ms (5.0 ms, 3.3 ms)
+// at the 989 TFLOP/s dense bf16 peak.
 //
 // Design. The TPU kernel held a 1024-point tile's h and u and f32
 // accumulators for every weight gradient in 100 MB of VMEM and carried them
 // from grid step to grid step. Neither holds on Hopper: one point's h and u
 // at width 512 are 16 KB, and blocks run in parallel in no order. So the
 // chains run layer by layer over a chunk of whole scenes, each product one
-// launch of a tiled GEMM whose operands are the chunk's bf16 activations in
-// device memory (point-major [n][width]) and the layer's bf16 weights:
-//   chain_kernel  [64 points x 128 outputs] per block, K tiles of 64 staged
-//                 by cp.async (3 stages), mma.sync.m16n8k16 with ldmatrix
-//                 fragment loads, a 32 x 32 block per warp; the epilogue adds
+// launch of a GEMM whose operands are the chunk's bf16 activations in
+// device memory (point-major [n][width]) and the layer's bf16 weights.
+// One such product is bound by bytes, not operations: a 512 x 512 chain
+// product over 65536 points reads A (67 MB) and its bf16 D mask (67 MB) and
+// writes 67 MB, 60 us at 3.35 TB/s, against 35 us of bf16 operations (the
+// primal reads no mask: 40 us). A weight-gradient launch of variant b reads
+// 268 MB (80 us) for 69 us of operations. So both GEMM kernels keep the
+// tensor cores fed from a deep asynchronous ring and move every tile as
+// whole 128-byte rows:
+//   chain_kernel  persistent, one block per SM walking 128 x 128 output
+//                 tiles. One producer thread issues TMA loads
+//                 (cp.async.bulk.tensor, 128-byte swizzle) of the A and B
+//                 K tiles (depth 64) into a 4-stage ring guarded by
+//                 mbarriers; two consumer warpgroups take the tiles in turn
+//                 ("ping-pong"), each running wgmma.mma_async m64n128k16
+//                 from shared memory into float32 registers for all 128 rows
+//                 of its tile, so one warpgroup's epilogue runs while the
+//                 other's products run; setmaxnreg moves registers from the
+//                 producer to them. B is [N][K], K-major: the u and delta
+//                 chains read Mp_l^T, transposed once per call by the
+//                 wrapper, so every chain product is "NT". The epilogue adds
 //                 the xyz (or gbar) term and c_l, applies ReLU or the D mask,
-//                 stores bf16 and, on the delta chain, writes each block's
-//                 float32 column sums (the dc partials). The transposed
-//                 products (u and delta chains) read Mp_l^T, transposed once
-//                 per call by the wrapper, so every chain product is "NT".
-//   wgrad_kernel  dMp_l partials over a split of the chunk's points: a
-//                 [64 x 128] output tile per block, both operands point-major
-//                 and loaded into fragments by ldmatrix.trans; plain float32
-//                 stores of partials, no atomics, so the sums are
-//                 deterministic.
+//                 which a second producer thread has loaded by TMA into the
+//                 warpgroup's swizzled tile in shared memory (a 128-row tile
+//                 of gated rows is 128 contiguous points, since E and P are
+//                 multiples of 128), writes bf16 into that tile in place,
+//                 which that thread stores by TMA, and on the delta chain
+//                 writes float32 column sums over each 64 rows (the dc
+//                 partials) in a fixed order.
+//   wgrad_kernel  dMp_l partials over splits of the chunk's points: the same
+//                 producer/consumer ring (4 stages, 256-column tiles, both
+//                 warpgroups on each tile), both operands
+//                 point-major, so both are MN-major in shared memory (two
+//                 64-wide TMA boxes per 128-wide tile) and wgmma reads them
+//                 through the transpose bits of its descriptors; persistent
+//                 blocks walk (split, tile) units; plain float32 stores of
+//                 the partials, no atomics, so the sums are deterministic.
 //   last_kernel, eik_kernel   per-point work of the one-output last layer
 //                 and the eikonal lane, one warp per point, per-128-point-tile
 //                 loss partials.
@@ -66,134 +88,238 @@
 // Hidden widths arrive zero-padded to multiples of 128; padded rows and
 // columns stay zero and the wrapper cuts them off.
 //
-// Plain C interface, loaded with ctypes (msd_tpu_torch/ops/_build.py).
+// Plain C interface, loaded with ctypes (msd_tpu_torch/ops/_build.py). The
+// TMA descriptors are encoded here by cuTensorMapEncodeTiled, fetched from
+// the driver through the runtime (no link against libcuda).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BM = 64, BN = 128, BK = 64, PAD = 8, NTHREADS = 256, STAGES = 3;
-constexpr int SK = BK + PAD;   // chain tiles: row stride of [rows][BK] tiles
-constexpr int SAT = BM + PAD;  // wgrad tiles: row stride of the [BK][BM] A tile
-constexpr int SBT = BN + PAD;  // wgrad tiles: row stride of the [BK][BN] B tile
+constexpr int NTHREADS = 256;  // per-point kernels
 constexpr int PT_TILE = 128;   // points per block of the per-point kernels
+
+// GEMM kernels: tiles of 128 rows, depth TK per ring stage (one 128-byte
+// swizzle row of bf16); a producer warpgroup and two consumer warpgroups of
+// 64 rows each. chain_kernel's tiles are 128 columns wide, wgrad_kernel's
+// 256.
+constexpr int TM = 128, TK = 64;
+constexpr int CHAIN_TN = 128, WGRAD_TN = 256;
+constexpr int GEMM_THREADS = 384;
+constexpr int CHAIN_STAGES = 4, WGRAD_STAGES = 4;
+constexpr int A_BYTES = TM * TK * 2;              // a stage of the 128-row operand (16 KB)
+constexpr int CHAIN_B_BYTES = CHAIN_TN * TK * 2;  // a stage of the weights (16 KB)
+constexpr int WGRAD_B_BYTES = WGRAD_TN * TK * 2;  // a stage of the 256-column operand (32 KB)
+constexpr int BOX_BYTES = TM * 128;               // one [128 rows][64 bf16] box (16 KB)
+constexpr int EPI_BYTES = TM * CHAIN_TN * 2;      // a chain tile's mask/out: two such boxes (32 KB)
+constexpr int RED_FLOATS = 2 * 2 * 4 * CHAIN_TN;  // a warpgroup's column-sum partials: 2 buffers x 2 halves x 4 warps
+constexpr int CHAIN_SMEM =
+    1024 + CHAIN_STAGES * (A_BYTES + CHAIN_B_BYTES) + 2 * EPI_BYTES + 2 * RED_FLOATS * 4 + 128;
+constexpr int WGRAD_SMEM = 1024 + WGRAD_STAGES * (A_BYTES + WGRAD_B_BYTES) + 128;
 
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float rnd(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
+// mbarriers
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+// wait for the completion of the barrier's phase of parity ``parity``. Every
+// wait is on work of the same block and lasts microseconds; one that does
+// not end (a fault in the barrier protocol) traps, so the launch fails
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, tries = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && ++tries == (1u << 26)) __trap();
+  } while (!done);
 }
 
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+// TMA: a 2-D box at (c0 inner, c1 outer) into shared memory, completing
+// on ``bar``; a box out of shared memory, in a bulk group
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes to shared memory, made visible to the TMA unit
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// 8 warps as 2 (rows) x 4 (cols) over a 64 x 128 output tile, each warp a
-// 32 x 32 block = 2 x 4 m16n8 tiles; accumulator i = 16 m + 4 j + e sits at
-// (row, col) of the tile.
-__device__ __forceinline__ void coord(int i, int& r, int& c) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, m = i >> 4, j = (i >> 2) & 3, e = i & 3;
-  r = 32 * (w & 1) + 16 * m + g + ((e >> 1) << 3);
-  c = 32 * (w >> 1) + 8 * j + 2 * t + (e & 1);
+template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
-// acc += A[0:64, 0:BK] . B[0:128, 0:BK]^T, both K-contiguous in shared memory
-// (row strides SK). ldmatrix.x4: lane l addresses row (l & 7) of 8x8 matrix
-// l >> 3; A's four matrices are (rows 0-7 | 8-15) x (k 0-7 | 8-15), B's are
-// (k 0-7 | 8-15) x (n tile 2q | 2q+1).
-__device__ __forceinline__ void mac_nt(float* acc, const bf16* As, const bf16* Bs) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int li = lane >> 3, lr = lane & 7;
-  const bf16* A = As + (32 * (w & 1) + lr + 8 * (li & 1)) * SK + 8 * (li >> 1);
-  const bf16* B = Bs + (32 * (w >> 1) + 8 * (li >> 1) + lr) * SK + 8 * (li & 1);
+// wgmma shared-memory descriptors, 128-byte swizzle (layout type 1 at bit
+// 62); fields in 16-byte units. K-major ([rows][64] tiles of 128-byte
+// rows): 8-row groups 1024 B apart (SBO), LBO unused (1). MN-major ([k][64]
+// boxes, the MN index contiguous): 64-wide MN atoms one box (8 KB) apart
+// (LBO), 8-k-row groups 1024 B apart (SBO).
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(TK * 128 / 16) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128], bf16 from shared memory, float32
+// accumulators; TA, TB: the operand is MN-major (transposed). Accumulator
+// 4 j + 2 h + e of thread t of the warpgroup sits at row 16 (t / 32) +
+// (t % 32) / 4 + 8 h, column 8 j + 2 (t % 4) + e.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d[64 x 256] += A[64 x 16] B[16 x 256], bf16 from shared memory, float32
+// accumulators; TA, TB: the operand is MN-major (transposed). Accumulator
+// 4 j + 2 h + e of thread t of the warpgroup sits at row 16 (t / 32) +
+// (t % 32) / 4 + 8 h, column 8 j + 2 (t % 4) + e.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// The shared memory of a GEMM block, from a 1024-aligned base: the ring's
+// A stages, its B stages, then (chain) the two mask/out tiles and the
+// column-sum partials, then the mbarriers: full[s] and empty[s] per stage,
+// then (chain) efull[c], edone[c] and turn[c] per consumer warpgroup.
+struct Ring {
+  uint32_t base, bars;
+  int stages, b_bytes;
+  __device__ uint32_t a(int s) const { return base + s * A_BYTES; }
+  __device__ uint32_t b(int s) const { return base + stages * A_BYTES + s * b_bytes; }
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (stages + s); }
+};
+
+__device__ __forceinline__ uint32_t align1024(uint32_t a) { return (a + 1023u) & ~1023u; }
+
+// A consumer warpgroup's K loop over one tile: wait for each stage, issue its
+// k16 products (issue(stage, kk)), and release the stage once they are done
+// (one stage's products stay in flight while the next stage's are issued).
+// ``lead`` is one thread of the warpgroup; the stage's empty barrier counts
+// one arrival per warpgroup that reads it.
+template <typename Issue>
+__device__ __forceinline__ void consume(const Ring& ring, int& s, uint32_t& ph, int kt_n, bool lead, Issue issue) {
+  int prev = 0;
+  for (int kt = 0; kt < kt_n; ++kt) {
+    mbar_wait(ring.full(s), ph);
+    wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t a[2][4], b[2][4];
-    ldmatrix_x4(a[0], A + kk);
-    ldmatrix_x4(a[1], A + 16 * SK + kk);
-    ldmatrix_x4(b[0], B + kk);
-    ldmatrix_x4(b[1], B + 16 * SK + kk);
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        mma_bf16(acc + 16 * m + 8 * q, a[m], b[q][0], b[q][1]);
-        mma_bf16(acc + 16 * m + 8 * q + 4, a[m], b[q][2], b[q][3]);
-      }
+    for (int kk = 0; kk < TK / 16; ++kk) issue(s, kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (kt > 0 && lead) mbar_arrive(ring.empty(prev));
+    prev = s;
+    if (++s == ring.stages) {
+      s = 0;
+      ph ^= 1;
     }
   }
+  wgmma_wait<0>();
+  if (kt_n > 0 && lead) mbar_arrive(ring.empty(prev));
 }
 
-// acc += At[0:BK, 0:64]^T . Bt[0:BK, 0:128]: both tiles are point-major
-// ([k][m] and [k][n], rows SAT and SBT), so fragments come from
-// ldmatrix.trans. A's matrix i covers k + 8 (i >> 1), m + 8 (i & 1); B's
-// covers k + 8 (i & 1), n + 8 (i >> 1).
-__device__ __forceinline__ void mac_tn(float* acc, const bf16* At, const bf16* Bt) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int li = lane >> 3, lr = lane & 7;
-  const bf16* A = At + (8 * (li >> 1) + lr) * SAT + 32 * (w & 1) + 8 * (li & 1);
-  const bf16* B = Bt + (8 * (li & 1) + lr) * SBT + 32 * (w >> 1) + 8 * (li >> 1);
+// After wgmma_wait: no read of the accumulators moves above it
+template <int NACC> __device__ __forceinline__ void acc_fence(float (&acc)[NACC]) {
 #pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t a[2][4], b[2][4];
-    ldmatrix_x4_trans(a[0], A + kk * SAT);
-    ldmatrix_x4_trans(a[1], A + kk * SAT + 16);
-    ldmatrix_x4_trans(b[0], B + kk * SBT);
-    ldmatrix_x4_trans(b[1], B + kk * SBT + 16);
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        mma_bf16(acc + 16 * m + 8 * q, a[m], b[q][0], b[q][1]);
-        mma_bf16(acc + 16 * m + 8 * q + 4, a[m], b[q][2], b[q][3]);
-      }
-    }
-  }
-}
-
-// Copy a [rows][cols] bf16 tile (cols a multiple of 8) from global memory
-// with row stride ld into shared memory with row stride sst.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_tile(bf16* dst, int sst, const bf16* src, long long ld) {
-  constexpr int CPR = COLS / 8;
-  for (int c = threadIdx.x; c < ROWS * CPR; c += NTHREADS) {
-    const int r = c / CPR, q = c % CPR;
-    cp_async16(dst + r * sst + q * 8, src + (long long)r * ld + q * 8);
-  }
+  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(acc[i])::"memory");
 }
 
 struct ChainParams {
-  const bf16* A;      // [n][K] activations of the chunk, or null when K == 0
-  const bf16* B;      // [N][K] weights (Mp_l, or Mp_l^T for the u and delta chains)
-  long long n;        // points (a multiple of 128)
+  long long n;        // output rows (a multiple of 128)
   int N, K;           // output width (a multiple of 128), depth (a multiple of 64, or 0)
   const float* xv;    // [n][4] per-point 3-vector (x or gbar, bf16-rounded), or null
   const float* wx;    // [N][4] its weights (bf16-rounded), or null
@@ -202,137 +328,310 @@ struct ChainParams {
   int R;              // gated rows per scene (variant c): output row i reads mask
                       // row (i / R) P + i % R; 0: mask rows are the output rows
   int relu;           // 1: ReLU; 0: multiply by D = 1[mask > 0]
-  const bf16* mask;   // [rows][N] (relu == 0)
-  bf16* out;          // [n][N], or null when only colsum is wanted
+  int store;          // 1: store the bf16 output; 0: column sums only
   float* colsum;      // [n / 64][N] column sums of the float32 output, or null
 };
 
-__global__ void __launch_bounds__(NTHREADS) chain_kernel(const ChainParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);        // [STAGES][BM][SK]
-  bf16* Bs = As + STAGES * BM * SK;                // [STAGES][BN][SK]
-  float* red = reinterpret_cast<float*>(Bs + STAGES * BN * SK);  // [2][BN]
-  const int n0 = blockIdx.x * BN;
-  const long long m0 = static_cast<long long>(blockIdx.y) * BM;
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+// tm_a, tm_b: TMA maps of the [n][K] activations and the [N][K] weights;
+// tm_mask: the [rows][N] bf16 h; tm_out: the [n][N] output; boxes
+// [128][64]. The block walks tiles it = 0, 1, 2, ... (tile blockIdx.x +
+// it gridDim.x); consumer warpgroup c takes the tiles it = c, c + 2, ...,
+// all 128 rows of each, so while one warpgroup runs a tile's products the
+// other runs the previous tile's epilogue. Their main loops take turns
+// (turn[c]), which also keeps every ring barrier at most one phase ahead of
+// a warpgroup that waits on it. Thread 0 loads the K stages of every tile
+// into the ring in tile order. Thread 32 owns the two mask/out tiles, one
+// per warpgroup: it loads a tile's mask into its warpgroup's tile, stores
+// the finished output from there by TMA, and once the store has read it,
+// loads the mask of that warpgroup's next tile.
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    chain_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                 const __grid_constant__ CUtensorMap tm_mask, const __grid_constant__ CUtensorMap tm_out,
+                 const ChainParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = align1024(raw);
+  const uint32_t epi = base + CHAIN_STAGES * (A_BYTES + CHAIN_B_BYTES);  // two mask/out tiles
+  float* red = reinterpret_cast<float*>(smem_raw + (epi - raw) + 2 * EPI_BYTES);
+  const Ring ring{base, epi + 2 * EPI_BYTES + 2 * RED_FLOATS * 4, CHAIN_STAGES, CHAIN_B_BYTES};
+  const uint32_t efull = ring.bars + 16 * CHAIN_STAGES, edone = efull + 16, turn = edone + 16;
 
-  const int kt_n = p.K / BK;
-  const bf16* Ab = p.A + m0 * p.K;
-  const bf16* Bb = p.B + static_cast<long long>(n0) * p.K;
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < kt_n) {
-      load_tile<BM, BK>(As + s * BM * SK, SK, Ab + s * BK, p.K);
-      load_tile<BN, BK>(Bs + s * BN * SK, SK, Bb + s * BK, p.K);
+  const int tiles_n = p.N / CHAIN_TN;
+  const long long tiles = p.n / TM * tiles_n;
+  const int kt_n = p.K / TK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < CHAIN_STAGES; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty(s), 1);
     }
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < kt_n; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
-    __syncthreads();              // ... everyone's; and tile kt-1's buffers are free
-    const int nx = kt + STAGES - 1;
-    if (nx < kt_n) {
-      load_tile<BM, BK>(As + (nx % STAGES) * BM * SK, SK, Ab + nx * BK, p.K);
-      load_tile<BN, BK>(Bs + (nx % STAGES) * BN * SK, SK, Bb + nx * BK, p.K);
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(efull + 8 * c, 1);
+      mbar_init(edone + 8 * c, 1);
+      mbar_init(turn + 8 * c, 1);
     }
-    cp_async_commit();
-    mac_nt(acc, As + (kt % STAGES) * BM * SK, Bs + (kt % STAGES) * BN * SK);
-  }
-  cp_async_wait<0>();
-
-  // epilogue: float32, then one bf16 store per output
-  float cs[8];  // this thread's column sums over its rows, by (j, e & 1)
-#pragma unroll
-  for (int i = 0; i < 8; ++i) cs[i] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    int r, c;
-    coord(i, r, c);
-    const long long pr = m0 + r;
-    const int pc = n0 + c;
-    float v = acc[i];
-    if (p.xv != nullptr) {
-      const float* x = p.xv + 4 * pr;
-      const float* w = p.wx + 4 * pc;
-      v += x[0] * w[0] + x[1] * w[1] + x[2] * w[2];
-    }
-    if (p.cvec != nullptr) v += p.cvec[(pr / p.P) * p.N + pc];
-    if (p.relu) {
-      v = fmaxf(v, 0.0f);
-    } else {
-      const long long mr = p.R ? (pr / p.R) * p.P + pr % p.R : pr;
-      v = bf(p.mask[mr * p.N + pc]) > 0.0f ? v : 0.0f;
-    }
-    if (p.out != nullptr) p.out[pr * p.N + pc] = __float2bfloat16_rn(v);
-    cs[2 * ((i >> 2) & 3) + (i & 1)] += v;
-  }
-  if (p.colsum == nullptr) return;
-  // reduce over the 8 row groups of the warp (lane bits 2-4), then over the
-  // two warp rows in a fixed order: deterministic
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) cs[i] += __shfl_xor_sync(0xffffffffu, cs[i], off);
-  }
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  if (lane < 4) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) red[(w & 1) * BN + 32 * (w >> 1) + 8 * (i >> 1) + 2 * lane + (i & 1)] = cs[i];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < BN; c += NTHREADS)
-    p.colsum[blockIdx.y * static_cast<long long>(p.N) + n0 + c] = red[c] + red[BN + c];
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: thread 0 loads the ring, thread 32 the masks and stores
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int row0 = static_cast<int>(tile / tiles_n * TM);
+        const int col0 = static_cast<int>(tile % tiles_n) * CHAIN_TN;
+        for (int kt = 0; kt < kt_n; ++kt) {
+          mbar_wait(ring.empty(s), ph ^ 1);
+          mbar_expect_tx(ring.full(s), A_BYTES + CHAIN_B_BYTES);
+          tma_load(ring.a(s), &tm_a, kt * TK, row0, ring.full(s));
+          tma_load(ring.b(s), &tm_b, kt * TK, col0, ring.full(s));
+          if (++s == CHAIN_STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    } else if (threadIdx.x == 32) {
+      // mask/out tile c is ready for the warpgroup's next tile: its D (or,
+      // under ReLU, just the free tile)
+      auto ready = [&](long long tile, int c) {
+        if (tile >= tiles) return;
+        if (p.relu) {
+          mbar_arrive(efull + 8 * c);
+          return;
+        }
+        // the tile's 128 rows of D: contiguous points, also when gated
+        const int row0 = static_cast<int>(tile / tiles_n * TM);
+        const int col0 = static_cast<int>(tile % tiles_n) * CHAIN_TN;
+        const int mrow = p.R ? row0 / p.R * p.P + row0 % p.R : row0;
+        mbar_expect_tx(efull + 8 * c, EPI_BYTES);
+        tma_load(epi + c * EPI_BYTES, &tm_mask, col0, mrow, efull + 8 * c);
+        tma_load(epi + c * EPI_BYTES + BOX_BYTES, &tm_mask, col0 + 64, mrow, efull + 8 * c);
+      };
+      ready(blockIdx.x, 0);
+      ready(blockIdx.x + gridDim.x, 1);
+      long long it = 0;
+      for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+        const int c = static_cast<int>(it & 1);
+        mbar_wait(edone + 8 * c, static_cast<uint32_t>((it >> 1) & 1));
+        if (p.store) {
+          const int row0 = static_cast<int>(tile / tiles_n * TM);
+          const int col0 = static_cast<int>(tile % tiles_n) * CHAIN_TN;
+          tma_store(&tm_out, epi + c * EPI_BYTES, col0, row0);
+          tma_store(&tm_out, epi + c * EPI_BYTES + BOX_BYTES, col0 + 64, row0);
+          bulk_commit();
+          bulk_wait_read<0>();
+        }
+        ready(tile + 2 * static_cast<long long>(gridDim.x), c);
+      }
+    }
+  } else {
+    // consumer warpgroup c: tiles it = c, c + 2, ...; rows 64 hf + 16 w + g
+    // (+ 8) of each for half hf
+    setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x & 127, w = t >> 5, l = t & 31, q = l & 3, g = l >> 2;
+    unsigned char* const E = smem_raw + (epi - raw) + c * EPI_BYTES + (16 * w + g) * 128 + 4 * q;
+    long long it = c;
+    for (long long tile = blockIdx.x + c * static_cast<long long>(gridDim.x); tile < tiles;
+         tile += 2 * static_cast<long long>(gridDim.x), it += 2) {
+      const long long row0 = tile / tiles_n * TM;
+      const int col0 = static_cast<int>(tile % tiles_n) * CHAIN_TN;
+      float acc0[64], acc1[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.0f;
+      // the ring position of the tile's first K stage
+      int s = static_cast<int>(it * kt_n % CHAIN_STAGES);
+      uint32_t ph = static_cast<uint32_t>(it * kt_n / CHAIN_STAGES & 1);
+      if (it > 0) mbar_wait(turn + 8 * c, static_cast<uint32_t>((it - 1) >> 1 & 1));
+      consume(ring, s, ph, kt_n, t == 0, [&](int st, int kk) {
+        const uint64_t db = desc_k(ring.b(st) + 32 * kk);
+        wgmma_m64n128k16<0, 0>(acc0, desc_k(ring.a(st) + 32 * kk), db);
+        wgmma_m64n128k16<0, 0>(acc1, desc_k(ring.a(st) + A_BYTES / 2 + 32 * kk), db);
+      });
+      acc_fence(acc0);
+      acc_fence(acc1);
+      if (t == 0) mbar_arrive(turn + 8 * (1 - c));
+
+      // epilogue, float32: xyz term, c_l, ReLU or D, bf16 in place of D
+      // P is a multiple of the tile: one scene per tile
+      const float* cv = p.cvec != nullptr ? p.cvec + row0 / p.P * p.N + col0 : nullptr;
+      float* rb = red + c * RED_FLOATS + (it >> 1 & 1) * (RED_FLOATS / 2);  // [half][warp][column]
+      mbar_wait(efull + 8 * c, static_cast<uint32_t>(it >> 1 & 1));
+      auto half = [&](float(&acc)[64], const int hf) {
+        const long long r0 = row0 + 64 * hf + 16 * w + g;  // this thread's rows: r0 and r0 + 8
+        float4 x[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+        if (p.xv != nullptr) {
+          x[0] = __ldg(reinterpret_cast<const float4*>(p.xv) + r0);
+          x[1] = __ldg(reinterpret_cast<const float4*>(p.xv) + r0 + 8);
+        }
+        // pair (j, h): row r0 + 8 h of box j / 8; its 16-byte chunk j % 8
+        // swizzled by row % 8 == g
+        auto pair = [&](int j, int h) {
+          return reinterpret_cast<__nv_bfloat162*>(E + (j >> 3) * BOX_BYTES + (64 * hf + 8 * h) * 128 +
+                                                   (((j & 7) ^ g) << 4));
+        };
+        float cs[32];
+#pragma unroll
+        for (int j = 0; j < CHAIN_TN / 8; ++j) {
+          const int col = 8 * j + 2 * q;
+          float2 cvv = make_float2(0.f, 0.f);
+          if (cv != nullptr) cvv = __ldg(reinterpret_cast<const float2*>(cv + col));
+          float4 w0 = make_float4(0.f, 0.f, 0.f, 0.f), w1 = w0;
+          if (p.xv != nullptr) {
+            w0 = __ldg(reinterpret_cast<const float4*>(p.wx) + col0 + col);
+            w1 = __ldg(reinterpret_cast<const float4*>(p.wx) + col0 + col + 1);
+          }
+          cs[2 * j] = cs[2 * j + 1] = 0.0f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v0 = acc[4 * j + 2 * h];
+            float v1 = acc[4 * j + 2 * h + 1];
+            if (p.xv != nullptr) {
+              v0 += x[h].x * w0.x + x[h].y * w0.y + x[h].z * w0.z;
+              v1 += x[h].x * w1.x + x[h].y * w1.y + x[h].z * w1.z;
+            }
+            if (cv != nullptr) {
+              v0 += cvv.x;
+              v1 += cvv.y;
+            }
+            if (p.relu) {
+              v0 = fmaxf(v0, 0.0f);
+              v1 = fmaxf(v1, 0.0f);
+            } else {
+              const __nv_bfloat162 m = *pair(j, h);
+              v0 = bf(m.x) > 0.0f ? v0 : 0.0f;
+              v1 = bf(m.y) > 0.0f ? v1 : 0.0f;
+            }
+            if (p.store) *pair(j, h) = __floats2bfloat162_rn(v0, v1);
+            cs[2 * j] += v0;
+            cs[2 * j + 1] += v1;
+          }
+        }
+        // column sums over the warp's 16 rows of the half (lane bits 2-4)
+        if (p.colsum != nullptr) {
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) cs[i] += __shfl_xor_sync(0xffffffffu, cs[i], off);
+          }
+          if (g == 0) {
+#pragma unroll
+            for (int j = 0; j < CHAIN_TN / 8; ++j) {
+              rb[(4 * hf + w) * CHAIN_TN + 8 * j + 2 * q] = cs[2 * j];
+              rb[(4 * hf + w) * CHAIN_TN + 8 * j + 2 * q + 1] = cs[2 * j + 1];
+            }
+          }
+        }
+      };
+      half(acc0, 0);
+      half(acc1, 1);
+      if (p.store) fence_proxy_async();  // the output, for the TMA store
+      named_bar_sync(1 + c, 128);
+      if (t == 0) mbar_arrive(edone + 8 * c);
+      // then over the half's 4 warps, in a fixed order: one partial per 64 rows
+      if (p.colsum != nullptr) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float* v = rb + 4 * hf * CHAIN_TN + t;
+          p.colsum[(row0 / 64 + hf) * p.N + col0 + t] = ((v[0] + v[CHAIN_TN]) + v[2 * CHAIN_TN]) + v[3 * CHAIN_TN];
+        }
+      }
+    }
+  }
 }
 
 struct WgradParams {
-  const bf16* A[2];  // [n_q][M] (delta_l, u_l)
-  const bf16* B[2];  // [n_q][N] (h_{l-1}, t_{l-1})
-  long long n[2];    // rows of each pair (0: no second pair)
+  long long kt0, kts;  // 64-point K tiles of the first pair, of both
   int M, N, nsplit;
-  float* out;  // [nsplit][M][N] partial sums
+  float* out;          // [nsplit][M][N] partial sums
 };
 
-__global__ void __launch_bounds__(NTHREADS) wgrad_kernel(const WgradParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [STAGES][BK][SAT]
-  bf16* Bs = As + STAGES * BK * SAT;         // [STAGES][BK][SBT]
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, split = blockIdx.z;
-  const long long tiles0 = p.n[0] / BK;
-  const long long total = tiles0 + p.n[1] / BK;
-  const long long chunk = (total + p.nsplit - 1) / p.nsplit;
-  const long long kb = split * chunk;
-  const long long ke = kb + chunk < total ? kb + chunk : total;
-  const int kt_n = ke > kb ? static_cast<int>(ke - kb) : 0;
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+// tm_aq: TMA maps of the [n_q][M] delta_l (u_l), tm_bq of the [n_q][N]
+// h_{l-1} (t_{l-1}); boxes [64 points][64 columns]. A B box wholly right
+// of N is not loaded (its columns are not stored).
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    wgrad_kernel(const __grid_constant__ CUtensorMap tm_a0, const __grid_constant__ CUtensorMap tm_b0,
+                 const __grid_constant__ CUtensorMap tm_a1, const __grid_constant__ CUtensorMap tm_b1,
+                 const WgradParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = align1024(smem_u32(smem_raw));
+  const Ring ring{base, base + WGRAD_STAGES * (A_BYTES + WGRAD_B_BYTES), WGRAD_STAGES, WGRAD_B_BYTES};
+  const int tiles_n = (p.N + WGRAD_TN - 1) / WGRAD_TN;
+  const int tiles = p.M / TM * tiles_n;
+  const long long units = static_cast<long long>(tiles) * p.nsplit;
+  const long long chunk = (p.kts + p.nsplit - 1) / p.nsplit;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WGRAD_STAGES; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  auto load = [&](int buf, long long kt) {
-    const int q = kt < tiles0 ? 0 : 1;
-    const long long row = (q ? kt - tiles0 : kt) * BK;
-    load_tile<BK, BM>(As + buf * BK * SAT, SAT, p.A[q] + row * p.M + m0, p.M);
-    load_tile<BK, BN>(Bs + buf * BK * SBT, SBT, p.B[q] + row * p.N + n0, p.N);
-  };
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < kt_n) load(s, kb + s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < kt_n; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nx = kt + STAGES - 1;
-    if (nx < kt_n) load(nx % STAGES, kb + nx);
-    cp_async_commit();
-    mac_tn(acc, As + (kt % STAGES) * BK * SAT, Bs + (kt % STAGES) * BK * SBT);
-  }
-  cp_async_wait<0>();
-  float* out = p.out + static_cast<long long>(split) * p.M * p.N;
+  // unit u: split u / tiles (the units of one split run side by side and
+  // share their rows in L2), output tile u % tiles
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+        const int tile = static_cast<int>(u % tiles);
+        const int m0 = tile / tiles_n * TM, n0 = tile % tiles_n * WGRAD_TN;
+        const int nbox = (p.N - n0) / 64 < WGRAD_TN / 64 ? (p.N - n0) / 64 : WGRAD_TN / 64;
+        const long long kb = u / tiles * chunk, ke = kb + chunk < p.kts ? kb + chunk : p.kts;
+        for (long long kt = kb; kt < ke; ++kt) {
+          const bool second = kt >= p.kt0;
+          const CUtensorMap* ma = second ? &tm_a1 : &tm_a0;
+          const CUtensorMap* mb = second ? &tm_b1 : &tm_b0;
+          const int row = static_cast<int>((second ? kt - p.kt0 : kt) * TK);
+          mbar_wait(ring.empty(s), ph ^ 1);
+          mbar_expect_tx(ring.full(s), A_BYTES + nbox * (WGRAD_B_BYTES / 4));
+          for (int bx = 0; bx < 2; ++bx) tma_load(ring.a(s) + bx * (A_BYTES / 2), ma, m0 + 64 * bx, row, ring.full(s));
+          for (int bx = 0; bx < nbox; ++bx) tma_load(ring.b(s) + bx * (WGRAD_B_BYTES / 4), mb, n0 + 64 * bx, row, ring.full(s));
+          if (++s == WGRAD_STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x & 127, w = t >> 5, l = t & 31;
+    int s = 0;
+    uint32_t ph = 0;
+    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+      const int tile = static_cast<int>(u % tiles);
+      const int m0 = tile / tiles_n * TM, n0 = tile % tiles_n * WGRAD_TN;
+      const long long split = u / tiles;
+      const long long kb = split * chunk, ke = kb + chunk < p.kts ? kb + chunk : p.kts;
+      float acc[128];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    int r, c;
-    coord(i, r, c);
-    out[static_cast<long long>(m0 + r) * p.N + n0 + c] = acc[i];
+      for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+      // A: box c of the stage ([64 points][64 rows of dMp]); B: its four boxes
+      consume(ring, s, ph, ke > kb ? static_cast<int>(ke - kb) : 0, t == 0, [&](int st, int kk) {
+        wgmma_m64n256k16<1, 1>(acc, desc_mn(ring.a(st) + c * (A_BYTES / 2) + 2048 * kk), desc_mn(ring.b(st) + 2048 * kk));
+      });
+      acc_fence(acc);
+      float* out = p.out + split * p.M * p.N;
+      const int r = m0 + 64 * c + 16 * w + (l >> 2);
+#pragma unroll
+      for (int j = 0; j < WGRAD_TN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (l & 3);
+        if (col < p.N) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(out + static_cast<long long>(r + 8 * h) * p.N + col) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
   }
 }
 
@@ -526,11 +825,54 @@ __global__ void __launch_bounds__(128) skinny_kernel(const SkinnyParams p) {
   }
 }
 
-constexpr int CHAIN_SMEM = STAGES * (BM + BN) * SK * 2 + 2 * BN * 4;
-constexpr int WGRAD_SMEM = STAGES * BK * (SAT + SBT) * 2;
-
 inline int err(cudaError_t e) { return static_cast<int>(e); }
 inline int bad() { return err(cudaErrorInvalidValue); }
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// The TMA map of a row-major [outer][inner] bf16 tensor in boxes of
+// [box_outer][box_inner], 128-byte swizzle, zeros past the edges. An
+// unused map stays zero.
+bool bf16_map(CUtensorMap* m, const void* ptr, long long inner, long long outer, int box_inner, int box_outer) {
+  memset(m, 0, sizeof(*m));
+  if (ptr == nullptr) return true;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Persistent GEMM grids: one block per SM, or fewer when there is less work
+cudaError_t gemm_grid(long long units, unsigned* grid) {
+  int dev, sms;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *grid = static_cast<unsigned>(units < sms ? units : sms);
+  return e;
+}
 
 }  // namespace
 
@@ -542,56 +884,47 @@ extern "C" {
 int msd_ft_chain(const void* A, const void* B, long long n, int N, int K, const void* xv, const void* wx,
                  const void* cvec, int P, int R, int relu, const void* mask, void* out, void* colsum,
                  void* stream) {
-  if (n <= 0 || n % PT_TILE || N <= 0 || N % BN || K < 0 || K % BK || (K > 0) != (A != nullptr) ||
+  if (n <= 0 || n % TM || n > INT32_MAX || N <= 0 || N % CHAIN_TN || K < 0 || K % TK || (K > 0) != (A != nullptr) ||
       (K > 0 && B == nullptr) || (xv == nullptr) != (wx == nullptr) || ((cvec != nullptr || R) && P <= 0) ||
-      R < 0 || R > P || (R && (R % BM || n % R)) || (!relu && mask == nullptr) ||
-      (out == nullptr && colsum == nullptr) || n / BM > 65535)
+      (cvec != nullptr && P % TM) || R < 0 || R > P || (R && (R % TM || n % R)) || (!relu && mask == nullptr) ||
+      (out == nullptr && colsum == nullptr))
     return bad();
-  ChainParams p;
-  p.A = static_cast<const bf16*>(A);
-  p.B = static_cast<const bf16*>(B);
-  p.n = n;
-  p.N = N;
-  p.K = K;
-  p.xv = static_cast<const float*>(xv);
-  p.wx = static_cast<const float*>(wx);
-  p.cvec = static_cast<const float*>(cvec);
-  p.P = P;
-  p.R = R;
-  p.relu = relu;
-  p.mask = static_cast<const bf16*>(mask);
-  p.out = static_cast<bf16*>(out);
-  p.colsum = static_cast<float*>(colsum);
-  cudaError_t e = cudaFuncSetAttribute(chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CHAIN_SMEM);
+  const ChainParams p{n, N, K, static_cast<const float*>(xv), static_cast<const float*>(wx),
+                      static_cast<const float*>(cvec), P, R, relu, out != nullptr, static_cast<float*>(colsum)};
+  CUtensorMap ta, tb, tmask, tout;
+  if (!bf16_map(&ta, K > 0 ? A : nullptr, K, n, TK, TM) || !bf16_map(&tb, K > 0 ? B : nullptr, K, N, TK, CHAIN_TN) ||
+      !bf16_map(&tmask, relu ? nullptr : mask, N, R ? n / R * P : n, 64, TM) ||
+      !bf16_map(&tout, out, N, n, 64, TM))
+    return bad();
+  unsigned grid;
+  cudaError_t e = gemm_grid(n / TM * (N / CHAIN_TN), &grid);
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CHAIN_SMEM);
   if (e != cudaSuccess) return err(e);
-  dim3 grid(N / BN, static_cast<unsigned>(n / BM));
-  chain_kernel<<<grid, NTHREADS, CHAIN_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
+  chain_kernel<<<grid, GEMM_THREADS, CHAIN_SMEM, static_cast<cudaStream_t>(stream)>>>(ta, tb, tmask, tout, p);
   return err(cudaGetLastError());
 }
 
 int msd_ft_wgrad(const void* A0, const void* B0, long long n0, const void* A1, const void* B1, long long n1,
                  int M, int N, int nsplit, void* out, void* stream) {
-  if (n0 <= 0 || n0 % BK || n1 < 0 || n1 % BK || (n1 > 0) != (A1 != nullptr) || M <= 0 || M % BM ||
-      N <= 0 || N % BN || nsplit < 1 || nsplit > 65535 || A0 == nullptr || B0 == nullptr ||
+  if (n0 <= 0 || n0 % TK || n0 > INT32_MAX || n1 < 0 || n1 % TK || n1 > INT32_MAX || (n1 > 0) != (A1 != nullptr) ||
+      M <= 0 || M % TM || N <= 0 || N % 128 || nsplit < 1 || A0 == nullptr || B0 == nullptr ||
       (A1 == nullptr) != (B1 == nullptr) || out == nullptr)
     return bad();
-  WgradParams p;
-  p.A[0] = static_cast<const bf16*>(A0);
-  p.B[0] = static_cast<const bf16*>(B0);
-  p.A[1] = static_cast<const bf16*>(A1);
-  p.B[1] = static_cast<const bf16*>(B1);
-  p.n[0] = n0;
-  p.n[1] = n1;
-  p.M = M;
-  p.N = N;
-  p.nsplit = nsplit;
-  p.out = static_cast<float*>(out);
-  cudaError_t e = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WGRAD_SMEM);
+  const WgradParams p{n0 / TK, (n0 + n1) / TK, M, N, nsplit, static_cast<float*>(out)};
+  CUtensorMap a0, b0, a1, b1;
+  if (!bf16_map(&a0, A0, M, n0, 64, TK) || !bf16_map(&b0, B0, N, n0, 64, TK) ||
+      !bf16_map(&a1, n1 > 0 ? A1 : nullptr, M, n1, 64, TK) || !bf16_map(&b1, n1 > 0 ? B1 : nullptr, N, n1, 64, TK))
+    return bad();
+  unsigned grid;
+  cudaError_t e = gemm_grid(static_cast<long long>(M / TM) * ((N + WGRAD_TN - 1) / WGRAD_TN) * nsplit, &grid);
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WGRAD_SMEM);
   if (e != cudaSuccess) return err(e);
-  dim3 grid(N / BN, M / BM, nsplit);
-  wgrad_kernel<<<grid, NTHREADS, WGRAD_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
+  wgrad_kernel<<<grid, GEMM_THREADS, WGRAD_SMEM, static_cast<cudaStream_t>(stream)>>>(a0, b0, a1, b1, p);
   return err(cudaGetLastError());
 }
+
+// Dynamic shared memory of chain_kernel (0) or wgrad_kernel (1), bytes
+int msd_ft_gemm_smem(int kernel) { return kernel ? WGRAD_SMEM : CHAIN_SMEM; }
 
 int msd_ft_last(const void* h, const void* wl, int K, const void* clast, const void* gt, const void* w,
                 long long n, int P, int E, float clamp, float inv_ntot, void* pt, void* mtc, void* sb, void* loss,

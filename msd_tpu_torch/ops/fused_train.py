@@ -65,10 +65,13 @@ TILE = 128
 WIDTH_PAD = 128
 # Most points one chunk of the CUDA path holds in scratch (whole scenes).
 CHUNK_POINTS = 2**16
-# Split-K factor of the weight-gradient launches and segments of the
-# three-column sums.
-WGRAD_SPLIT = 8
+# Segments of the three-column sums.
 SKINNY_SEGMENTS = 256
+# wgrad_kernel's output tile (rows x columns), the GEMM kernels' depth per
+# pipeline stage, and the SMs of an H100 SXM, one persistent GEMM block each.
+WGRAD_TILE = (128, 256)
+GEMM_DEPTH = 64
+H100_SMS = 132
 
 # Calls of the CUDA path (each runs the kernels once over the batch);
 # callers reset it to 0 to count the calls of a run. VARIANT_LAUNCHES counts
@@ -303,6 +306,21 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
     return l1_sum, eik_sum, dMp, dMx, dc
 
 
+def wgrad_split(M: int, N: int, k_tiles: int, sms: int = H100_SMS) -> int:
+    """Splits of the points of one weight-gradient launch (``k_tiles``
+    tiles of GEMM_DEPTH points) over its (M / 128) ceil(N / 256) output
+    tiles: the fewest splits that give at least ``sms`` units of work
+    (tile, split) and fill the waves of ``sms`` persistent blocks to at
+    least 10/11, and no more splits than K tiles. ``wgrad_kernel`` gives
+    split i the K tiles [i c, (i + 1) c), c = ceil(k_tiles / splits); each
+    split adds an [M, N] float32 partial, summed here in a fixed order."""
+    tiles = -(-M // WGRAD_TILE[0]) * -(-N // WGRAD_TILE[1])
+    s = -(-sms // tiles)
+    while -(-tiles * s // sms) * sms * 10 > tiles * s * 11:
+        s += 1
+    return max(1, min(s, k_tiles))
+
+
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -350,6 +368,7 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
     lib = load_library("fused_train")
     dev = xyz.device
     stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nl, Li = plan.nl, plan.latent_li
     H = nl - 1  # hidden layers
     S = consts[0].shape[0]
@@ -452,10 +471,11 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
         # weight gradients: the delta products over the chunk's n points,
         # the eikonal ones over its ne gated rows
         for l in range(1, H):
-            part = torch.empty(WGRAD_SPLIT, wpad[l], wpad[l - 1], dtype=torch.float32, device=dev)
+            nsplit = wgrad_split(wpad[l], wpad[l - 1], (n + ne) // GEMM_DEPTH, sms)
+            part = torch.empty(nsplit, wpad[l], wpad[l - 1], dtype=torch.float32, device=dev)
             check(lib.msd_ft_wgrad(_ptr(d[l]), _ptr(h[l - 1]), n,
                                    _ptr(u[l]) if use_eikonal else None, _ptr(t[l - 1]) if use_eikonal else None, ne,
-                                   wpad[l], wpad[l - 1], WGRAD_SPLIT, _ptr(part), stream), f"wgrad {l}")
+                                   wpad[l], wpad[l - 1], nsplit, _ptr(part), stream), f"wgrad {l}")
             dmp[l] += part.sum(0)
 
         def skinny(A0, V0, A1, V1, W, acc, what):

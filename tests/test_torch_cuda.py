@@ -494,3 +494,158 @@ def test_stage2_trainer_takes_k2d_once_per_step(dev, train_data, tmp_path):
     assert ft.LAUNCHES == launches + 2  # 4 scenes, 2 per batch
     assert all(np.isfinite(v) for v in m.values())
     assert not any(p.grad is not None for p in tr.sdf_decoder.parameters())
+
+
+# K2's two GEMM kernels on their own, each against a float32 torch product
+# of the same bf16 operands on the card (TF32 off), at the main path's
+# shapes: the flagship's padded widths 512 and 256 over a 65536-point chunk
+# (K = 0 for the layer-0 and "last" launches), the toy protocol's 1536
+# points at width 128, the gated rows of variant c (R = 4096 of P = 16384),
+# ReLU and D masks, and column sums with no stored output. Every run is
+# repeated and must give the same bits. name: (n, N, K, P, R, relu, xv,
+# cvec, store, colsum)
+CHAIN_CASES = {
+    "primal_512x512": (65536, 512, 512, 16384, 0, True, False, True, True, False),
+    "primal_latent_256_to_512": (65536, 512, 256, 16384, 0, True, True, True, True, False),
+    "primal_first_K0": (65536, 512, 0, 16384, 0, True, True, True, True, False),
+    "delta_512x512": (65536, 512, 512, 16384, 0, False, False, False, True, True),
+    "delta_512_to_256": (65536, 256, 512, 16384, 0, False, False, False, True, True),
+    "delta_last_K0": (65536, 512, 0, 16384, 0, False, True, False, True, True),
+    "delta_0_colsum_only": (65536, 512, 512, 16384, 0, False, False, False, False, True),
+    "u_gated": (16384, 512, 512, 16384, 4096, False, False, False, True, False),
+    "u_last_gated_K0": (16384, 512, 0, 16384, 4096, False, True, False, True, False),
+    "toy_primal": (1536, 128, 128, 384, 0, True, True, True, True, False),
+    "toy_delta_gated": (512, 128, 128, 384, 128, False, False, False, True, True),
+}
+# name: (rows of the delta pair, rows of the gated pair, M, N)
+WGRAD_CASES = {
+    "b_512x512": (65536, 65536, 512, 512),
+    "b_256x512": (65536, 65536, 256, 512),
+    "b_512x256": (65536, 65536, 512, 256),
+    "a_512x512": (65536, 0, 512, 512),
+    "c_512x512": (65536, 16384, 512, 512),
+    "toy_b": (1536, 1536, 128, 128),
+}
+
+
+def _ft_lib():
+    from msd_tpu_torch.ops._build import load_library
+
+    return load_library("fused_train")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def chain_case(name, dev, seed=11):
+    """Inputs of CHAIN_CASES[name], the kernel's run (out, colsum) and the
+    float32 reference (v before rounding, its 64-row column sums)."""
+    n, N, K, P, R, relu, has_xv, has_cvec, store, want_cs = CHAIN_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    A = torch.relu(torch.randn(n, K, generator=g, device=dev)).to(bf) if K else None
+    B = (torch.randn(N, K, generator=g, device=dev) / max(K, 1) ** 0.5).to(bf) if K else None
+    xv = wx = cvec = mask = None
+    if has_xv:
+        xv = torch.zeros(n, 4, device=dev)
+        xv[:, :3] = torch.randn(n, 3, generator=g, device=dev).to(bf).float()
+        wx = torch.zeros(N, 4, device=dev)
+        wx[:, :3] = torch.randn(N, 3, generator=g, device=dev).to(bf).float()
+    if has_cvec:
+        cvec = 0.1 * torch.randn(n // P, N, generator=g, device=dev)
+    rows = torch.arange(n, device=dev)
+    if R:
+        rows = rows // R * P + rows % R
+    if not relu:
+        mask = torch.randn((n // R * P if R else n), N, generator=g, device=dev).to(bf)
+
+    v = A.float() @ B.float().t() if K else torch.zeros(n, N, device=dev)
+    if has_xv:
+        v = v + xv[:, :3] @ wx[:, :3].t()
+    if has_cvec:
+        v = v + cvec[torch.arange(n, device=dev) // P]
+    v = torch.relu(v) if relu else v * (mask[rows].float() > 0)
+
+    def run():
+        out = torch.full((n, N), float("nan"), dtype=bf, device=dev) if store else None
+        cs = torch.full((n // 64, N), float("nan"), device=dev) if want_cs else None
+        lib = _ft_lib()
+        rc = lib.msd_ft_chain(_ptr(A), _ptr(B), n, N, K, _ptr(xv), _ptr(wx), _ptr(cvec), P, R, int(relu),
+                              _ptr(mask), _ptr(out), _ptr(cs), torch.cuda.current_stream(dev).cuda_stream)
+        assert rc == 0, lib.msd_ft_error_string(rc).decode()
+        torch.cuda.synchronize()
+        return out, cs
+
+    return run, v, (v.reshape(n // 64, 64, N).sum(1) if want_cs else None)
+
+
+def chain_errors(out, cs, v, cs_ref):
+    """Worst |out - v| over (2^-8 |v| + 1e-5 max |v|), the bf16 rounding's
+    share of the error (at most 1/2 where only the rounding differs), and
+    the column sums' worst error relative to their largest."""
+    r = {}
+    if out is not None:
+        r["out"] = float(((out.float() - v).abs() / (2**-8 * v.abs() + 1e-5 * v.abs().max())).max())
+    if cs is not None:
+        r["colsum"] = float((cs - cs_ref).abs().max() / cs_ref.abs().max())
+    return r
+
+
+def wgrad_case(name, dev, seed=12, sms=None):
+    """Inputs of WGRAD_CASES[name], the kernel's run (summed partials) and
+    the float32 reference."""
+    from msd_tpu_torch.ops.fused_train import wgrad_split
+
+    n0, n1, M, N = WGRAD_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    A0 = (torch.randn(n0, M, generator=g, device=dev) * 1e-3).to(bf)
+    B0 = torch.relu(torch.randn(n0, N, generator=g, device=dev)).to(bf)
+    A1 = (torch.randn(n1, M, generator=g, device=dev) * 1e-3).to(bf) if n1 else None
+    B1 = torch.randn(n1, N, generator=g, device=dev).to(bf) if n1 else None
+    ref = A0.float().t() @ B0.float()
+    if n1:
+        ref = ref + A1.float().t() @ B1.float()
+    nsplit = wgrad_split(M, N, (n0 + n1) // 64, sms or torch.cuda.get_device_properties(dev).multi_processor_count)
+
+    def run():
+        part = torch.full((nsplit, M, N), float("nan"), device=dev)
+        lib = _ft_lib()
+        rc = lib.msd_ft_wgrad(_ptr(A0), _ptr(B0), n0, _ptr(A1), _ptr(B1), n1, M, N, nsplit, _ptr(part),
+                              torch.cuda.current_stream(dev).cuda_stream)
+        assert rc == 0, lib.msd_ft_error_string(rc).decode()
+        torch.cuda.synchronize()
+        return part
+
+    return run, ref, nsplit
+
+
+@pytest.mark.parametrize("name", list(CHAIN_CASES))
+def test_chain_kernel_matches_float32(name, dev, monkeypatch):
+    """chain_kernel against the float32 product: within the bf16 rounding
+    of its output (half an ulp, plus summation order), column sums within
+    1e-5 of the largest, and the same bits on a second run."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    run, v, cs_ref = chain_case(name, dev)
+    out, cs = run()
+    err = chain_errors(out, cs, v, cs_ref)
+    assert err.get("out", 0.0) <= 1.0 and err.get("colsum", 0.0) <= 1e-5, err
+    out2, cs2 = run()
+    for a, b in ((out, out2), (cs, cs2)):
+        assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", list(WGRAD_CASES))
+def test_wgrad_kernel_matches_float32(name, dev, monkeypatch):
+    """wgrad_kernel's summed partials against the float32 product: 1e-5
+    relative Frobenius and 1e-4 of the largest entry (float32 sums of
+    131072 products in another order), the same bits on a second run."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    run, ref, nsplit = wgrad_case(name, dev)
+    part = run()
+    got = part.sum(0)
+    assert torch.isfinite(part).all()
+    assert float((got - ref).norm() / ref.norm()) <= 1e-5
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-4
+    assert torch.equal(part, run())

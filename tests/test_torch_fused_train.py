@@ -319,3 +319,37 @@ def test_fused_sdf_l1_matches_make_fused_sdf_l1(train_net):
     assert sorted(ours) == sorted(flat)
     for k in flat:
         np.testing.assert_allclose(ours[k], flat[k], rtol=2e-4, atol=1e-7, err_msg=k)
+
+
+# The weight-gradient launches' split of the points (K tiles of 64) at the
+# flagship's padded widths over one 65536-point chunk (variant b: two pairs;
+# a: one; c: the gated pair of E = 4096 per scene) and at the toy
+# protocol's (P = 384, width 128, 4 scenes): every K tile falls in exactly
+# one split under wgrad_kernel's rule, the splits give at least 132 units of
+# work (tile, split) where there are K tiles enough, and they fill the waves
+# of 132 blocks to at least 10/11.
+WGRAD_PLANS = {
+    "b_512x512": (512, 512, 2 * 65536 // 64),
+    "b_512x256": (512, 256, 2 * 65536 // 64),
+    "b_256x512": (256, 512, 2 * 65536 // 64),
+    "a_512x512": (512, 512, 65536 // 64),
+    "c_512x512": (512, 512, (65536 + 16384) // 64),
+    "toy_b_128x128": (128, 128, 2 * 1536 // 64),
+    "toy_a_128x128": (128, 128, 1536 // 64),
+}
+
+
+@pytest.mark.parametrize("name", list(WGRAD_PLANS))
+def test_wgrad_split_covers_points_and_fills_sms(name):
+    M, N, k_tiles = WGRAD_PLANS[name]
+    s = ft.wgrad_split(M, N, k_tiles)
+    tiles = (M // ft.WGRAD_TILE[0]) * -(-N // ft.WGRAD_TILE[1])
+    chunk = -(-k_tiles // s)  # wgrad_kernel: split i takes K tiles [i chunk, (i + 1) chunk)
+    assert (k_tiles - 1) // chunk < s
+    assert 1 <= s <= k_tiles
+    if k_tiles >= -(-ft.H100_SMS // tiles):
+        assert tiles * s >= ft.H100_SMS
+        waves = -(-tiles * s // ft.H100_SMS)
+        assert 11 * tiles * s >= 10 * waves * ft.H100_SMS
+    else:
+        assert s == k_tiles
