@@ -10,17 +10,25 @@ non-zero and prints no result. Phases, one JSON line each:
 2. build: nvcc builds every kernel source of the port, in parallel.
 3. k1: the fused SDF-query kernel (csrc/fused_mlp.cu) against its plain
    PyTorch version at the flagship decoder's full width
-   (examples/ADNI/minimal_eikonal/specs.json), in bf16 and float32, on two
-   inputs whose last 64-point tile is ragged: 2^20 + 37 seeded points in
-   [-1, 1]^3 (errors, sign agreement, times by CUDA events, FLOP bound) and
-   the 65^3 corner lattice that create_mesh evaluates first at N=257.
+   (examples/ADNI/minimal_eikonal/specs.json), in bf16 (the wgmma route)
+   and float32 (the mma_sync route), on two inputs whose last point tile is
+   ragged: 2^20 + 37 seeded points in [-1, 1]^3 (errors, sign agreement,
+   times by CUDA events, FLOP bound) and the 65^3 corner lattice that
+   create_mesh evaluates first at N=257. On the bf16 spec also, in the same
+   run: the mma_sync kernel on the same spec and points (errors and
+   time), torch.matmul of one bf16 512 x 512 product over 2^20 rows (a
+   reference for the products alone), and both routes' registers, spills
+   and shared memory.
 4. serving: the port's main path as a user runs it. A seeded flagship
    checkpoint and two seeded ellipsoids (250k + 250k SdfSamples each, plus
    SurfaceSamples) are written to a temporary experiment; then
    ``python -m msd_tpu_torch.reconstruct`` (800 iterations x 8000 samples,
    mesh resolution 256, snapped to 257) and ``msd_tpu_torch.evaluate`` run
    in process. The weights are seeded, not trained, so the Chamfer is not a
-   quality figure.
+   quality figure. Every K1 launch there must take the wgmma route. Then
+   one reconstructed latent is meshed twice more at N=257, through the
+   kernel and through the plain version on the card: active blocks of each
+   and the symmetric Chamfer between the two meshes (``MESH_TOL``).
 5. k2: the Stage-1 fused loss-and-gradient kernels (csrc/fused_train.cu),
    variants b (eikonal) and a, at the flagship width in bf16: against float32
    autograd and their plain PyTorch version on 4 seeded scenes x 16384
@@ -223,13 +231,14 @@ def time_ms(fn, reps=10, warmup=2, device_only=False):
     return float(np.median(times))
 
 
-def k1_errors(spec, latent, xyz, tol, label):
-    """Kernel against plain version on ``xyz``; raises past ``tol``."""
+def k1_errors(spec, latent, xyz, tol, label, fn=None):
+    """Kernel (``fn``, default fused_eval) against the plain version on
+    ``xyz``; raises past ``tol``."""
     import torch
 
     from msd_tpu_torch.ops.fused_mlp import fused_eval, fused_eval_plain
 
-    out = fused_eval(spec, latent, xyz)
+    out = (fn or fused_eval)(spec, latent, xyz)
     torch.cuda.synchronize()
     ref = fused_eval_plain(spec, latent, xyz)
     err = (out - ref).abs()
@@ -246,13 +255,34 @@ def k1_errors(spec, latent, xyz, tol, label):
     return r
 
 
+def k1_ptxas(log):
+    """Registers, spills and stack of K1's bf16 kernels, from nvcc's
+    ``-Xptxas -v`` log, with their dynamic shared memory at width 512."""
+    from msd_tpu_torch.ops._build import load_library
+
+    lib = load_library("fused_mlp")
+    names = {"fused_mlp_wgmma_kernel": "wgmma", "fused_mlp_kernelI13__nv_bfloat16Lb0E": "mma_sync_bf16"}
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((v for k, v in names.items() if k in ln), None)
+            if cur:
+                out[cur] = {"ptxas": [], "dynamic_smem_bytes": lib.msd_fused_mlp_smem_bytes(
+                    0 if cur.startswith("mma") else 1, 512)}
+        elif cur and ("registers" in ln or "spill" in ln or "arning" in ln):
+            out[cur]["ptxas"].append(ln.strip())
+    return out
+
+
 def check_k1(decoder, latent, n_points, seed, dev):
     """K1 against its plain version at the decoder's width, on ``n_points``
     uniform points (timed) and on the serving path's first corner lattice;
-    returns the per-dtype results."""
+    on a wgmma-route spec also the mma_sync route and a torch.matmul reference
+    (same run); returns the per-dtype results."""
     import torch
 
     from msd_tpu_torch import mesh
+    from msd_tpu_torch.ops import _build, fused_mlp
     from msd_tpu_torch.ops.fused_mlp import FusedDecoderSpec, fused_eval, fused_eval_plain
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -264,7 +294,7 @@ def check_k1(decoder, latent, n_points, seed, dev):
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         spec = FusedDecoderSpec(decoder, dtype)
-        r = {"dtype": name, **k1_errors(spec, latent, xyz, TOL[name], f"{name} uniform")}
+        r = {"dtype": name, "route": spec.route, **k1_errors(spec, latent, xyz, TOL[name], f"{name} uniform")}
         r[f"corner_lattice_{n_mesh}"] = k1_errors(spec, latent, corners, TOL[name], f"{name} corner lattice")
         w_bytes = sum(t.numel() * t.element_size() for t in spec.wp + spec.wx if t is not None)
         bytes_moved = n_points * 16 + w_bytes
@@ -277,9 +307,41 @@ def check_k1(decoder, latent, n_points, seed, dev):
             "flop": flops,
         })
         r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+        if spec.route == "wgmma":
+            r.update(k1_ab(spec, latent, xyz, corners, flops, n_mesh, dev))
+            r["ms_again"] = time_ms(lambda: fused_eval(spec, latent, xyz))
+            r["kernels"] = k1_ptxas(_build.BUILD_LOGS.get("fused_mlp", ""))
         phase("k1", **r)
         results[name] = r
     return results
+
+
+def k1_ab(spec, latent, xyz, corners, flops, n_mesh, dev):
+    """Measurements on a wgmma-route spec, same run: the mma_sync kernel
+    on the same spec and points (errors and time), and torch.matmul of one
+    bf16 [2^20, 512] x [512, 512] product, scaled by the decoder's kernel
+    weights over 512^2 (the products alone, no epilogue)."""
+    import torch
+
+    from msd_tpu_torch.ops import fused_mlp
+
+    def old(s, lat, x):
+        return fused_mlp._eval_mma_sync(s, lat, x)
+
+    mma_sync = k1_errors(spec, latent, xyz, TOL["bfloat16"], "mma_sync uniform", old)
+    mma_sync[f"corner_lattice_{n_mesh}"] = k1_errors(spec, latent, corners, TOL["bfloat16"],
+                                                     "mma_sync corner lattice", old)
+    mma_sync["ms"] = time_ms(lambda: old(spec, latent, xyz))
+    mma_sync["tflops"] = flops / (mma_sync["ms"] * 1e-3) / 1e12
+    g = torch.Generator(device=dev).manual_seed(7)
+    a = torch.randn(2**20, 512, generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn(512, 512, generator=g, device=dev).to(torch.bfloat16)
+    mm = time_ms(lambda: a @ b)
+    products = flops / (2.0 * xyz.shape[0] * 512 * 512)
+    return {"mma_sync": mma_sync, "matmul_512_ms": mm,
+            "matmul_products": products, "matmul_ref_ms": mm * xyz.shape[0] / 2**20 * products,
+            "matmul_note": "torch.matmul, one bf16 512x512 product over 2^20 rows, times the decoder's "
+                           "kernel weights over 512^2 (6.0 products); no epilogue, no layer chain"}
 
 
 # K2 tolerances against its plain version (bf16, two summation orders that
@@ -1269,8 +1331,11 @@ def dp(root, specs, seed, steps=3, ranks=3):
 def serve(root, specs, decoder, seed):
     """The port's serving path on a temporary experiment; returns
     (per-shape summaries, evaluate results, seconds of evaluate, K1
-    launches)."""
+    launches, K1 launches by route, the kernel-against-plain mesh check)."""
+    import torch
+
     from msd_tpu_torch import evaluate as evaluate_cli
+    from msd_tpu_torch import mesh
     from msd_tpu_torch import reconstruct as reconstruct_cli
     from msd_tpu_torch.ops import fused_mlp
     from msd_tpu_torch.utils.checkpoint import save_model
@@ -1286,15 +1351,38 @@ def serve(root, specs, decoder, seed):
         json.dump(split, f)
     common = ["-e", exp_dir, "-s", split_path, "--quiet"]
 
+    # every K1 call of create_mesh between CUDA events, for K1's seconds per shape
+    events, untimed = [], mesh.fused_eval
+
+    def timed(*args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = untimed(*args)
+        b.record()
+        events.append((a, b))
+        return out
+
     fused_mlp.LAUNCHES = 0
-    summary = reconstruct_cli.main(common + [
-        "-c", "latest", "-d", os.path.join(data_dir, "SdfSamples"),
-        "--iters", "800", "--mesh_resolution", "256", "--device", "cuda",
-    ])
+    fused_mlp.ROUTE_LAUNCHES = dict.fromkeys(fused_mlp.ROUTES, 0)
+    mesh.fused_eval = timed
+    try:
+        summary = reconstruct_cli.main(common + [
+            "-c", "latest", "-d", os.path.join(data_dir, "SdfSamples"),
+            "--iters", "800", "--mesh_resolution", "256", "--device", "cuda",
+        ])
+    finally:
+        mesh.fused_eval = untimed
+    torch.cuda.synchronize()
+    for s in summary:  # each shape's K1 calls, in order
+        s["k1_seconds"] = sum(a.elapsed_time(b) for a, b in events[:s["k1_launches"]]) / 1e3
+        events = events[s["k1_launches"]:]
     t0 = time.time()
     results = evaluate_cli.main(common + ["-c", "1", "-d", data_dir])
     t_eval = time.time() - t0
     launches = fused_mlp.LAUNCHES
+    routes = dict(fused_mlp.ROUTE_LAUNCHES)
+    if routes != {"wgmma": launches, "mma_sync": 0}:
+        raise AssertionError(f"serving: K1 launches {launches} by route {routes}: not all on wgmma")
 
     for s in summary:
         base = os.path.join(exp_dir, "Reconstructions", "1")
@@ -1313,7 +1401,61 @@ def serve(root, specs, decoder, seed):
         raise AssertionError(f"bad CSV {csv}: {lines[:3]}")
     if not all(math.isfinite(r[1][0]) for r in results):
         raise AssertionError(f"non-finite Chamfer: {results}")
-    return summary, results, t_eval, launches
+    code = torch_load(os.path.join(exp_dir, "Reconstructions", "1", "Codes", summary[0]["shape"] + ".pth"))
+    return summary, results, t_eval, launches, routes, mesh_pair(decoder, code)
+
+
+def torch_load(path):
+    import torch
+
+    return torch.load(path, map_location="cpu")
+
+
+# The kernel's mesh against the plain version's, one reconstructed latent at
+# N=257 (bf16: summation orders differ, so a vertex near a flipped rounding
+# moves): symmetric Chamfer between the two vertex sets, relative difference
+# of active blocks and of vertex counts. Measured on an H100 (PERF.md):
+# 6.6e-8, 1.8e-4 (11385 against 11383 blocks) and 6.1e-5; the limits keep
+# a margin of at least 10x.
+MESH_TOL = {"chamfer": 1e-6, "blocks": 2e-3, "verts": 1e-3}
+
+
+def mesh_pair(decoder, latent):
+    """Mesh ``latent`` at N=257 through K1 and through fused_eval_plain on
+    the card; raises past ``MESH_TOL``."""
+    import torch
+
+    from msd_tpu_torch import mesh
+    from msd_tpu_torch.metrics.chamfer import compute_chamfer
+    from msd_tpu_torch.ops.fused_mlp import fused_eval_plain
+
+    class PlainEvaluator(mesh.PointEvaluator):
+        @torch.no_grad()
+        def eval_points(self, latent, pts):
+            pts = torch.as_tensor(pts, dtype=torch.float32, device=self.device).reshape(-1, 3)
+            latent = torch.as_tensor(latent, dtype=torch.float32, device=self.device).reshape(-1)
+            self.n_evaluated += pts.shape[0]
+            outs = [fused_eval_plain(self.spec, latent, pts[i:i + 2**20]) for i in range(0, pts.shape[0], 2**20)]
+            return torch.cat(outs) if outs else pts.new_zeros(0)
+
+    latent = latent.reshape(-1).to(next(decoder.parameters()).device)
+    N = mesh._snap_n(257)
+    b = mesh._pick_block(N, 0.1, 1.3)
+    r = {"N": N}
+    meshes = {}
+    for name, ev in (("kernel", mesh.PointEvaluator(decoder)), ("plain", PlainEvaluator(decoder))):
+        _, _, _, stats = mesh._sparse_blocks(latent, N, b, 1.3, ev)
+        verts, faces = mesh.create_mesh(decoder, latent, N=N, return_mesh=True, evaluator=ev)
+        meshes[name] = verts
+        r[name] = {"active_blocks": stats["active_blocks"], "verts": int(verts.shape[0]), "faces": int(faces.shape[0])}
+    r["chamfer"] = compute_chamfer(meshes["kernel"], meshes["plain"])[0]
+    r["blocks_rel"] = abs(r["kernel"]["active_blocks"] - r["plain"]["active_blocks"]) / max(r["plain"]["active_blocks"], 1)
+    r["verts_rel"] = abs(r["kernel"]["verts"] - r["plain"]["verts"]) / max(r["plain"]["verts"], 1)
+    r["tol"] = MESH_TOL
+    if not (r["chamfer"] <= MESH_TOL["chamfer"] and r["blocks_rel"] <= MESH_TOL["blocks"]
+            and r["verts_rel"] <= MESH_TOL["verts"]):
+        raise AssertionError(f"serving: kernel mesh against plain mesh {r}")
+    return r
 
 
 def main(argv=None):
@@ -1359,12 +1501,12 @@ def main(argv=None):
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
         t0 = time.time()
-        summary, results, t_eval, launches = serve(root, specs, decoder, args.seed)
+        summary, results, t_eval, launches, routes, pair = serve(root, specs, decoder, args.seed)
         t_total = time.time() - t0
     for s in summary:
         phase("serving_shape", **s)
-    phase("serving", seconds=t_total, evaluate_seconds=t_eval, k1_launches=launches,
-          chamfer={r[0]: r[1][0] for r in results},
+    phase("serving", seconds=t_total, evaluate_seconds=t_eval, k1_launches=launches, k1_route_launches=routes,
+          chamfer={r[0]: r[1][0] for r in results}, kernel_vs_plain_mesh=pair,
           note="seeded weights, not trained: the Chamfer is no quality figure")
 
     k2 = check_k2(decoder, args.seed, dev)
@@ -1395,7 +1537,11 @@ def main(argv=None):
         "max_abs_err": worst(bf16), "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes the whole decoder",
-        "dtype": "bfloat16", "points": bf16["points"],
+        "dtype": "bfloat16", "points": bf16["points"], "kernel_route": bf16["route"],
+        "route_launches": routes, "ms_again": bf16["ms_again"],
+        "mma_sync_ms": bf16["mma_sync"]["ms"], "mma_sync_max_abs_err": worst(bf16["mma_sync"]),
+        "matmul_ref_ms": bf16["matmul_ref_ms"],
+        "matmul_512_ms": bf16["matmul_512_ms"],
         "float32": {"max_abs_err": worst(k1["float32"]),
                     **{k: k1["float32"][k] for k in ("ms", "plain_ms", "bound_ms")}},
     }, {

@@ -12,7 +12,13 @@
 // the kernel (3.147 MFLOP per point) against 16 bytes of point I/O, so 2^20
 // points take at least 3.34 ms at the 989 TFLOP/s dense bf16 peak.
 //
-// Design. The TPU kernel kept all weights resident on chip; 3.15 MB of bf16
+// Two routes, chosen by the decoder once (ops/fused_mlp.py, spec.route):
+//   wgmma     bf16 operands, no LayerNorm, hidden widths up to 512 (every
+//             shipped config): fused_mlp_wgmma_kernel, below;
+//   mma_sync  everything else (LayerNorm, float32 operands, wider layers):
+//             fused_mlp_kernel, described next.
+//
+// mma_sync design. The TPU kernel kept all weights resident on chip; 3.15 MB of bf16
 // weights are far over a block's 227 KB of shared memory, but they sit in
 // the 50 MB L2 many times over. So:
 //   * one block owns a tile of BM points (64 for bf16, 32 for float32); the
@@ -406,6 +412,371 @@ int launch(Params& p, long long scratch_bytes, cudaStream_t stream) {
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The wgmma route: bf16, no LayerNorm, hidden widths padded to 256 or 512.
+//
+// Why the mma_sync design stays far from the bound: a 64-point block streams all
+// 3.15 MB of bf16 weights from L2 (51.6 GB per 2^20 points) and ends every
+// 64-deep K tile in a block barrier. This design:
+//   * a block owns 128 points: two consumer warpgroups of 64 rows each run
+//     wgmma.mma_async m64n256k16 (bf16 in, float32 accumulators) on the
+//     same weight tile, so each weight byte read from L2 feeds 128 points;
+//   * the weights arrive as 32 KB tiles ([256 outputs][64 inputs], already
+//     in the 128-byte-swizzled K-major layout a wgmma descriptor reads:
+//     ops/fused_mlp.py lays them out once per spec, in the order they are
+//     consumed) through a 3-stage ring of mbarriers. One producer thread
+//     issues 1-D bulk copies (cp.async.bulk); setmaxnreg gives its
+//     warpgroup's registers to the consumers. No block barrier per K tile;
+//   * the blocks are persistent (one per SM): block b walks point tiles b,
+//     b + blocks, ..., so the producer runs ahead into the next tile's
+//     weights while the consumers finish a tile;
+//   * a warpgroup's 64 rows of activations stay in shared memory as bf16 in
+//     the swizzled layout (8 k-blocks of [64 rows][64], 64 KB) and are
+//     overwritten in place by the layer's output: a 512-wide layer runs as
+//     two 256-wide N tiles, the first one's outputs held as packed bf16 in
+//     registers (64) while the second accumulates (128), then both are
+//     written once every product has read the input;
+//   * the epilogue runs in float32: the xyz term (three FMAs, layer 0 and
+//     latent_in layers), c_l, ReLU, then bf16 into the next layer's layout.
+//     The last layer (one output) is a per-row dot product fused into the
+//     last hidden layer's epilogue, reduced over the quad of threads that
+//     shares a row, then c_last, the optional use_tanh and tanh;
+//   * rows past n read xyz 0 and are not stored.
+// Measured slower on an H100 and not kept (PERF.md): sharing each weight
+// tile across a 2-block cluster by .multicast::cluster (half the L2
+// traffic; L2 was not the limit, and a ring slot then waits for the
+// slower of four consumer warpgroups), and 128-wide N tiles in a 6 x 16 KB
+// ring.
+// Shared memory: 1024 (alignment) + 128 KB activations + 3 x 32 KB ring +
+// the barriers = 230,448 bytes: one block per SM.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+constexpr int BM = 128;                        // points per block
+constexpr int TN = 256;                        // outputs per N tile
+constexpr int TK = 64;                         // inputs per K tile (one 128-byte row)
+constexpr int KMAX = 512;                      // widest hidden layer
+constexpr int STAGES = 3;                      // weight tiles in the ring
+constexpr int THREADS = 384;                   // producer warpgroup + two consumers
+constexpr int TILE_BYTES = TN * TK * 2;        // one weight tile (32 KB)
+constexpr int KB_BYTES = 64 * TK * 2;          // a warpgroup's k-block [64 rows][64] (8 KB)
+constexpr int WG_ACT_BYTES = KMAX / TK * KB_BYTES;  // a warpgroup's activations (64 KB)
+constexpr int SMEM = 1024 + 2 * WG_ACT_BYTES + STAGES * TILE_BYTES + 2 * STAGES * 8;
+
+struct Params {
+  const float* xyz;  // [n, 3]
+  float* out;        // [n]
+  long long n;
+  long long tiles;   // point tiles of BM
+  int n_layers, use_tanh;
+  int wtiles;                     // weight tiles per point tile
+  const bf16* wt;                 // [wtiles][TN][TK], swizzled, in consumption order
+  const bf16* wlast;              // [in_pad of the last layer]
+  const float* wx[MAX_LAYERS];    // [out_pad][4] bf16-rounded xyz weights, or null
+  const float* cl[MAX_LAYERS];    // [out_pad] latent consts + bias
+  int in_pad[MAX_LAYERS];         // 0 for layer 0
+  int out_pad[MAX_LAYERS];        // 256 or 512; 1 for the last layer
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// wait for the completion of the barrier's phase of parity ``parity``; a
+// wait that does not end (a fault in the barrier protocol) traps, so the
+// launch fails instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, tries = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && ++tries == (1u << 26)) __trap();
+  } while (!done);
+}
+
+// 1-D bulk copy global -> shared, completing on ``bar``
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+// generic-proxy writes to shared memory, made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// wgmma descriptor of a K-major operand in 128-byte swizzle ([rows][64]
+// bf16, 128-byte rows, 8-row groups 1024 B apart); fields in 16-byte units
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d[64 x 256] += A[64 x 16] B[16 x 256], both K-major bf16 in shared memory,
+// float32 accumulators. Accumulator 4 j + 2 h + e of thread t of the
+// warpgroup sits at row 16 (t / 32) + (t % 32) / 4 + 8 h, column
+// 8 j + 2 (t % 4) + e.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// After wgmma_wait: no read of the accumulators moves above it
+__device__ __forceinline__ void acc_fence(float (&acc)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// xyz of a row, rounded to bf16 (0 past the end)
+__device__ __forceinline__ void load_xyz(const Params& p, long long row, float* x) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) x[j] = row < p.n ? bf(__float2bfloat16_rn(p.xyz[3 * row + j])) : 0.0f;
+}
+
+__global__ void __launch_bounds__(THREADS, 1) fused_mlp_wgmma_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t ring = base + 2 * WG_ACT_BYTES;
+  const uint32_t bars = ring + STAGES * TILE_BYTES;  // full[s], then empty[s]
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (STAGES + s), 2);  // both consumer warpgroups
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (long long tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        for (int i = 0; i < p.wtiles; ++i) {
+          mbar_wait(bars + 8 * (STAGES + s), ph ^ 1);
+          mbar_expect_tx(bars + 8 * s, TILE_BYTES);
+          const unsigned char* src = reinterpret_cast<const unsigned char*>(p.wt) + static_cast<size_t>(i) * TILE_BYTES;
+          bulk_load(ring + s * TILE_BYTES, src, TILE_BYTES, bars + 8 * s);
+          if (++s == STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x & 127, w = t >> 5, q = t & 3, g = (t & 31) >> 2;
+    const uint32_t a_base = base + c * WG_ACT_BYTES;  // this warpgroup's k-blocks
+    // this thread's first accumulator row (the other is 8 further): its
+    // 4-byte column pair q of 16-byte chunk 0 before the swizzle
+    unsigned char* const arow = smem_raw + (a_base - raw) + (16 * w + g) * 128 + 4 * q;
+    // the bf16 pair (j, h) of k-block kb: chunk j % 8 swizzled by the row's
+    // low three bits, which are g for both rows
+    auto pair = [&](int kb, int j, int h) {
+      return reinterpret_cast<__nv_bfloat162*>(arow + kb * KB_BYTES + 8 * h * 128 + (((j & 7) ^ g) << 4));
+    };
+    const int last = p.n_layers - 1;
+    int s = 0;
+    uint32_t ph = 0;
+
+    // acc = the K tiles of one N tile, read from the ring in order; each
+    // slot is released once its products
+    // are done, one stage's products staying in flight
+    auto mma = [&](float(&acc)[128], int kt_n) {
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+      int prev = 0;
+      for (int kt = 0; kt < kt_n; ++kt) {
+        mbar_wait(bars + 8 * s, ph);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TK / 16; ++kk)
+          wgmma_m64n256k16(acc, desc_k(a_base + kt * KB_BYTES + 32 * kk), desc_k(ring + s * TILE_BYTES + 32 * kk));
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (kt > 0 && t == 0) mbar_arrive(bars + 8 * (STAGES + prev));
+        prev = s;
+        if (++s == STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (kt_n > 0 && t == 0) mbar_arrive(bars + 8 * (STAGES + prev));
+      acc_fence(acc);
+    };
+
+    // float32 epilogue of N tile nt of ``layer``: xyz term, c_l, ReLU, bf16;
+    // emit(j, h, pair) takes each bf16 pair
+    auto epilogue = [&](float(&acc)[128], int layer, int nt, long long row, auto emit) {
+      const float* wx = p.wx[layer];
+      float x[2][3];
+      if (wx != nullptr) {
+        load_xyz(p, row, x[0]);
+        load_xyz(p, row + 8, x[1]);
+      }
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j) {
+        const int col = nt * TN + 8 * j + 2 * q;
+        const float2 cc = __ldg(reinterpret_cast<const float2*>(p.cl[layer] + col));
+        float4 w0 = make_float4(0.f, 0.f, 0.f, 0.f), w1 = w0;
+        if (wx != nullptr) {
+          w0 = __ldg(reinterpret_cast<const float4*>(wx) + col);
+          w1 = __ldg(reinterpret_cast<const float4*>(wx) + col + 1);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (wx != nullptr) {
+            v0 += x[h][0] * w0.x + x[h][1] * w0.y + x[h][2] * w0.z;
+            v1 += x[h][0] * w1.x + x[h][1] * w1.y + x[h][2] * w1.z;
+          }
+          emit(j, h, __floats2bfloat162_rn(fmaxf(v0 + cc.x, 0.0f), fmaxf(v1 + cc.y, 0.0f)));
+        }
+      }
+    };
+
+    for (long long tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const long long row = tile * BM + 64 * c + 16 * w + g;  // and row + 8
+      float dot[2] = {0.0f, 0.0f};
+      for (int layer = 0; layer < last; ++layer) {
+        const int nt_n = p.out_pad[layer] / TN, kt_n = p.in_pad[layer] / TK;
+        float acc[128];
+        if (layer == last - 1) {
+          // the last layer's dot product over this layer's bf16 outputs
+          for (int nt = 0; nt < nt_n; ++nt) {
+            mma(acc, kt_n);
+            epilogue(acc, layer, nt, row, [&](int j, int h, __nv_bfloat162 v) {
+              const __nv_bfloat162 wl =
+                  *reinterpret_cast<const __nv_bfloat162*>(p.wlast + nt * TN + 8 * j + 2 * q);
+              dot[h] += bf(v.x) * bf(wl.x) + bf(v.y) * bf(wl.y);
+            });
+          }
+        } else {
+          uint32_t held[TN / 4];  // N tile 0's outputs while N tile 1 accumulates
+          if (nt_n == 2) {
+            mma(acc, kt_n);
+            epilogue(acc, layer, 0, row, [&](int j, int h, __nv_bfloat162 v) {
+              held[2 * j + h] = *reinterpret_cast<uint32_t*>(&v);
+            });
+          }
+          mma(acc, kt_n);
+          named_bar_sync(1 + c, 128);  // every warp's products have read the layer's input
+          const int nt = nt_n - 1;
+          epilogue(acc, layer, nt, row, [&](int j, int h, __nv_bfloat162 v) { *pair(4 * nt + (j >> 3), j, h) = v; });
+          if (nt_n == 2) {
+#pragma unroll
+            for (int j = 0; j < TN / 8; ++j) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) *reinterpret_cast<uint32_t*>(pair(j >> 3, j, h)) = held[2 * j + h];
+            }
+          }
+          fence_proxy_async();
+          named_bar_sync(1 + c, 128);  // the output is the next layer's input
+        }
+      }
+      // last layer: the quad of threads holding a row sums its dot product
+      const float* wxl = p.wx[last];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = dot[h];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        const long long r = row + 8 * h;
+        if (q == 0 && r < p.n) {
+          if (wxl != nullptr) {
+            float x[3];
+            load_xyz(p, r, x);
+            v += x[0] * wxl[0] + x[1] * wxl[1] + x[2] * wxl[2];
+          }
+          v += p.cl[last][0];
+          if (p.use_tanh) v = tanhf(v);
+          p.out[r] = tanhf(v);
+        }
+      }
+    }
+  }
+}
+
+int launch(const Params& p, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(fused_mlp_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  int dev, sms;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // persistent: one block per SM, or fewer when there are fewer tiles
+  const long long grid = p.tiles < sms ? p.tiles : sms;
+  fused_mlp_wgmma_kernel<<<static_cast<unsigned>(grid), THREADS, SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
+}  // namespace
+
 extern "C" {
 
 // Bytes of device scratch msd_fused_mlp_forward needs for n points at this
@@ -458,6 +829,52 @@ int msd_fused_mlp_forward(int dtype, int n_layers, const void* xyz, void* out, l
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<__nv_bfloat16>(p, scratch_bytes, s);
   return launch<float>(p, scratch_bytes, s);
+}
+
+// The wgmma route. wt: the hidden layers' weight tiles, wtiles of them
+// ([256][64] bf16 each, 128-byte swizzled, in the order of the layers, N
+// tiles and K tiles); wlast: the last layer's [in_pad] bf16 weights; wx:
+// per layer [out_pad][4] float32 or null; cl: per layer [out_pad] float32.
+// in_pad[0] is 0; hidden out_pad is 256 or 512, the last layer's 1.
+// Returns a cudaError_t code.
+int msd_fused_mlp_wgmma(int n_layers, const void* xyz, void* out, long long n, const void* wt, int wtiles,
+                        const void* wlast, const void* const* wx, const void* const* cl, const int* in_pad,
+                        const int* out_pad, int use_tanh, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (n_layers < 2 || n_layers > MAX_LAYERS || n < 0 || wlast == nullptr ||
+      in_pad[0] != 0 || out_pad[n_layers - 1] != 1 || wtiles < 0 || (wtiles > 0) != (wt != nullptr))
+    return bad;
+  wg::Params p;
+  p.xyz = static_cast<const float*>(xyz);
+  p.out = static_cast<float*>(out);
+  p.n = n;
+  p.n_layers = n_layers;
+  p.use_tanh = use_tanh;
+  p.wtiles = wtiles;
+  p.wt = static_cast<const __nv_bfloat16*>(wt);
+  p.wlast = static_cast<const __nv_bfloat16*>(wlast);
+  long long tiles = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const bool last = l == n_layers - 1;
+    if (cl[l] == nullptr || (l > 0 && in_pad[l] != out_pad[l - 1])) return bad;
+    if (!last && out_pad[l] != wg::TN && out_pad[l] != 2 * wg::TN) return bad;
+    if (!last) tiles += static_cast<long long>(out_pad[l] / wg::TN) * (in_pad[l] / wg::TK);
+    p.wx[l] = static_cast<const float*>(wx[l]);
+    p.cl[l] = static_cast<const float*>(cl[l]);
+    p.in_pad[l] = in_pad[l];
+    p.out_pad[l] = out_pad[l];
+  }
+  if (tiles != wtiles) return bad;
+  if (n == 0) return 0;
+  p.tiles = (n + wg::BM - 1) / wg::BM;
+  return wg::launch(p, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of one block: route 0 the mma_sync kernel (bf16,
+// activations in shared memory) at hidden width kmax, route 1 the wgmma
+// kernel.
+long long msd_fused_mlp_smem_bytes(int route, int kmax) {
+  return route == 1 ? wg::SMEM : smem_bytes_t<__nv_bfloat16, false>(kmax);
 }
 
 const char* msd_cuda_error_string(int code) {

@@ -36,7 +36,13 @@ _SIGNATURES = {
              _PP, _PP, _PP, _PP, _PP, _PI, _PI, _PI, ctypes.c_int, ctypes.c_int,
              _P, ctypes.c_longlong, _P],
         ),
+        "msd_fused_mlp_wgmma": (
+            ctypes.c_int,
+            [ctypes.c_int, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _PP, _PP, _PI, _PI,
+             ctypes.c_int, _P],
+        ),
         "msd_fused_mlp_scratch_bytes": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]),
+        "msd_fused_mlp_smem_bytes": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_int]),
         "msd_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "fused_train": {

@@ -8,20 +8,30 @@ and ReLU on all layers but the last, ``use_tanh`` on the last, and the
 final tanh always. h is rounded to the operand type before each product;
 products accumulate in float32 and the epilogue runs in float32.
 
-The CUDA kernel is ``msd_tpu_torch/csrc/fused_mlp.cu``. What bounds it on
-an H100: it is compute-bound. The flagship decoder
+The CUDA kernels are in ``msd_tpu_torch/csrc/fused_mlp.cu``. What bounds
+them on an H100: they are compute-bound. The flagship decoder
 (``examples/ADNI/minimal_eikonal/specs.json``) keeps 1,573,376 weights in
 the kernel, 3.147 MFLOP per point against 16 bytes of point I/O, so 2^20
 points need at least 3.34 ms at the dense bf16 tensor-core peak of
 989 TFLOP/s. The TPU kernel kept every weight resident on chip; 3.15 MB of
 bf16 weights do not fit a block's 227 KB of shared memory, so the Hopper
-kernel keeps a 64-point tile's activations in shared memory instead and
-streams weight tiles from the (L2-resident) weights with ``cp.async``;
-activations never touch device memory. Only decoders too wide for that
-(hidden widths over 640) keep them in a device scratch, which
-``fused_eval`` allocates at the size the kernel asks for. bf16 products
-run on ``mma.sync.m16n8k16`` (fragments by ``ldmatrix``); float32
-operands run on plain FMAs.
+kernels keep a tile of points' activations in shared memory instead and
+stream weight tiles from the (L2-resident) weights; activations never
+touch device memory. The decoder picks one of two routes, once, when its
+``FusedDecoderSpec`` is built (``spec.route``):
+
+* ``"wgmma"``: bf16 operands, no LayerNorm, hidden widths up to 512 (every
+  shipped config). 128-point blocks on ``wgmma``, the weights laid out
+  here once (``wtiles``) and copied in 32 KB tiles through an mbarrier
+  ring.
+* ``"mma_sync"``: every other config (LayerNorm, float32 operands, wider
+  layers). 64-point (bf16) or 32-point (float32) blocks on
+  ``mma.sync.m16n8k16`` or FMAs with ``cp.async`` weight tiles; decoders
+  with hidden widths over 640 keep the activations in a device scratch,
+  which ``fused_eval`` allocates at the size the kernel asks for.
+
+A failed build or launch raises on either route; nothing retries on the
+other one.
 
 On a CPU tensor ``fused_eval`` computes the plain PyTorch version
 (``fused_eval_plain``) with the same rounding points. On a CUDA tensor it
@@ -37,9 +47,13 @@ import torch
 
 from msd_tpu_torch.models.common import LAYER_NORM_EPS
 
-# Output tile of the kernel per operand type: every hidden width is
-# zero-padded to a multiple of it.
+# Output tile of the mma_sync kernel per operand type: every hidden width
+# is zero-padded to a multiple of it.
 TILE_N = {torch.bfloat16: 128, torch.float32: 64}
+# The wgmma route: hidden widths padded to multiples of its 256-wide N tile,
+# at most WGMMA_MAX_WIDTH; weight tiles of [WGMMA_TILE_N][WGMMA_TILE_K].
+WGMMA_TILE_N, WGMMA_TILE_K, WGMMA_MAX_WIDTH = 256, 64, 512
+ROUTES = ("wgmma", "mma_sync")
 # Weight bytes above which the config is refused, as the TPU kernel does
 # (``msd_tpu/ops/fused_mlp.py:98``).
 MAX_WEIGHT_BYTES = 10 * 1024 * 1024
@@ -50,6 +64,8 @@ SCRATCH_CAP_BYTES = 2**28
 # Kernel launches on CUDA tensors (comparisons with the plain version
 # included); callers reset it to 0 to count the launches of a run.
 LAUNCHES = 0
+# The same launches by route; callers reset it with ``dict.fromkeys(ROUTES, 0)``.
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -63,9 +79,43 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def route_for(decoder, dtype: torch.dtype) -> str:
+    """The kernel route of a decoder at an operand type: "wgmma" for bf16
+    operands, no LayerNorm and hidden widths up to ``WGMMA_MAX_WIDTH``
+    (padded to ``WGMMA_TILE_N``), else "mma_sync"."""
+    hidden = [out_dim for (_, out_dim, _, _) in decoder.layer_shapes][:-1]
+    if (dtype != torch.bfloat16 or not hidden
+            or any(getattr(decoder, f"bn{layer}", None) is not None for layer in range(len(hidden)))
+            or any(_round_up(w, WGMMA_TILE_N) > WGMMA_MAX_WIDTH for w in hidden)):
+        return "mma_sync"
+    return "wgmma"
+
+
+def swizzle128(tiles: torch.Tensor) -> torch.Tensor:
+    """[..., rows, 64] 2-byte tiles in the 128-byte swizzle of a wgmma
+    descriptor (and of TMA's SWIZZLE_128B): row r's 16-byte chunk c moves to
+    chunk c ^ (r % 8). The map is its own inverse."""
+    rows = tiles.shape[-2]
+    r = torch.arange(rows, device=tiles.device)
+    idx = torch.arange(8, device=tiles.device)[None, :] ^ (r % 8)[:, None]  # [rows, 8]
+    chunks = tiles.reshape(*tiles.shape[:-1], 8, 8)
+    return chunks[..., r[:, None], idx, :].reshape(tiles.shape)
+
+
+def wgmma_tiles(wp: torch.Tensor) -> torch.Tensor:
+    """A layer's [out_pad, in_pad] weights as the wgmma kernel reads them:
+    [out_pad / 256 * in_pad / 64, 256, 64] tiles, N tile major, each
+    swizzled (``swizzle128``)."""
+    out_pad, in_pad = wp.shape
+    t = wp.reshape(out_pad // WGMMA_TILE_N, WGMMA_TILE_N, in_pad // WGMMA_TILE_K, WGMMA_TILE_K)
+    t = t.permute(0, 2, 1, 3).reshape(-1, WGMMA_TILE_N, WGMMA_TILE_K)
+    return swizzle128(t)
+
+
 class FusedDecoderSpec:
     """Per-layer weight splits for the fused kernel, zero-padded to the
-    kernel's output tile (``TILE_N``, a multiple of its 64-deep K tile).
+    route's output tile (``WGMMA_TILE_N`` on the wgmma route, else
+    ``TILE_N``; both multiples of the 64-deep K tile).
 
     Layer l holds ``wp`` [out_pad, in_pad] (None for layer 0), ``wx``
     [out_pad, 3] (layer 0 and ``latent_in`` layers, else None), ``wz``
@@ -73,9 +123,12 @@ class FusedDecoderSpec:
     ``bias`` [out_pad] float32 and ``ln`` (scale, bias) [out_pad] float32
     or None. Padded rows and columns are zero, which is exact for ReLU
     layers; LayerNorm uses the true width ``out_true``. The last layer has
-    out_pad 1. Raises UnsupportedConfig for the configs the TPU kernel
-    refuses too, and ValueError for an operand type other than bfloat16 or
-    float32."""
+    out_pad 1. ``route`` names the kernel (``route_for``); on the wgmma
+    route ``wtiles`` holds the hidden layers' ``wgmma_tiles`` of ``wp``
+    (layers 1 to n_layers - 2) in one bf16 buffer, ``n_wtiles`` of them, and
+    ``wx4`` each layer's ``wx`` as float32 [out_pad, 4] (or None). Raises
+    UnsupportedConfig for the configs the TPU kernel refuses too, and
+    ValueError for an operand type other than bfloat16 or float32."""
 
     def __init__(self, decoder, dtype: torch.dtype = torch.bfloat16):
         if dtype not in _DTYPE_CODE:
@@ -83,6 +136,8 @@ class FusedDecoderSpec:
         if decoder.xyz_in_all:
             raise UnsupportedConfig("fused kernel: xyz_in_all not supported")
         self.dtype = dtype
+        self.route = route_for(decoder, dtype)
+        tile_n = WGMMA_TILE_N if self.route == "wgmma" else TILE_N[dtype]
         self.use_tanh = decoder.use_tanh
         self.n_layers = decoder.num_layers - 1
         L = decoder.latent_size
@@ -105,7 +160,7 @@ class FusedDecoderSpec:
                 else:
                     w_prev, w_z, w_xyz = w, None, None
                 last = layer == self.n_layers - 1
-                out_pad = 1 if last else _round_up(out_dim, TILE_N[dtype])
+                out_pad = 1 if last else _round_up(out_dim, tile_n)
 
                 def pad_rows(t, cols):
                     z = torch.zeros(out_pad, cols, dtype=torch.float32, device=dev)
@@ -131,7 +186,14 @@ class FusedDecoderSpec:
                 prev_pad = out_pad
         if weight_bytes > MAX_WEIGHT_BYTES:
             raise UnsupportedConfig(f"fused kernel: weights too large ({weight_bytes} B)")
-        self.kmax = max([TILE_N[dtype]] + self.out_pad[:-1])
+        self.kmax = max([tile_n] + self.out_pad[:-1])
+        self.wtiles, self.n_wtiles, self.wx4 = None, 0, None
+        if self.route == "wgmma":
+            tiles = [wgmma_tiles(w) for w in self.wp[1:-1]]
+            self.n_wtiles = sum(t.shape[0] for t in tiles)
+            self.wtiles = torch.cat([t.reshape(-1) for t in tiles]) if tiles else None
+            self.wx4 = [None if w is None else torch.nn.functional.pad(w.float(), (0, 1)).contiguous()
+                        for w in self.wx]
 
     def latent_consts(self, latent: torch.Tensor):
         """Per-layer [out_pad] float32: z @ W_z + b (bias folded in)."""
@@ -185,21 +247,70 @@ def _ints(values):
 def fused_eval(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
     """xyz [n, 3] float32 -> sdf [n] float32 through K1.
 
-    On a CPU tensor: the plain version. On a CUDA tensor: the CUDA kernel,
-    or an exception (bad input, failed build, refused launch)."""
+    On a CPU tensor: the plain version. On a CUDA tensor: the kernel of
+    ``spec.route``, or an exception (bad input, failed build, refused
+    launch)."""
     if xyz.device.type == "cpu":
         return fused_eval_plain(spec, latent, xyz)
     if xyz.device.type != "cuda":
         raise ValueError(f"fused_eval: unsupported device {xyz.device}")
+    if spec.route == "wgmma":
+        return _eval_wgmma(spec, latent, xyz)
+    return _eval_mma_sync(spec, latent, xyz)
+
+
+def _check(spec: FusedDecoderSpec, xyz: torch.Tensor) -> torch.Tensor:
     if xyz.dtype != torch.float32 or xyz.dim() != 2 or xyz.shape[1] != 3:
         raise ValueError(f"fused_eval: xyz must be float32 [n, 3], got {xyz.dtype} {tuple(xyz.shape)}")
     if spec.bias[0].device != xyz.device:
         raise ValueError(f"fused_eval: spec on {spec.bias[0].device}, xyz on {xyz.device}")
+    return xyz.contiguous()
+
+
+def _count(route: str) -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
+
+
+def _raise(lib, rc: int, route: str):
+    raise RuntimeError(f"fused_mlp {route} kernel launch failed: {lib.msd_cuda_error_string(rc).decode()} ({rc})")
+
+
+def _eval_wgmma(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+    """The wgmma route on a CUDA tensor."""
+    xyz = _check(spec, xyz)
+    if spec.route != "wgmma":
+        raise ValueError(f"fused_eval: a {spec.route} spec has no wgmma weight tiles")
+    from msd_tpu_torch.ops._build import load_library
+
+    lib = load_library("fused_mlp")
+    n = xyz.shape[0]
+    consts = spec.latent_consts(latent.to(xyz.device))
+    out = torch.empty(n, dtype=torch.float32, device=xyz.device)
+    if n == 0:
+        return out
+    wx, cl = _ptrs(spec.wx4), _ptrs(consts)  # alive until the call returns
+    rc = lib.msd_fused_mlp_wgmma(
+        spec.n_layers, xyz.data_ptr(), out.data_ptr(), n,
+        None if spec.wtiles is None else spec.wtiles.data_ptr(), spec.n_wtiles, spec.wp[-1].data_ptr(),
+        wx, cl, _ints(spec.in_pad), _ints(spec.out_pad), int(spec.use_tanh),
+        torch.cuda.current_stream(xyz.device).cuda_stream,
+    )
+    if rc != 0:
+        _raise(lib, rc, "wgmma")
+    _count("wgmma")
+    return out
+
+
+def _eval_mma_sync(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+    """The mma_sync route on a CUDA tensor (any spec: the flagship's too,
+    for measurements)."""
+    xyz = _check(spec, xyz)
     from msd_tpu_torch.ops._build import load_library
 
     lib = load_library("fused_mlp")
     code = _DTYPE_CODE[spec.dtype]
-    xyz = xyz.contiguous()
     n = xyz.shape[0]
     consts = spec.latent_consts(latent.to(xyz.device))
     out = torch.empty(n, dtype=torch.float32, device=xyz.device)
@@ -217,7 +328,6 @@ def fused_eval(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) 
         need = lib.msd_fused_mlp_scratch_bytes(code, spec.kmax, chunk)
     scratch = torch.empty(need, dtype=torch.uint8, device=xyz.device) if need else None
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    global LAUNCHES
     for start in range(0, n, chunk):
         size = min(chunk, n - start)
         rc = lib.msd_fused_mlp_forward(
@@ -225,8 +335,6 @@ def fused_eval(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) 
             spec.kmax, int(spec.use_tanh), None if scratch is None else scratch.data_ptr(), need, stream,
         )
         if rc != 0:
-            raise RuntimeError(
-                f"fused_mlp kernel launch failed: {lib.msd_cuda_error_string(rc).decode()} ({rc})"
-            )
-        LAUNCHES += 1
+            _raise(lib, rc, "mma_sync")
+        _count("mma_sync")
     return out

@@ -134,6 +134,101 @@ def test_cuda_tensor_never_falls_back(dev, monkeypatch):
         fused_eval(spec, latent, xyz.double())
 
 
+# K1's routes: bf16 without LayerNorm up to width 512 takes "wgmma", every
+# other config "mma_sync"
+ROUTE_BF16 = {"flagship_shape": "wgmma", "weight_norm": "wgmma", "layer_norm": "mma_sync", "use_tanh": "wgmma",
+              "wide": "mma_sync", "wide_layer_norm": "mma_sync"}
+WGMMA_NS = [0, 1, 37, 127, 128, 129, 1000, 2**16 + 37]
+
+
+def _flagship(dev):
+    with open(os.path.join(ROOT, "examples", "ADNI", "minimal_eikonal", "specs.json")) as f:
+        specs = json.load(f)
+    dec = build_decoder(specs["NetworkArch"], specs["CodeLength"], specs["NetworkSpecs"],
+                        generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    give_surface_(dec, torch.zeros(specs["CodeLength"]))
+    g = torch.Generator(device=dev).manual_seed(1)
+    return dec, 0.01 * torch.randn(specs["CodeLength"], generator=g, device=dev)
+
+
+def _routes():
+    return dict(fused_mlp.ROUTE_LAUNCHES)
+
+
+@pytest.mark.parametrize("n", WGMMA_NS)
+@pytest.mark.parametrize("width", [64, 128, 256, 512])
+def test_wgmma_route_matches_plain(width, n, dev):
+    dec = _decoder(dict(dims=[width] * 4, latent_in=[2], weight_norm=False, norm_layers=[]), dev)
+    spec = FusedDecoderSpec(dec, torch.bfloat16)
+    assert spec.route == "wgmma"
+    latent, xyz = _inputs(n, dev)
+    before = _routes()
+    out = fused_eval(spec, latent, xyz)
+    again = fused_eval(spec, latent, xyz)
+    torch.cuda.synchronize()
+    assert _routes() == {"wgmma": before["wgmma"] + (2 if n else 0), "mma_sync": before["mma_sync"]}
+    assert out.shape == (n,) and torch.equal(out, again)
+    if n:
+        assert torch.isfinite(out).all()
+        assert float((out - fused_eval_plain(spec, latent, xyz).to(out.device)).abs().max()) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_route_by_config(name, dtype, dev):
+    spec = FusedDecoderSpec(_decoder(CONFIGS[name], dev), dtype)
+    route = ROUTE_BF16[name] if dtype == torch.bfloat16 else "mma_sync"
+    assert spec.route == route
+    latent, xyz = _inputs(777, dev, seed=11)
+    before = _routes()
+    out = fused_eval(spec, latent, xyz)
+    again = fused_eval(spec, latent, xyz)
+    torch.cuda.synchronize()
+    other = "mma_sync" if route == "wgmma" else "wgmma"
+    assert _routes()[route] == before[route] + 2 and _routes()[other] == before[other]
+    if route == "wgmma":  # mma_sync's LayerNorm layers sum row statistics with atomics
+        assert torch.equal(out, again)
+    assert float((out - fused_eval_plain(spec, latent, xyz)).abs().max()) <= TOL[dtype]
+
+
+def test_wgmma_flagship_spec(dev):
+    dec, latent = _flagship(dev)
+    spec = FusedDecoderSpec(dec, torch.bfloat16)
+    assert spec.route == "wgmma" and spec.n_wtiles == 96
+    g = torch.Generator(device=dev).manual_seed(2)
+    xyz = torch.rand(2**16 + 37, 3, generator=g, device=dev) * 2 - 1
+    before = _routes()
+    out = fused_eval(spec, latent, xyz)
+    again = fused_eval(spec, latent, xyz)
+    torch.cuda.synchronize()
+    assert _routes()["wgmma"] == before["wgmma"] + 2 and _routes()["mma_sync"] == before["mma_sync"]
+    assert torch.equal(out, again)
+    ref = fused_eval_plain(spec, latent, xyz)
+    assert float((out - ref).abs().max()) <= TOL[torch.bfloat16]
+    # the mma_sync kernel on the same spec (the measurement hook) agrees too
+    old = fused_mlp._eval_mma_sync(spec, latent, xyz)
+    assert float((old - ref).abs().max()) <= TOL[torch.bfloat16]
+
+
+def test_wgmma_failure_raises_and_never_switches_route(dev, monkeypatch):
+    from msd_tpu_torch.ops import _build
+
+    spec = FusedDecoderSpec(_decoder(CONFIGS["flagship_shape"], dev), torch.bfloat16)
+    assert spec.route == "wgmma"
+    latent, xyz = _inputs(300, dev)
+    before = _routes()
+    monkeypatch.setattr(spec, "n_wtiles", spec.n_wtiles + 1)  # refused by the launcher
+    with pytest.raises(RuntimeError, match="wgmma kernel launch failed"):
+        fused_eval(spec, latent, xyz)
+    monkeypatch.undo()
+    monkeypatch.setattr(_build, "load_library", lambda name: (_ for _ in ()).throw(RuntimeError("nvcc failed")))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fused_eval(spec, latent, xyz)
+    assert _routes() == before
+    with pytest.raises(ValueError, match="no wgmma weight tiles"):
+        fused_mlp._eval_wgmma(FusedDecoderSpec(_decoder(CONFIGS["layer_norm"], dev), torch.bfloat16), latent, xyz)
+
+
 def test_create_mesh_on_gpu_launches_kernel(dev):
     dec = _decoder(CONFIGS["flagship_shape"], dev)
     ev = mesh.PointEvaluator(dec)
