@@ -36,30 +36,38 @@ non-zero and prints no result. Phases, one JSON line each:
    16384 points (8 chunks of the kernels' scratch), where both are timed
    (CUDA events) beside the operation bound and the design's byte bound.
    Errors: loss sums, and per layer dMp, dMx, db and dlat, relative
-   Frobenius error and cosine similarity. The GEMM kernels' registers,
-   spills and shared memory (ptxas).
+   Frobenius error and cosine similarity. The GEMM kernels' and the row
+   streamers' (eik_kernel, skinny_kernel) registers, spills and shared
+   memory (ptxas).
 6. k2gemm: K2's two GEMM kernels alone at the step's shapes, one launch
    each (a masked 512 x 512 chain product with column sums over 65536
    points, a primal product, the product with a plain-store epilogue, a
    variant-b weight-gradient launch), against float32 torch products,
    timed on the device beside their operations and bytes bounds and
    torch.matmul of the same bf16 product.
-7. training: the port's Stage-1 path as a user runs it. The flagship
+7. k2pt: K2's three per-point kernels alone at the flagship chunk's b and c
+   shapes (65536 points; every point, or the first 4096 of each scene's
+   16384, gated): last_kernel, eik_kernel (both u operands 512 wide) and
+   skinny_kernel (delta^T x + u0^T gbar), each against its plain version
+   (last_plain, eik_plain, skinny_plain), timed on the device beside its
+   bytes bound, its plain version and, for skinny_kernel, torch.matmul of
+   its two pairs concatenated; registers and spills (ptxas).
+8. training: the port's Stage-1 path as a user runs it. The flagship
    specs.json with its DataSource, splits, NumEpochs (6), SnapshotFrequency
    (3) and AdditionalSnapshots ([]) changed, on 64 seeded ellipsoids
    (100k + 100k SdfSamples each); ``python -m msd_tpu_torch.train_deep_sdf
    --device cuda`` runs in process for 12 steps, then ``-c latest`` with
-   NumEpochs 8 for 4 more. Then step times, K2's share of the step, a
-   torch.profiler split of the step's device time by kernel with the
+   NumEpochs 8 for 4 more. Then step times, K2's share of the step, its
+   CUDA kernels' launches per step, a torch.profiler split of the step's device time by kernel with the
    device's idle share, the point sampler's time at chunk 128 and 1, and
    the trainer's step on K2 a and on its float32 autograd path.
-8. k2d: K2's frozen-decoder variant d (loss and latent gradient only, the
+9. k2d: K2's frozen-decoder variant d (loss and latent gradient only, the
    Stage-2 step's kernel) against its plain version and float32 autograd on
    4 seeded scenes x 16384 points, and against its plain version at the
    Stage-2 step shape, 32 x 16384 points, where both are timed beside the
    operation bound and the design's byte bound. Errors: loss sum relative,
    dlat relative Frobenius and cosine.
-9. stage2: the port's Stage-2 path as a user runs it, on top of the
+10. stage2: the port's Stage-2 path as a user runs it, on top of the
    training phase's Stage-1 experiment (64 ellipsoids, flagship width).
    ``labels.pt`` gets a 0/1 diagnosis from each ellipsoid's axis ratio and
    a seeded age; the flagship Stage-2 specs.json
@@ -69,24 +77,24 @@ non-zero and prints no result. Phases, one JSON line each:
    --device cuda`` runs in process for 40 steps (58 training scenes, one
    batch of 32 per epoch) with one eval epoch (run_eval, SAP, Locatello SAP,
    correlation, the tables, 2 meshes at N=257 through K1 and their Chamfer
-   where a mesh has a surface: the 16-step Stage-1 decoder of phase 7 may
+   where a mesh has a surface: the 16-step Stage-1 decoder of phase 8 may
    give a field with none), then ``-c latest`` with NumEpochs 42. Then
    the step's time, K2 d's share and launches per step, a torch.profiler
    split, and the trainer's step on K2 d against its float32 autograd path
    (loss and VAE gradient).
 
-10. k2ce: K2 variants c (EikonalNumPoints 4096 of 16384 points per scene)
+11. k2ce: K2 variants c (EikonalNumPoints 4096 of 16384 points per scene)
    and e (per-scene 0/1 weights; eikonal on, one pad scene) against float32
    autograd and their plain version on 4 seeded scenes x 16384 points, then
    against the plain version at 32 x 16384 points (e: scene 31 weighted
    0), where both are timed beside the operation bound; a pad scene's dlat
    must be exactly 0.
-11. training_eik4096: ``python -m msd_tpu_torch.train_deep_sdf --device
+12. training_eik4096: ``python -m msd_tpu_torch.train_deep_sdf --device
    cuda`` on the training phase's data with EikonalNumPoints 4096 (the
    flagship's configuration of ``bench.py``'s "bench-eik4096") for 8 steps,
    K2 c once per step; then its step time, K2's share of the step and
    launches per step.
-12. dp: the flagship Stage-1 at ScenesPerBatch 32 on 3 ranks, so the batch
+13. dp: the flagship Stage-1 at ScenesPerBatch 32 on 3 ranks, so the batch
    pads to 33 and every rank runs K2 e, for 3 steps, against one process
    on the same batches (step-1 losses and summed pre-Adam gradients); then
    2 epochs of the Stage-2 experiment on 2 ranks (K2 d split by scenes)
@@ -551,9 +559,14 @@ def check_k2(decoder, seed, dev):
     return results
 
 
-def gemm_report(log, kernels=("chain_kernel", "wgrad_kernel")):
+# msd_ft_dynamic_smem's kernel ids
+SMEM_IDS = {"chain_kernel": 0, "wgrad_kernel": 1, "eik_kernel": 2, "skinny_kernel": 3}
+
+
+def gemm_report(log, kernels=("chain_kernel", "wgrad_kernel", "eik_kernel", "skinny_kernel")):
     """Registers, spills and ptxas warnings of each named kernel, from
-    nvcc's ``-Xptxas -v`` log, with its dynamic shared memory."""
+    nvcc's ``-Xptxas -v`` log, with its dynamic shared memory (eik_kernel's
+    at the flagship's two 512-wide u operands)."""
     from msd_tpu_torch.ops._build import load_library
 
     lib = load_library("fused_train")
@@ -562,7 +575,7 @@ def gemm_report(log, kernels=("chain_kernel", "wgrad_kernel")):
         if "Compiling entry function" in ln:
             cur = next((k for k in kernels if k in ln), None)
             if cur:
-                out[cur] = {"ptxas": [], "dynamic_smem_bytes": lib.msd_ft_gemm_smem(kernels.index(cur))}
+                out[cur] = {"ptxas": [], "dynamic_smem_bytes": lib.msd_ft_dynamic_smem(SMEM_IDS.get(cur, -1), 1024)}
         elif cur and ("registers" in ln or "spill" in ln or "arning" in ln):
             out[cur]["ptxas"].append(ln.strip())
     return out
@@ -671,6 +684,176 @@ def check_k2gemm(seed, dev, n=65536, W=512, P=16384):
     phase("k2gemm", **results,
           library_note="torch.matmul of the same bf16 operands (bf16 out; for wgrad over the two pairs "
                        "concatenated, without the mask, constants or column sums): a yardstick, not called by the port")
+    return results
+
+
+# K2's per-point kernels on their own against their plain versions (float32
+# of the same operands on the card): last_kernel's (y, m tau, seed) and its
+# L1 tile sums within 1e-5 of their largest (float32 in two orders);
+# eik_kernel's gb and sb within half a bf16 ulp plus the order of g's sum
+# (bf16 units, as the chain's output) and its tile sums within 1e-5 of their
+# largest; skinny_kernel's sums within 1e-5 relative Frobenius.
+K2PT_TOL = {"rel_max": 1e-5, "bf16_units": 1.0, "skinny": 1e-5}
+
+
+def check_k2pt(seed, dev, n=65536, W=512, P=16384):
+    """K2's three per-point kernels alone at the flagship chunk's shapes, b
+    (every point gated) and c (the first 4096 of each scene's 16384): one
+    launch of last_kernel over the chunk's 65536 points (h 512 wide),
+    eik_kernel over its gated rows (u0 and uL 512 wide, the latent_in
+    layer's) on last_kernel's outputs, and skinny_kernel's dMx_0 sums
+    (delta^T x over the points plus u0^T gbar over the gated rows). Each is
+    held against its plain version on the card, timed on the device
+    (device_only) beside its bytes and operations bounds and its plain
+    version; skinny_kernel also beside torch.matmul of the two pairs
+    concatenated with V in bf16 (``library_ms``, a yardstick not called by
+    the port). skinny_kernel and eik_kernel run twice for equal bits."""
+    import torch
+
+    from msd_tpu_torch.ops import _build
+    from msd_tpu_torch.ops import fused_train as ft
+
+    lib = _build.load_library("fused_train")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def ok(rc, what):
+        if rc:
+            raise RuntimeError(f"{what}: {lib.msd_ft_error_string(rc).decode()}")
+
+    def rel_max(got, ref):
+        return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+    def units(got, v):  # as tests/test_torch_cuda.py:_bf16_units: half a bf16 ulp is at most 1
+        return float(((got - v).abs() / (2**-8 * v.abs() + 1e-5 * v.abs().max())).max())
+
+    def bounds(flop, nbytes):
+        t_ops, t_bytes = flop / PEAK_FLOPS["float32"] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    def vec4(rows, scale):
+        v = torch.zeros(rows, 4, device=dev)
+        v[:, :3] = (scale * torch.randn(rows, 3, generator=g, device=dev)).to(bf).float()
+        return v
+
+    S = n // P
+    h = torch.relu(torch.randn(n, W, generator=g, device=dev)).to(bf)
+    wl = (0.02 * torch.randn(W, generator=g, device=dev)).to(bf)
+    clast = 0.05 * torch.randn(S, generator=g, device=dev)
+    gt = (0.25 * torch.randn(n, generator=g, device=dev)).clamp(-0.1, 0.1)
+    d = (1e-3 * torch.randn(n, W, generator=g, device=dev)).to(bf)
+    X = vec4(n, 0.5)
+    mx0, mxL = vec4(W, 0.6), vec4(W, 0.6)
+    ticket = torch.zeros(W // ft.SKINNY_COLS, dtype=torch.int32, device=dev)
+    results = {"last_kernel": {}, "eik_kernel": {}, "skinny_kernel": {}}
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for shape, E in (("b", P), ("c", 4096)):
+            ne = S * E
+            rows = torch.arange(ne, device=dev)
+            points = rows // E * P + rows % E
+            gated_tiles = points[::128] // 128
+            others = torch.ones(n // 128, dtype=torch.bool, device=dev)
+            others[gated_tiles] = False
+            pt, sb = torch.empty(n, 4, device=dev), torch.empty(n, 4, device=dev)
+            mtc, gb = torch.empty(ne, 4, device=dev), torch.empty(ne, 4, device=dev)
+            loss = torch.zeros(n // 128, 4, device=dev)
+            eik_coef = 2.0 * 0.002 / (32 * E)  # the flagship step's normaliser
+
+            def last():
+                ok(lib.msd_ft_last(ptr(h), ptr(wl), W, ptr(clast), ptr(gt), None, n, P, E, 0.1, 1.0 / n, ptr(pt),
+                                   ptr(mtc), ptr(sb), ptr(loss), stream), "last_kernel")
+
+            last()
+            torch.cuda.synchronize()
+            y, mt, l1_seed, l1 = ft.last_plain(h, wl, clast.repeat_interleave(P), gt, 0.1, 1.0 / n)
+            err = {"y": rel_max(pt[:, 0], y), "m_tau": rel_max(pt[:, 1], mt), "seed": rel_max(pt[:, 2], l1_seed),
+                   "l1_tiles": rel_max(loss[:, 0], l1.reshape(-1, 128).sum(1)),
+                   "mtc_bf16_units": units(mtc[:, 0], mt[points])}
+            if bool(others.any()):
+                err["seed_tiles"] = rel_max(loss[others, 2], l1_seed.reshape(-1, 128)[others].sum(1))
+            if max(v for k, v in err.items() if k != "mtc_bf16_units") > K2PT_TOL["rel_max"] \
+                    or err["mtc_bf16_units"] > K2PT_TOL["bf16_units"]:
+                raise AssertionError(f"last_kernel vs plain at {shape}: {err}")
+            c_pt = clast.repeat_interleave(P)
+            results["last_kernel"][shape] = {
+                "rows": n, "errors": err, "ms": time_ms(last, device_only=True),
+                "plain_ms": time_ms(lambda: ft.last_plain(h, wl, c_pt, gt, 0.1, 1.0 / n), device_only=True),
+                "library_ms": None,
+                **bounds(2.0 * n * W, 2.0 * n * W + 2.0 * W + 4.0 * S + 4.0 * n + 16.0 * (2 * n) + 8.0 * n / 128)}
+
+            u0 = (0.05 * torch.randn(ne, W, generator=g, device=dev)).to(bf)
+            uL = (0.05 * torch.randn(ne, W, generator=g, device=dev)).to(bf)
+
+            def eik():
+                ok(lib.msd_ft_eik(ptr(u0), ptr(mx0), W, ptr(uL), ptr(mxL), W, ptr(pt), None, ne, P, E, eik_coef,
+                                  ptr(gb), ptr(sb), ptr(loss), stream), "eik_kernel")
+
+            eik()
+            torch.cuda.synchronize()
+            first = (gb.clone(), sb.clone(), loss.clone())
+            gbar, sbar, lane = ft.eik_plain(u0, mx0, uL, mxL, pt[points, 0], pt[points, 2], eik_coef)
+            err = {"gb_bf16_units": units(gb[:, :3], gbar), "sb_bf16_units": units(sb[points, 0], sbar),
+                   "eik_tiles": rel_max(loss[gated_tiles, 1], lane.reshape(-1, 128).sum(1)),
+                   "sbar_tiles": rel_max(loss[gated_tiles, 2], sbar.reshape(-1, 128).sum(1))}
+            eik()
+            torch.cuda.synchronize()
+            err["same_bits"] = all(torch.equal(a, b) for a, b in zip(first, (gb, sb, loss)))
+            if (max(err["gb_bf16_units"], err["sb_bf16_units"]) > K2PT_TOL["bf16_units"]
+                    or max(err["eik_tiles"], err["sbar_tiles"]) > K2PT_TOL["rel_max"] or not err["same_bits"]):
+                raise AssertionError(f"eik_kernel vs plain at {shape}: {err}")
+            y_g, s_g = pt[points, 0].contiguous(), pt[points, 2].contiguous()
+            results["eik_kernel"][shape] = {
+                "rows": ne, "errors": err, "ms": time_ms(eik, device_only=True),
+                "plain_ms": time_ms(lambda: ft.eik_plain(u0, mx0, uL, mxL, y_g, s_g, eik_coef), device_only=True),
+                "library_ms": None,
+                **bounds(2.0 * ne * 2 * W * 3, 2.0 * ne * 2 * W + 2 * 16.0 * W + 3 * 16.0 * ne + 8.0 * ne / 128)}
+
+            acc = torch.zeros(W, 4, device=dev)
+
+            def skinny():
+                ft.skinny_cuda(d, X, u0, gb, acc, ticket, sms, lib, stream)
+
+            skinny()
+            torch.cuda.synchronize()
+            got = acc.clone()
+            acc.zero_()
+            skinny()
+            torch.cuda.synchronize()
+            ref = ft.skinny_plain(d, X[:, :3], u0, gb[:, :3])
+            err = {"rel_frobenius": float((got[:, :3] - ref).norm() / ref.norm()), "same_bits": torch.equal(got, acc),
+                   "ticket_zero": int(ticket.abs().sum()) == 0}
+            if not (err["rel_frobenius"] <= K2PT_TOL["skinny"] and err["same_bits"] and err["ticket_zero"]):
+                raise AssertionError(f"skinny_kernel vs plain at {shape}: {err}")
+            A_cat, V_cat = torch.cat([d, u0]), torch.cat([X, gb]).to(bf)
+            X3, gb3 = X[:, :3].contiguous(), gb[:, :3].contiguous()
+            rows_all = n + ne
+            results["skinny_kernel"][shape] = {
+                "rows": [n, ne], "splits": ft.skinny_split(rows_all, W, sms), "errors": err,
+                "ms": time_ms(skinny, device_only=True),
+                "plain_ms": time_ms(lambda: ft.skinny_plain(d, X3, u0, gb3), device_only=True),
+                "library_ms": time_ms(lambda: torch.matmul(A_cat.t(), V_cat), device_only=True),
+                **bounds(2.0 * rows_all * W * 3, rows_all * (2.0 * W + 16.0) + 2 * 16.0 * W)}
+            del u0, uL, A_cat, V_cat
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    for per_shape in results.values():
+        for r in per_shape.values():
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    phase("k2pt", **results, kernels=gemm_report(_build.BUILD_LOGS.get("fused_train", ""),
+                                                 ("last_kernel", "eik_kernel", "skinny_kernel")),
+          bytes_note="each input read once, each output written once (skinny: its [W][4] accumulator read and "
+                     "written; its per-block partials are scratch and not counted)",
+          library_note="skinny_kernel: torch.matmul of the two pairs concatenated, V cast to bf16 (a yardstick, "
+                       "not called by the port); no single PyTorch call computes last_kernel's or eik_kernel's "
+                       "outputs")
     return results
 
 
@@ -849,8 +1032,10 @@ def train(root, specs, seed):
         if not torch.equal(a, b.cpu()):
             raise AssertionError(f"load_model: {n} differs from the trained decoder")
 
-    # step times on the trained state
+    # step times on the trained state, K2's kernel launches per step
+    fused_train.reset_launches()
     step_ms, idx, batch = step_times(resumed, seed)
+    kernel_launches = {k: v / len(step_ms) for k, v in fused_train.KERNEL_LAUNCHES.items()}
     step_med = float(np.median(step_ms[1:]))
     dev = resumed.device
     B, P = resumed.scene_per_batch, resumed.num_samp_per_scene
@@ -885,7 +1070,7 @@ def train(root, specs, seed):
         "step_ms_median": step_med, "step_ms": step_ms, "step_ms_by_path": steps_by_path,
         "scenes_per_s": B / (step_med * 1e-3), "points_per_s": B * P / (step_med * 1e-3),
         "k2_ms_in_step": k2_ms, "k2_share_of_step": k2_ms / step_med, "sampler": sampler,
-        "profile": profile,
+        "k2_kernel_launches_per_step": kernel_launches, "profile": profile,
     }, launches_first + launches_resumed
 
 
@@ -988,7 +1173,7 @@ def stage2(root, seed, device="cuda", changes=None):
     def step(**kw):
         return resumed.step(idx, labels, *[weights[i] for i in (2, 3, 0, 1)], batch=batch, generator=gen, **kw)
 
-    fused_train.LAUNCHES = 0
+    fused_train.reset_launches()
     step_ms = []
     for _ in range(11):
         _sync(dev)
@@ -997,6 +1182,7 @@ def stage2(root, seed, device="cuda", changes=None):
         _sync(dev)
         step_ms.append((time.perf_counter() - t) * 1e3)
     launches_per_step = fused_train.LAUNCHES / len(step_ms)
+    kernel_launches = {k: v / len(step_ms) for k, v in fused_train.KERNEL_LAUNCHES.items()}
     step_med = float(np.median(step_ms[1:]))
     with torch.no_grad():
         z_hat = resumed.vae(resumed._teacher_dev[idx], generator=gen)["z_hat"]
@@ -1043,7 +1229,7 @@ def stage2(root, seed, device="cuda", changes=None):
         "k2d_launches": k2_first + k2_resumed, "k1_launches": k1_first + k1_resumed,
         "step_ms_median": step_med, "step_ms": step_ms, "k2d_launches_per_step": launches_per_step,
         "k2d_ms_in_step": k2d_ms, "k2d_share_of_step": k2d_ms / step_med,
-        "scenes_per_s": B / (step_med * 1e-3), "profile": profile,
+        "scenes_per_s": B / (step_med * 1e-3), "k2_kernel_launches_per_step": kernel_launches, "profile": profile,
         "autograd_step_ms": autograd_step_ms, "step_vs_autograd": vs_autograd,
     }, k2_first + k2_resumed, k1_first + k1_resumed
 
@@ -1184,6 +1370,7 @@ def train_eik(root, specs, seed):
     fused_train.reset_launches()
     step_ms, idx, batch = step_times(trainer, seed)
     per_step = fused_train.VARIANT_LAUNCHES["c"] / len(step_ms)
+    kernel_launches = {k: v / len(step_ms) for k, v in fused_train.KERNEL_LAUNCHES.items()}
     step_med = float(np.median(step_ms[1:]))
     B, P = trainer.scene_per_batch, trainer.num_samp_per_scene
 
@@ -1197,7 +1384,7 @@ def train_eik(root, specs, seed):
     return {"changed": changes, "steps": steps, "seconds": seconds, "epoch_losses": trainer.loss_log_epoch,
             "eik_rows": eikonal_rows(P, 4096), "step_ms_median": step_med, "step_ms": step_ms,
             "k2c_launches_per_step": per_step, "k2_ms_in_step": k2_ms, "k2_share_of_step": k2_ms / step_med,
-            "profile": profile}, launches["c"]
+            "k2_kernel_launches_per_step": kernel_launches, "profile": profile}, launches["c"]
 
 
 # The data-parallel phase: step-1 losses against the one-process run's to
@@ -1511,6 +1698,7 @@ def main(argv=None):
 
     k2 = check_k2(decoder, args.seed, dev)
     k2gemm = check_k2gemm(args.seed, dev)
+    k2pt = check_k2pt(args.seed, dev)
     k2d = check_k2d(decoder, args.seed, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
         training, k2_launches = train(root, specs, args.seed)
@@ -1554,6 +1742,8 @@ def main(argv=None):
         "step_ms": training["step_ms_median"], **autograd_step,
         "gemm": {k: {f: r[f] for f in ("ms", "library_ms", "bound_ms", "bound_by", "tflops")}
                  for k, r in k2gemm.items()},
+        "pointwise": {k: {shape: {f: r[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                          for shape, r in per_shape.items()} for k, per_shape in k2pt.items()},
         "variant_a": {k: a[k] for k in ("ms", "plain_ms", "bound_ms", "design_bytes_ms")}
                      | {"max_abs_err": a["vs_plain"]["max_abs_err"],
                         "max_rel_frobenius": a["vs_plain"]["worst_grad_rel"],

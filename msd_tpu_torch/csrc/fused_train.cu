@@ -80,11 +80,17 @@
 //                 through the transpose bits of its descriptors; persistent
 //                 blocks walk (split, tile) units; plain float32 stores of
 //                 the partials, no atomics, so the sums are deterministic.
-//   last_kernel, eik_kernel   per-point work of the one-output last layer
-//                 and the eikonal lane, one warp per point, per-128-point-tile
-//                 loss partials.
-//   skinny_kernel the three-column (dMx) and one-row (last layer) weight
-//                 gradients as segmented column sums.
+//   last_kernel   per-point work of the one-output last layer, one warp per
+//                 point, per-128-point-tile loss partials.
+//   eik_kernel, skinny_kernel   row streamers: the eikonal lane and the
+//                 three-column (dMx) and one-row (last layer) weight
+//                 gradients. Each reads bf16 rows of W contiguous values
+//                 once and does a few FMAs per value, so it is bound by
+//                 bytes: at 3.35 TB/s and about 1 us of latency the card
+//                 needs some 25 KB of loads in flight per SM. Every thread
+//                 issues 16-byte loads of several rows before its first
+//                 FMA, and the grid is sized to the SMs, so a 16384-row
+//                 launch (variant c) fills the card too.
 // Hidden widths arrive zero-padded to multiples of 128; padded rows and
 // columns stay zero and the wrapper cuts them off.
 //
@@ -103,7 +109,15 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int NTHREADS = 256;  // per-point kernels
-constexpr int PT_TILE = 128;   // points per block of the per-point kernels
+constexpr int PT_TILE = 128;   // points per loss tile of the per-point kernels
+// skinny_kernel: a block takes 128 columns (16 threads of 8 columns each,
+// one 16-byte vector) of 16 rows side by side, and each thread loads
+// SK_DEPTH rows before its first FMA (32 KB in flight per block)
+constexpr int SK_COLS = 128, SK_LANES = NTHREADS / 16, SK_DEPTH = 8;
+// eik_kernel: a warp takes EIK_ROWS rows side by side, each lane
+// EIK_VECS 16-byte vectors of each (1024 columns per pass; 8 KB in flight
+// per warp)
+constexpr int EIK_ROWS = 4, EIK_VECS = 4;
 
 // GEMM kernels: tiles of 128 rows, depth TK per ring stage (one 128-byte
 // swizzle row of bf16); a producer warpgroup and two consumer warpgroups of
@@ -730,64 +744,141 @@ struct EikParams {
   float* loss;        // [points / 128][4]
 };
 
+// The eight bf16 values of a 16-byte vector, as float32 (exact)
+__device__ __forceinline__ void unpack8(const uint4& v, float (&x)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 a, const float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+  return a;
+}
+
+// Persistent blocks walk the 128-row tiles (tile blockIdx.x + k gridDim.x).
+// Warp w takes rows 32 k + 4 w + r (k, r < 4) of a tile, four side by side:
+// its lanes read the rows' u0 and uL as one virtual row of W0 + WL columns,
+// lane l the 16-byte vectors l + 32 j, all EIK_ROWS x EIK_VECS of a pass
+// before the first FMA; the Mx columns come from shared memory (three
+// float32 planes, loaded once per block), each read serving four rows. A
+// butterfly over the lanes gives every lane the rows' g; lane r runs row
+// r's scalar epilogue.
 __global__ void __launch_bounds__(NTHREADS) eik_kernel(const EikParams p) {
-  __shared__ float eks[PT_TILE], sbs[PT_TILE];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const long long base = static_cast<long long>(blockIdx.x) * PT_TILE;
-  const long long pbase = (base / p.E) * p.P + base % p.E;  // the tile's first point
-  for (int r = w; r < PT_TILE; r += NTHREADS / 32) {
-    const long long i = base + r, pt = pbase + r;
-    float g[3] = {0.0f, 0.0f, 0.0f};
-    const bf16* u = p.u0 + i * p.W0;
-    for (int o = lane; o < p.W0; o += 32) {
-      const float v = bf(u[o]);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) g[j] += v * p.mx0[4 * o + j];
-    }
-    if (p.uL != nullptr) {
-      u = p.uL + i * p.WL;
-      for (int o = lane; o < p.WL; o += 32) {
-        const float v = bf(u[o]);
-#pragma unroll
-        for (int j = 0; j < 3; ++j) g[j] += v * p.mxL[4 * o + j];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) g[j] += __shfl_xor_sync(0xffffffffu, g[j], off);
-    }
-    if (lane == 0) {
-      const float gsq = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
-      const float gn = sqrtf(fmaxf(gsq, 1e-24f));
-      const float coef = p.eik_coef * (gn - 1.0f) / gn;
-      // variant e scales the eikonal lane and gbar, hence its whole reverse
-      // pass (msd_tpu/ops/fused_train.py:248-258)
-      const float wt = p.w != nullptr ? p.w[i / p.E] : 1.0f;
-      float gbar[3], gdot = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        gbar[j] = coef * g[j];
-        if (p.w != nullptr) gbar[j] *= wt;
-        gdot += gbar[j] * g[j];
-      }
-      const float4 q = reinterpret_cast<const float4*>(p.pt)[pt];  // (y, m tau, l1 seed, 0)
-      const float sbar = q.z + (-2.0f * q.x) * gdot;
-      reinterpret_cast<float4*>(p.gb)[i] = make_float4(rnd(gbar[0]), rnd(gbar[1]), rnd(gbar[2]), 0.0f);
-      reinterpret_cast<float4*>(p.sb)[pt] = make_float4(rnd(sbar), 0.0f, 0.0f, 0.0f);
-      float ek = (1.0f - gn) * (1.0f - gn);
-      if (p.w != nullptr) ek *= wt;
-      eks[r] = ek;
-      sbs[r] = sbar;
-    }
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float eks[2][PT_TILE], sbs[2][PT_TILE];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wt = p.W0 + p.WL, nvec = wt / 8, nvec0 = p.W0 / 8;
+  float* const mx = reinterpret_cast<float*>(smem_raw + ((16u - (smem_u32(smem_raw) & 15u)) & 15u));  // [3][wt]
+  for (int o = threadIdx.x; o < wt; o += NTHREADS) {
+    const float4 m = o < p.W0 ? reinterpret_cast<const float4*>(p.mx0)[o]
+                              : reinterpret_cast<const float4*>(p.mxL)[o - p.W0];
+    mx[o] = m.x;
+    mx[wt + o] = m.y;
+    mx[2 * wt + o] = m.z;
   }
   __syncthreads();
-  if (w == 0) {
-    const float ek = warp_sum128(eks);
-    const float sbar = warp_sum128(sbs);
-    if (lane == 0) {
-      p.loss[4 * (pbase / PT_TILE) + 1] = ek;
-      p.loss[4 * (pbase / PT_TILE) + 2] = sbar;
+  const long long tiles = p.n / PT_TILE;
+  int buf = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    const long long base = tile * PT_TILE;
+    const long long pbase = (base / p.E) * p.P + base % p.E;  // the tile's first point
+#pragma unroll 1
+    for (int k = 0; k < PT_TILE / (EIK_ROWS * NTHREADS / 32); ++k) {
+      const int r0 = EIK_ROWS * (NTHREADS / 32 * k + warp);  // the rows base + r0 + r, r < EIK_ROWS
+      float g[EIK_ROWS][3];
+#pragma unroll
+      for (int r = 0; r < EIK_ROWS; ++r) g[r][0] = g[r][1] = g[r][2] = 0.0f;
+      for (int v0 = 0; v0 < nvec; v0 += 32 * EIK_VECS) {
+        uint4 a[EIK_ROWS][EIK_VECS];
+#pragma unroll
+        for (int j = 0; j < EIK_VECS; ++j) {
+          const int v = v0 + 32 * j + lane;
+#pragma unroll
+          for (int r = 0; r < EIK_ROWS; ++r) {
+            const long long i = base + r0 + r;
+            const bf16* src = v < nvec0 ? p.u0 + i * p.W0 + 8 * v : p.uL + i * p.WL + 8 * (v - nvec0);
+            a[r][j] = v < nvec ? __ldg(reinterpret_cast<const uint4*>(src)) : make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < EIK_VECS; ++j) {
+          const int v = v0 + 32 * j + lane;
+          if (v >= nvec) continue;
+          float m[3][8];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float4* pl = reinterpret_cast<const float4*>(mx + c * wt + 8 * v);
+            const float4 lo = pl[0], hi = pl[1];
+            m[c][0] = lo.x, m[c][1] = lo.y, m[c][2] = lo.z, m[c][3] = lo.w;
+            m[c][4] = hi.x, m[c][5] = hi.y, m[c][6] = hi.z, m[c][7] = hi.w;
+          }
+#pragma unroll
+          for (int r = 0; r < EIK_ROWS; ++r) {
+            float x[8];
+            unpack8(a[r][j], x);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              g[r][0] = fmaf(x[e], m[0][e], g[r][0]);
+              g[r][1] = fmaf(x[e], m[1][e], g[r][1]);
+              g[r][2] = fmaf(x[e], m[2][e], g[r][2]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < EIK_ROWS; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) g[r][c] += __shfl_xor_sync(0xffffffffu, g[r][c], off);
+        }
+      }
+      if (lane < EIK_ROWS) {
+        float gv[3] = {g[0][0], g[0][1], g[0][2]};
+#pragma unroll
+        for (int r = 1; r < EIK_ROWS; ++r) {
+          if (lane == r) gv[0] = g[r][0], gv[1] = g[r][1], gv[2] = g[r][2];
+        }
+        const long long i = base + r0 + lane, pt = pbase + r0 + lane;
+        const float gsq = gv[0] * gv[0] + gv[1] * gv[1] + gv[2] * gv[2];
+        const float gn = sqrtf(fmaxf(gsq, 1e-24f));
+        const float coef = p.eik_coef * (gn - 1.0f) / gn;
+        // variant e scales the eikonal lane and gbar, hence its whole reverse
+        // pass (msd_tpu/ops/fused_train.py:248-258)
+        const float wt_e = p.w != nullptr ? p.w[i / p.E] : 1.0f;
+        float gbar[3], gdot = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          gbar[j] = coef * gv[j];
+          if (p.w != nullptr) gbar[j] *= wt_e;
+          gdot += gbar[j] * gv[j];
+        }
+        const float4 q = reinterpret_cast<const float4*>(p.pt)[pt];  // (y, m tau, l1 seed, 0)
+        const float sbar = q.z + (-2.0f * q.x) * gdot;
+        reinterpret_cast<float4*>(p.gb)[i] = make_float4(rnd(gbar[0]), rnd(gbar[1]), rnd(gbar[2]), 0.0f);
+        reinterpret_cast<float4*>(p.sb)[pt] = make_float4(rnd(sbar), 0.0f, 0.0f, 0.0f);
+        float ek = (1.0f - gn) * (1.0f - gn);
+        if (p.w != nullptr) ek *= wt_e;
+        eks[buf][r0 + lane] = ek;
+        sbs[buf][r0 + lane] = sbar;
+      }
+    }
+    // one barrier per tile: a warp that runs ahead writes the other buffer
+    __syncthreads();
+    if (warp == 0) {
+      const float ek = warp_sum128(eks[buf]);
+      const float sbar = warp_sum128(sbs[buf]);
+      if (lane == 0) {
+        p.loss[4 * (pbase / PT_TILE) + 1] = ek;
+        p.loss[4 * (pbase / PT_TILE) + 2] = sbar;
+      }
     }
   }
 }
@@ -796,37 +887,117 @@ struct SkinnyParams {
   const bf16* A[2];   // [n_q][W]
   const float* V[2];  // [n_q][4]
   long long n[2];     // rows of each pair (0: no second pair)
-  int W, nseg;
-  float* out;         // [nseg][W][4]: sum over the segment's rows of A[p][o] V[p][0:3]
+  int W, splits;
+  float* part;        // [splits][W][4] scratch: each block's partial sums
+  unsigned* ticket;   // [W / SK_COLS] arrival counts: 0 before the launch, and after it
+  float* out;         // [W][4] accumulator: columns 0-2 += the sums over the rows of A[q][o] V[q][0:3]
 };
 
-__global__ void __launch_bounds__(128) skinny_kernel(const SkinnyParams p) {
-  const int o = blockIdx.x * 128 + threadIdx.x;
-  const int seg = blockIdx.y;
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  if (o < p.W) {
-    for (int q = 0; q < 2; ++q) {
-      const long long len = (p.n[q] + p.nseg - 1) / p.nseg;
-      const long long b = seg * len;
-      const long long e = b + len < p.n[q] ? b + len : p.n[q];
-      for (long long pt = b; pt < e; ++pt) {
-        const float a = bf(p.A[q][pt * p.W + o]);
-        const float* v = p.V[q] + 4 * pt;
-        acc[0] += a * v[0];
-        acc[1] += a * v[1];
-        acc[2] += a * v[2];
+static_assert(NTHREADS == 2 * SK_COLS && PT_TILE % (EIK_ROWS * NTHREADS / 32) == 0, "per-point block shapes");
+
+// Block (split, column group): the split's rows of the two pairs laid end
+// to end, [s c, (s + 1) c) with c = ceil((n0 + n1) / splits), for the
+// group's 128 columns. Thread (row lane rl, column vector cg) sums the
+// rows rl + 16 i in order, 24 float32 accumulators; the block reduces its
+// 16 row lanes in a fixed order into its [128][4] partial. The last block
+// of a column group to arrive (a ticket counted after a fence) sums the
+// group's partials in split order and adds them to ``out``: no float
+// atomics, so equal inputs give equal bits.
+__global__ void __launch_bounds__(NTHREADS, 2) skinny_kernel(const SkinnyParams p) {
+  __shared__ float4 red[NTHREADS / 32][SK_COLS];
+  __shared__ unsigned arrived;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int cg = t & 15, rl = t >> 4;
+  const int split = blockIdx.x, group = blockIdx.y;
+  const int col0 = group * SK_COLS + 8 * cg;
+  float acc[8][3];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = 0.0f;
+  const long long total = p.n[0] + p.n[1];
+  const long long len = (total + p.splits - 1) / p.splits;
+  const long long b = split * len, e = b + len < total ? b + len : total;
+  long long off = 0;
+  for (int q = 0; q < 2; off += p.n[q], ++q) {
+    const long long qb = b - off > 0 ? b - off : 0;
+    const long long qe = e - off < p.n[q] ? e - off : p.n[q];
+    if (qb >= qe) continue;
+    const bf16* A = p.A[q] + col0;
+    const float4* V = reinterpret_cast<const float4*>(p.V[q]);
+    for (long long r0 = qb + rl; r0 < qe; r0 += SK_LANES * SK_DEPTH) {
+      uint4 a[SK_DEPTH];
+      float4 v[SK_DEPTH];
+#pragma unroll
+      for (int d = 0; d < SK_DEPTH; ++d) {
+        const long long r = r0 + d * SK_LANES;
+        const bool ok = r < qe;
+        a[d] = ok ? __ldg(reinterpret_cast<const uint4*>(A + r * p.W)) : make_uint4(0u, 0u, 0u, 0u);
+        v[d] = ok ? __ldg(V + r) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int d = 0; d < SK_DEPTH; ++d) {
+        float x[8];
+        unpack8(a[d], x);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          acc[c][0] = fmaf(x[c], v[d].x, acc[c][0]);
+          acc[c][1] = fmaf(x[c], v[d].y, acc[c][1]);
+          acc[c][2] = fmaf(x[c], v[d].z, acc[c][2]);
+        }
       }
     }
-    float* out = p.out + (static_cast<long long>(seg) * p.W + o) * 4;
-    out[0] = acc[0];
-    out[1] = acc[1];
-    out[2] = acc[2];
-    out[3] = 0.0f;
   }
+  // row lanes 2 w and 2 w + 1 share warp w (lanes l and l ^ 16), then the
+  // warps in order
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) acc[c][j] += __shfl_xor_sync(0xffffffffu, acc[c][j], 16);
+  }
+  if (lane < 16) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) red[warp][8 * cg + c] = make_float4(acc[c][0], acc[c][1], acc[c][2], 0.0f);
+  }
+  __syncthreads();
+  float4* const part = reinterpret_cast<float4*>(p.part) + group * SK_COLS;
+  if (t < SK_COLS) {
+    float4 s = red[0][t];
+#pragma unroll
+    for (int w = 1; w < NTHREADS / 32; ++w) s = add4(s, red[w][t]);
+    part[static_cast<long long>(split) * p.W + t] = s;
+    __threadfence();
+  }
+  __syncthreads();
+  if (t == 0) arrived = atomicAdd(p.ticket + group, 1u);
+  __syncthreads();
+  if (arrived != static_cast<unsigned>(p.splits - 1)) return;
+  __threadfence();
+  // the last block: threads t and t + 128 sum the first and second half of
+  // the splits of column t, then thread t adds both to out
+  const int col = t & (SK_COLS - 1), half = t / SK_COLS;
+  const int per = (p.splits + 1) / 2;
+  const int s0 = half * per, s1 = s0 + per < p.splits ? s0 + per : p.splits;
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+  for (int sp = s0; sp < s1; ++sp) s = add4(s, __ldcg(part + static_cast<long long>(sp) * p.W + col));
+  red[half][col] = s;
+  __syncthreads();
+  if (t < SK_COLS) {
+    const float4 lo = red[0][t], hi = red[1][t];
+    float* o = p.out + 4 * (group * SK_COLS + t);
+    o[0] += lo.x + hi.x;
+    o[1] += lo.y + hi.y;
+    o[2] += lo.z + hi.z;
+  }
+  if (t == 0) p.ticket[group] = 0;
 }
 
 inline int err(cudaError_t e) { return static_cast<int>(e); }
 inline int bad() { return err(cudaErrorInvalidValue); }
+// the row streamers' 16-byte loads (null passes)
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+// eik_kernel's Mx planes, 3 x width float32, plus 16 bytes of alignment
+inline int eik_smem(int width) { return 12 * width + 16; }
+constexpr int EIK_MAX_SMEM = 200 * 1024;
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -923,8 +1094,16 @@ int msd_ft_wgrad(const void* A0, const void* B0, long long n0, const void* A1, c
   return err(cudaGetLastError());
 }
 
-// Dynamic shared memory of chain_kernel (0) or wgrad_kernel (1), bytes
-int msd_ft_gemm_smem(int kernel) { return kernel ? WGRAD_SMEM : CHAIN_SMEM; }
+// Dynamic shared memory, bytes, of chain_kernel (0), wgrad_kernel (1),
+// eik_kernel (2) over ``width`` = W0 + WL columns, skinny_kernel (3)
+int msd_ft_dynamic_smem(int kernel, int width) {
+  switch (kernel) {
+    case 0: return CHAIN_SMEM;
+    case 1: return WGRAD_SMEM;
+    case 2: return eik_smem(width);
+    default: return 0;
+  }
+}
 
 int msd_ft_last(const void* h, const void* wl, int K, const void* clast, const void* gt, const void* w,
                 long long n, int P, int E, float clamp, float inv_ntot, void* pt, void* mtc, void* sb, void* loss,
@@ -956,9 +1135,12 @@ int msd_ft_last(const void* h, const void* wl, int K, const void* clast, const v
 int msd_ft_eik(const void* u0, const void* mx0, int W0, const void* uL, const void* mxL, int WL, const void* pt,
                const void* w, long long n, int P, int E, float eik_coef, void* gb, void* sb, void* loss,
                void* stream) {
+  if (uL == nullptr) WL = 0;
   if (n <= 0 || n % PT_TILE || P <= 0 || E <= 0 || E > P || E % PT_TILE || P % PT_TILE || n % E ||
-      u0 == nullptr || mx0 == nullptr || W0 <= 0 || (uL == nullptr) != (mxL == nullptr) ||
-      (uL != nullptr && WL <= 0) || pt == nullptr || gb == nullptr || sb == nullptr || loss == nullptr)
+      u0 == nullptr || mx0 == nullptr || W0 <= 0 || W0 % 8 || (uL == nullptr) != (mxL == nullptr) ||
+      (uL != nullptr && (WL <= 0 || WL % 8)) || !aligned16(u0) || !aligned16(uL) || !aligned16(mx0) ||
+      !aligned16(mxL) || eik_smem(W0 + WL) > EIK_MAX_SMEM || pt == nullptr || gb == nullptr || sb == nullptr ||
+      loss == nullptr)
     return bad();
   EikParams p;
   p.u0 = static_cast<const bf16*>(u0);
@@ -976,14 +1158,27 @@ int msd_ft_eik(const void* u0, const void* mx0, int W0, const void* uL, const vo
   p.gb = static_cast<float*>(gb);
   p.sb = static_cast<float*>(sb);
   p.loss = static_cast<float*>(loss);
-  eik_kernel<<<static_cast<unsigned>(n / PT_TILE), NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  // persistent: as many blocks as are resident at once, at most one per tile
+  const int smem = eik_smem(W0 + WL);
+  int dev, sms, per_sm;
+  cudaError_t e = cudaFuncSetAttribute(eik_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, eik_kernel, NTHREADS, smem);
+  if (e != cudaSuccess) return err(e);
+  const long long tiles = n / PT_TILE, resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  eik_kernel<<<static_cast<unsigned>(tiles < resident ? tiles : resident), NTHREADS, smem,
+               static_cast<cudaStream_t>(stream)>>>(p);
   return err(cudaGetLastError());
 }
 
+// ticket: [W / 128] int32, zero (the kernel leaves it zero); part: [splits][W][4] float32 scratch
 int msd_ft_skinny(const void* A0, const void* V0, long long n0, const void* A1, const void* V1, long long n1, int W,
-                  int nseg, void* out, void* stream) {
-  if (n0 <= 0 || n1 < 0 || (n1 > 0) != (A1 != nullptr) || W <= 0 || nseg < 1 || nseg > 65535 || A0 == nullptr ||
-      V0 == nullptr || (A1 == nullptr) != (V1 == nullptr) || out == nullptr)
+                  int splits, void* part, void* ticket, void* out, void* stream) {
+  if (n0 <= 0 || n1 < 0 || (n1 > 0) != (A1 != nullptr) || W <= 0 || W % SK_COLS || W / SK_COLS > 65535 ||
+      splits < 1 || A0 == nullptr || V0 == nullptr || (A1 == nullptr) != (V1 == nullptr) || !aligned16(A0) ||
+      !aligned16(V0) || !aligned16(A1) || !aligned16(V1) || !aligned16(part) || part == nullptr ||
+      ticket == nullptr || out == nullptr)
     return bad();
   SkinnyParams p;
   p.A[0] = static_cast<const bf16*>(A0);
@@ -993,10 +1188,11 @@ int msd_ft_skinny(const void* A0, const void* V0, long long n0, const void* A1, 
   p.n[0] = n0;
   p.n[1] = n1;
   p.W = W;
-  p.nseg = nseg;
+  p.splits = splits;
+  p.part = static_cast<float*>(part);
+  p.ticket = static_cast<unsigned*>(ticket);
   p.out = static_cast<float*>(out);
-  dim3 grid((W + 127) / 128, nseg);
-  skinny_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  skinny_kernel<<<dim3(splits, W / SK_COLS), NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return err(cudaGetLastError());
 }
 

@@ -68,9 +68,9 @@ _SIGNATURES = {
         ),
         "msd_ft_skinny": (
             ctypes.c_int,
-            [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P],
+            [_P, _P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
         ),
-        "msd_ft_gemm_smem": (ctypes.c_int, [ctypes.c_int]),
+        "msd_ft_dynamic_smem": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
         "msd_ft_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
 }

@@ -35,11 +35,15 @@ an f32 accumulator per weight gradient, in 100 MB of VMEM; a Hopper block
 has 227 KB of shared memory and blocks run in no order, so the work is
 split into GEMM launches per layer (``chain_kernel``), weight-gradient
 launches that sum over the chunk's points in float32 with no atomics
-(``wgrad_kernel``, split-K partials summed here), per-point kernels for
-the last layer and the eikonal lane, and segmented sums for the
-three-column dMx and one-row last-layer gradients. Variant d launches only
-the chains and the last layer. Chunks of ``CHUNK_POINTS`` points bound the
-scratch (2.1 GB at the flagship width).
+(``wgrad_kernel``, split-K partials summed here), a per-point kernel for
+the last layer (``last_kernel``), and two row streamers, bound by bytes:
+the eikonal lane (``eik_kernel``) and the three-column dMx and one-row
+last-layer gradients (``skinny_kernel``, which folds its per-block
+partials in a fixed order inside the launch). Variant d launches only the
+chains and the last layer. Chunks of ``CHUNK_POINTS`` points bound the
+scratch (2.1 GB at the flagship width). ``last_plain``, ``eik_plain`` and
+``skinny_plain`` are the plain versions of the three per-point kernels;
+``fused_train_plain`` computes those quantities through them.
 
 The latent enters only through per-scene constants c_l = z @ W_z^T + b,
 computed here; d latent, dW_z and db come back from the kernels' per-scene
@@ -65,28 +69,35 @@ TILE = 128
 WIDTH_PAD = 128
 # Most points one chunk of the CUDA path holds in scratch (whole scenes).
 CHUNK_POINTS = 2**16
-# Segments of the three-column sums.
-SKINNY_SEGMENTS = 256
 # wgrad_kernel's output tile (rows x columns), the GEMM kernels' depth per
 # pipeline stage, and the SMs of an H100 SXM, one persistent GEMM block each.
 WGRAD_TILE = (128, 256)
 GEMM_DEPTH = 64
 H100_SMS = 132
+# skinny_kernel: columns per block, rows one pass of a block loads (16 row
+# lanes x 8 rows deep), resident blocks per SM (256 threads at most 128
+# registers each: 64 KB of loads in flight per SM)
+SKINNY_COLS = 128
+SKINNY_PASS_ROWS = 128
+SKINNY_BLOCKS_PER_SM = 2
 
 # Calls of the CUDA path (each runs the kernels once over the batch);
 # callers reset it to 0 to count the calls of a run. VARIANT_LAUNCHES counts
 # them by variant: "b" (eikonal), "a" (none), "c" (gated eikonal), "d"
 # (frozen decoder); "e" counts the weighted calls, also counted as a, b or c.
+# KERNEL_LAUNCHES counts the launches of each CUDA kernel of those calls.
 LAUNCHES = 0
 VARIANT_LAUNCHES = dict.fromkeys("abcde", 0)
+KERNEL_LAUNCHES = dict.fromkeys(("chain_kernel", "wgrad_kernel", "last_kernel", "eik_kernel", "skinny_kernel"), 0)
 
 
 def reset_launches():
     """Set every K2 launch count to 0."""
     global LAUNCHES
     LAUNCHES = 0
-    for k in VARIANT_LAUNCHES:
-        VARIANT_LAUNCHES[k] = 0
+    for counts in (VARIANT_LAUNCHES, KERNEL_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 class UnsupportedConfig(ValueError):
@@ -178,6 +189,88 @@ def eikonal_rows(P: int, eik_points, use_eikonal: bool = True) -> int:
     return min(P // tile, max(1, -(-e // tile))) * tile
 
 
+def last_plain(h, wl, c, gt, clamp: float, inv_ntot: float, w=None):
+    """Plain version of ``last_kernel`` (msd_tpu/ops/fused_train.py:216-227,
+    :294-296): the one-output last layer over rows of ``h`` [n, K] with
+    weights ``wl`` [K] and per-row constant ``c`` [n], against the clipped
+    ``gt`` [n]. Returns float32 (y, m tau, the L1 delta seed, the L1
+    lane), the last two times the per-row weight ``w`` (variant e)."""
+    y = torch.tanh(h.float() @ wl.float() + c)
+    tau = 1.0 - y * y
+    m = (y.abs() < clamp).float()
+    yc = y.clamp(-clamp, clamp)
+    mt = m * tau
+    seed = mt * torch.sign(yc - gt) * inv_ntot
+    l1 = (yc - gt).abs()
+    if w is not None:
+        l1, seed = l1 * w, seed * w
+    return y, mt, seed, l1
+
+
+def eik_plain(u0, mx0, uL, mxL, y, seed, eik_coef: float, w=None):
+    """Plain version of ``eik_kernel`` (msd_tpu/ops/fused_train.py:242-259,
+    :275, :297) over gated rows: g = u0 Mx0 (+ uL MxL) with ``mx0`` [W0,
+    >= 3] (columns 0-2 used), the eikonal lane (1 - |g|)^2, gbar =
+    eik_coef (|g| - 1) / |g| g, and the delta seed ``seed`` - 2 y (gbar .
+    g); the lane and gbar times the per-row weight ``w`` (variant e).
+    Returns float32 (gbar [rows, 3], the seed [rows], the lane [rows])."""
+    g = u0.float() @ mx0.float()[:, :3]
+    if uL is not None:
+        g = g + uL.float() @ mxL.float()[:, :3]
+    gn = torch.sqrt(torch.clamp((g * g).sum(1), min=1e-24))
+    lane = (1.0 - gn) ** 2
+    gbar = (eik_coef * (gn - 1.0) / gn)[:, None] * g
+    if w is not None:
+        lane = lane * w
+        gbar = gbar * w[:, None]
+    return gbar, seed + (-2.0 * y) * (gbar * g).sum(1), lane
+
+
+def skinny_plain(A0, V0, A1=None, V1=None):
+    """Plain version of ``skinny_kernel``: A0^T V0 (+ A1^T V1), float32
+    [W, k] for A [rows, W] and V [rows, k]: the three-column gradients
+    dMx = delta^T x + u^T gbar (msd_tpu/ops/fused_train.py:263, :269-270,
+    :303-304) and the last layer's one-row dMp^T = h^T delta + t^T m tau
+    (:267-268, :301-302). The second pair runs over the gated rows."""
+    out = A0.float().t() @ V0.float()
+    if A1 is not None:
+        out = out + A1.float().t() @ V1.float()
+    return out
+
+
+def skinny_split(rows: int, W: int, sms: int = H100_SMS) -> int:
+    """Row splits of one ``skinny_kernel`` launch over ``rows`` rows (both
+    pairs) and W / SKINNY_COLS column groups: SKINNY_BLOCKS_PER_SM blocks
+    per SM in all, and no more splits than passes of SKINNY_PASS_ROWS rows.
+    Split i takes the rows [i c, (i + 1) c), c = ceil(rows / splits), of
+    the pairs laid end to end, and writes one [W, 4] float32 partial."""
+    s = -(-SKINNY_BLOCKS_PER_SM * sms // (W // SKINNY_COLS))
+    return max(1, min(s, -(-rows // SKINNY_PASS_ROWS)))
+
+
+def skinny_cuda(A0, V0, A1, V1, acc, ticket, sms: int, lib, stream):
+    """acc[:, :3] += skinny_plain(A0, V0[:, :3], A1, V1[:, :3]) on the card,
+    by one ``skinny_kernel`` launch: A bf16 [rows, W], V float32 [rows, 4],
+    acc float32 [W, 4], ``ticket`` int32 [>= W / SKINNY_COLS], zero before
+    (the kernel leaves it zero). Raises if the launch fails."""
+    if any(t is not None and t.device.type != "cuda" for t in (A0, V0, A1, V1, acc, ticket)):
+        raise ValueError("skinny_cuda: every tensor must lie on the card")
+    n0, W = A0.shape
+    n1 = 0 if A1 is None else A1.shape[0]
+    splits = skinny_split(n0 + n1, W, sms)
+    part = torch.empty(splits, W, 4, dtype=torch.float32, device=A0.device)
+    _check(lib, lib.msd_ft_skinny(_ptr(A0), _ptr(V0), n0, _ptr(A1), _ptr(V1), n1, W, splits, _ptr(part),
+                                  _ptr(ticket), _ptr(acc), stream), "skinny_kernel")
+
+
+def _check(lib, rc, what, kernel=None):
+    """Raise if a launch's return code is not 0; else count ``kernel``'s
+    launch (what: the kernel's name when not given)."""
+    if rc != 0:
+        raise RuntimeError(f"fused_train kernel {what} failed: {lib.msd_ft_error_string(rc).decode()} ({rc})")
+    KERNEL_LAUNCHES[kernel or what] += 1
+
+
 def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, inv_ntot: float,
                       eik_coef: float, use_eikonal: bool, dtype: torch.dtype, want_wgrad: bool = True,
                       scene_weights=None, eik_rows=None):
@@ -236,20 +329,13 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
         for layer in range(nl - 1):
             a = layer_in(layer, h[-1] if h else None, xc) + consts[layer][s0:s1][scene]
             h.append(rnd(torch.relu(a)))
-        a_last = (layer_in(nl - 1, h[-1], xc) + consts[nl - 1][s0:s1][scene])[:, 0]
-        y = torch.tanh(a_last)
-        tau = 1.0 - y * y
-        m = (y.abs() < clamp).float()
-        yc = y.clamp(-clamp, clamp)
+        # the last layer is plain (latent_in < nl - 1): h W_last^T + c
         w_pt = None if scene_weights is None else scene_weights[s0:s1][scene]
-        l1_lane = (yc - g_t).abs()
-        l1_sum = l1_sum + (l1_lane if w_pt is None else l1_lane * w_pt).sum()
-        sgn = torch.sign(yc - g_t)
-        mt = m * tau
-
-        sbar = mt * sgn * inv_ntot
-        if w_pt is not None:
-            sbar = sbar * w_pt
+        y, mt, sbar, l1_lane = last_plain(h[-1], W[nl - 1][0], consts[nl - 1][s0:s1][scene][:, 0], g_t, clamp,
+                                          inv_ntot, w_pt)
+        l1_sum = l1_sum + l1_lane.sum()
+        # the eikonal halves of the skinny sums (over the gated rows), or none
+        pair = {layer: (None, None) for layer in range(nl)}
         if use_eikonal:
             # the gated rows: every point, or the first E of each scene
             sel = slice(None) if E == P else torch.arange((s1 - s0) * P, device=dev) % P < E
@@ -258,36 +344,30 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
             def mask(layer):
                 return (he[layer] > 0).float()
 
-            mte, ye = mt[sel], y[sel]
+            mte_c = rnd(mt[sel])[:, None]
             u = [None] * (nl - 1)
-            u_next = rnd(mte)[:, None]
+            u_next = mte_c
             for layer in range(nl - 1, 0, -1):
                 u[layer - 1] = rnd((u_next @ W[layer]) * mask(layer - 1))
                 u_next = u[layer - 1]
-            g = u[0] @ WX[0]
-            if latent_li is not None:
-                g = g + u[latent_li] @ WX[latent_li]
-            gn = torch.sqrt(torch.clamp((g * g).sum(1), min=1e-24))
-            eik_lane = (1.0 - gn) ** 2
-            gbar = (eik_coef * (gn - 1.0) / gn)[:, None] * g
-            if w_pt is not None:
-                eik_lane = eik_lane * w_pt[sel]
-                gbar = gbar * w_pt[sel][:, None]
+            gbar, sbar[sel], eik_lane = eik_plain(
+                u[0], WX[0], None if latent_li is None else u[latent_li],
+                None if latent_li is None else WX[latent_li], y[sel], sbar[sel], eik_coef,
+                None if w_pt is None else w_pt[sel])
             eik_sum = eik_sum + eik_lane.sum()
-            gdot = (gbar * g).sum(1)
             gbar_c = rnd(gbar)
+            pair[0] = (u[0], gbar_c)
+            if latent_li is not None:
+                pair[latent_li] = (u[latent_li], gbar_c)
             # second-order chain
-            dMx[0] += u[0].t() @ gbar_c
             ubar = gbar_c @ WX[0].t()
             for layer in range(1, nl):
                 t_prev = rnd(mask(layer - 1) * ubar)
-                u_l = u[layer] if layer < nl - 1 else rnd(mte)[:, None]
-                dMp[layer] += u_l.t() @ t_prev
-                if layer == latent_li:
-                    dMx[layer] += u_l.t() @ gbar_c
                 if layer < nl - 1:
+                    dMp[layer] += u[layer].t() @ t_prev
                     ubar = layer_in(layer, t_prev, gbar_c)
-            sbar[sel] = sbar[sel] + (-2.0 * ye) * gdot
+                else:
+                    pair[layer] = (t_prev, mte_c)
 
         def mask(layer):
             return (h[layer] > 0).float()
@@ -297,9 +377,12 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
         for layer in range(nl - 1, -1, -1):
             d_c = rnd(delta)
             if dMp[layer] is not None:
-                dMp[layer] += d_c.t() @ h[layer - 1]
-            if dMx[layer] is not None:
-                dMx[layer] += d_c.t() @ xc
+                if layer == nl - 1:  # one row: h^T delta + t^T m tau
+                    dMp[layer] += skinny_plain(h[layer - 1], d_c, *pair[layer]).t()
+                else:
+                    dMp[layer] += d_c.t() @ h[layer - 1]
+            if dMx[layer] is not None:  # three columns: delta^T x + u^T gbar
+                dMx[layer] += skinny_plain(d_c, xc, *pair[layer])
             dc[layer][s0:s1] += delta.reshape(s1 - s0, P, -1).sum(1)
             if layer > 0:
                 delta = (d_c @ W[layer]) * mask(layer - 1)
@@ -375,10 +458,6 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
     bf = torch.bfloat16
     wts = None if scene_weights is None else scene_weights.float().contiguous()
 
-    def check(rc, what):
-        if rc != 0:
-            raise RuntimeError(f"fused_train kernel {what} failed: {lib.msd_ft_error_string(rc).decode()} ({rc})")
-
     # padded operands
     wpad = [_round_up(o, WIDTH_PAD) for o in plan.out[:H]]
     fwd = [None] + [_pad(Mp[l], wpad[l], wpad[l - 1], bf) for l in range(1, H)]
@@ -393,6 +472,7 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
         dmp = [None] + [torch.zeros(wpad[l], wpad[l - 1], dtype=torch.float32, device=dev) for l in range(1, H)]
         dmx = {l: torch.zeros(wpad[l], 4, dtype=torch.float32, device=dev) for l in range(H) if Mx[l] is not None}
         dmp_last = torch.zeros(wpad[H - 1], 4, dtype=torch.float32, device=dev)
+        ticket = torch.zeros(max(wpad) // SKINNY_COLS, dtype=torch.int32, device=dev)  # skinny_kernel's
     dc = [torch.zeros(S, wpad[l], dtype=torch.float32, device=dev) for l in range(H)]
     dc_last = torch.zeros(S, dtype=torch.float32, device=dev)
     l1_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -424,18 +504,18 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
         def chain(A, B, N, K, xv, wxl, cvec, relu, mask, out, csum, what, gated=False):
             # gated: the launch runs over the ne gated rows; its D mask is
             # read from the chunk's points (row i -> (i / E) P + i % E)
-            check(lib.msd_ft_chain(_ptr(A), _ptr(B), ne if gated else n, N, K, _ptr(xv), _ptr(wxl), _ptr(cvec),
-                                   P, E if gated and E < P else 0, int(relu), _ptr(mask), _ptr(out), _ptr(csum), stream),
-                  what)
+            _check(lib, lib.msd_ft_chain(_ptr(A), _ptr(B), ne if gated else n, N, K, _ptr(xv), _ptr(wxl), _ptr(cvec),
+                                         P, E if gated and E < P else 0, int(relu), _ptr(mask), _ptr(out), _ptr(csum),
+                                         stream), what, "chain_kernel")
 
         # primal
         for l in range(H):
             K = 0 if l == 0 else wpad[l - 1]
             chain(None if l == 0 else h[l - 1], fwd[l], wpad[l], K,
                   X if wx[l] is not None else None, wx[l], cs[l], True, None, h[l], None, f"primal {l}")
-        check(lib.msd_ft_last(_ptr(h[H - 1]), _ptr(w_last), wpad[H - 1], _ptr(c_last[s0:s1].contiguous()),
-                              _ptr(G), _ptr(wc), n, P, E, clamp, inv_ntot, _ptr(pt), _ptr(mtc),
-                              _ptr(sb), _ptr(loss), stream), "last layer")
+        _check(lib, lib.msd_ft_last(_ptr(h[H - 1]), _ptr(w_last), wpad[H - 1], _ptr(c_last[s0:s1].contiguous()),
+                                    _ptr(G), _ptr(wc), n, P, E, clamp, inv_ntot, _ptr(pt), _ptr(mtc),
+                                    _ptr(sb), _ptr(loss), stream), "last_kernel")
         if use_eikonal:
             # u-chain
             chain(None, None, wpad[H - 1], 0, mtc, wx_last, None, False, h[H - 1], u[H - 1], None, "u last",
@@ -443,12 +523,12 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
             for l in range(H - 1, 0, -1):
                 chain(u[l], bwd[l], wpad[l - 1], wpad[l], None, None, None, False, h[l - 1], u[l - 1], None,
                       f"u {l - 1}", gated=True)
-            check(lib.msd_ft_eik(_ptr(u[0]), _ptr(wx[0]), wpad[0],
-                                 _ptr(u[Li]) if Li is not None else None,
-                                 _ptr(wx[Li]) if Li is not None else None,
-                                 wpad[Li] if Li is not None else 0,
-                                 _ptr(pt), _ptr(wc), ne, P, E, eik_coef, _ptr(gb), _ptr(sb), _ptr(loss), stream),
-                  "eikonal")
+            _check(lib, lib.msd_ft_eik(_ptr(u[0]), _ptr(wx[0]), wpad[0],
+                                       _ptr(u[Li]) if Li is not None else None,
+                                       _ptr(wx[Li]) if Li is not None else None,
+                                       wpad[Li] if Li is not None else 0,
+                                       _ptr(pt), _ptr(wc), ne, P, E, eik_coef, _ptr(gb), _ptr(sb), _ptr(loss),
+                                       stream), "eik_kernel")
             # second-order chain
             for l in range(H):
                 K = 0 if l == 0 else wpad[l - 1]
@@ -473,21 +553,18 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
         for l in range(1, H):
             nsplit = wgrad_split(wpad[l], wpad[l - 1], (n + ne) // GEMM_DEPTH, sms)
             part = torch.empty(nsplit, wpad[l], wpad[l - 1], dtype=torch.float32, device=dev)
-            check(lib.msd_ft_wgrad(_ptr(d[l]), _ptr(h[l - 1]), n,
-                                   _ptr(u[l]) if use_eikonal else None, _ptr(t[l - 1]) if use_eikonal else None, ne,
-                                   wpad[l], wpad[l - 1], nsplit, _ptr(part), stream), f"wgrad {l}")
+            _check(lib, lib.msd_ft_wgrad(_ptr(d[l]), _ptr(h[l - 1]), n,
+                                         _ptr(u[l]) if use_eikonal else None,
+                                         _ptr(t[l - 1]) if use_eikonal else None, ne,
+                                         wpad[l], wpad[l - 1], nsplit, _ptr(part), stream),
+                   f"wgrad {l}", "wgrad_kernel")
             dmp[l] += part.sum(0)
-
-        def skinny(A0, V0, A1, V1, W, acc, what):
-            part = torch.empty(SKINNY_SEGMENTS, W, 4, dtype=torch.float32, device=dev)
-            check(lib.msd_ft_skinny(_ptr(A0), _ptr(V0), n, _ptr(A1), _ptr(V1), ne if A1 is not None else 0, W,
-                                    SKINNY_SEGMENTS, _ptr(part), stream), what)
-            acc += part.sum(0)
-
+        # the three-column sums delta^T x + u^T gbar and the last layer's
+        # h^T delta + t^T m tau, added into dmx and dmp_last by the kernel
         for l in dmx:
-            skinny(d[l], X, u[l] if use_eikonal else None, gb, wpad[l], dmx[l], f"dMx {l}")
-        skinny(h[H - 1], sb, t[H - 1] if use_eikonal else None, mtc,
-               wpad[H - 1], dmp_last, "dMp last")
+            skinny_cuda(d[l], X, u[l] if use_eikonal else None, gb if use_eikonal else None, dmx[l], ticket, sms,
+                        lib, stream)
+        skinny_cuda(h[H - 1], sb, t[H - 1] if use_eikonal else None, mtc, dmp_last, ticket, sms, lib, stream)
 
     global LAUNCHES
     LAUNCHES += 1

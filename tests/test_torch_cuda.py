@@ -744,3 +744,139 @@ def test_wgrad_kernel_matches_float32(name, dev, monkeypatch):
     assert float((got - ref).norm() / ref.norm()) <= 1e-5
     assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-4
     assert torch.equal(part, run())
+
+
+# K2's two row streamers on their own, each against its plain version on the
+# card, at the flagship chunk's shapes (65536 points, scenes of P = 16384):
+# b's gated rows are every point, c's the first E = 4096 of each scene
+# (stored compactly), a has no second pair. Every run is repeated and must
+# give the same bits. skinny: name -> (W, rows of the gated pair)
+SKINNY_KERNEL_CASES = {f"{v}_{w}": (w, ne) for w in (128, 512) for v, ne in (("b", 65536), ("c", 16384), ("a", 0))}
+SK_N, SK_P = 65536, 16384
+
+
+def skinny_case(name, dev, seed=13):
+    """Inputs of SKINNY_KERNEL_CASES[name], the kernel's run (the
+    accumulator after one launch from ``acc0``) and the plain version."""
+    from msd_tpu_torch.ops.fused_train import skinny_plain
+
+    W, ne = SKINNY_KERNEL_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    A0 = torch.relu(torch.randn(SK_N, W, generator=g, device=dev)).to(bf)
+    V0 = torch.zeros(SK_N, 4, device=dev)
+    V0[:, :3] = torch.randn(SK_N, 3, generator=g, device=dev).to(bf).float()
+    A1 = V1 = None
+    if ne:
+        A1 = (torch.randn(ne, W, generator=g, device=dev) * 1e-2).to(bf)
+        V1 = torch.zeros(ne, 4, device=dev)
+        V1[:, :3] = torch.randn(ne, 3, generator=g, device=dev).to(bf).float()
+    acc0 = torch.randn(W, 4, generator=g, device=dev)
+    acc0[:, 3] = 0.0
+    ref = skinny_plain(A0, V0[:, :3], A1, None if V1 is None else V1[:, :3])
+
+    def run(ticket):
+        from msd_tpu_torch.ops.fused_train import skinny_cuda
+
+        acc = acc0.clone()
+        skinny_cuda(A0, V0, A1, V1, acc, ticket, torch.cuda.get_device_properties(dev).multi_processor_count,
+                    _ft_lib(), torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        return acc
+
+    return run, acc0, ref
+
+
+@pytest.mark.parametrize("name", list(SKINNY_KERNEL_CASES))
+def test_skinny_kernel_matches_plain(name, dev, monkeypatch):
+    """skinny_kernel adds skinny_plain into its accumulator in place: 1e-5
+    relative Frobenius (float32 sums in two orders), column 3 untouched,
+    the ticket left at zero for the next launch, and the same bits on a
+    second run."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    run, acc0, ref = skinny_case(name, dev)
+    ticket = torch.zeros(4, dtype=torch.int32, device=dev)
+    acc = run(ticket)
+    got = acc[:, :3] - acc0[:, :3]
+    assert torch.isfinite(acc).all() and torch.equal(acc[:, 3], acc0[:, 3])
+    assert float((got - ref).norm() / ref.norm()) <= 1e-5
+    assert int(ticket.abs().sum()) == 0
+    assert torch.equal(acc, run(ticket))
+
+
+# eik: name -> (gated rows per scene E, with the latent_in layer's u, scene weights)
+EIK_KERNEL_CASES = {
+    f"{v}_{lat}_{wt}": (E, lat == "latent", wt == "weighted")
+    for v, E in (("b", 16384), ("c", 4096)) for lat in ("latent", "no_latent") for wt in ("unweighted", "weighted")
+}
+
+
+def eik_case(name, dev, seed=14, W=512):
+    """Inputs of EIK_KERNEL_CASES[name] over 4 scenes of P = 16384 points,
+    the kernel's run (gb, sb, loss) and the plain version's (gbar, sbar,
+    lane) of the gated rows, with those rows' points."""
+    from msd_tpu_torch.ops.fused_train import eik_plain
+
+    E, with_latent, weighted = EIK_KERNEL_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    S, P = SK_N // SK_P, SK_P
+    ne = S * E
+    u0 = (0.05 * torch.randn(ne, W, generator=g, device=dev)).to(bf)
+    mx0 = torch.zeros(W, 4, device=dev)
+    mx0[:, :3] = (0.6 * torch.randn(W, 3, generator=g, device=dev)).to(bf).float()
+    uL = mxL = None
+    if with_latent:
+        uL = (0.05 * torch.randn(ne, W, generator=g, device=dev)).to(bf)
+        mxL = torch.zeros(W, 4, device=dev)
+        mxL[:, :3] = (0.6 * torch.randn(W, 3, generator=g, device=dev)).to(bf).float()
+    pt = torch.zeros(SK_N, 4, device=dev)  # (y, m tau, l1 seed, 0) of every point
+    pt[:, 0] = 0.1 * torch.rand(SK_N, generator=g, device=dev) - 0.05
+    pt[:, 2] = 1e-4 * torch.randn(SK_N, generator=g, device=dev)
+    w = torch.tensor([1.0, 1.0, 0.0, 1.0], device=dev) if weighted else None
+    eik_coef = 1e-3  # the eikonal term of sbar as large as the L1 seed
+    rows = torch.arange(ne, device=dev)
+    points = rows // E * P + rows % E
+    ref = eik_plain(u0, mx0, uL, mxL, pt[points, 0], pt[points, 2], eik_coef, None if w is None else w[rows // E])
+
+    def run():
+        gb = torch.full((ne, 4), float("nan"), device=dev)
+        sb = torch.full((SK_N, 4), float("nan"), device=dev)
+        loss = torch.zeros(SK_N // 128, 4, device=dev)
+        lib = _ft_lib()
+        rc = lib.msd_ft_eik(_ptr(u0), _ptr(mx0), W, _ptr(uL), _ptr(mxL), W if with_latent else 0, _ptr(pt), _ptr(w),
+                            ne, P, E, eik_coef, _ptr(gb), _ptr(sb), _ptr(loss), torch.cuda.current_stream(dev).cuda_stream)
+        assert rc == 0, lib.msd_ft_error_string(rc).decode()
+        torch.cuda.synchronize()
+        return gb, sb, loss
+
+    return run, ref, points
+
+
+def _bf16_units(got, v):
+    """Worst |got - v| over (2^-8 |v| + 1e-5 max |v|): half a bf16 ulp is at
+    most 2^-8 |v|, so at most 1 where only the rounding of v differs; the
+    1e-5 term covers the summation order of v's float32 sums."""
+    return float(((got - v).abs() / (2**-8 * v.abs() + 1e-5 * v.abs().max())).max())
+
+
+@pytest.mark.parametrize("name", list(EIK_KERNEL_CASES))
+def test_eik_kernel_matches_plain(name, dev, monkeypatch):
+    """eik_kernel against eik_plain: gb and sb within half a bf16 ulp plus
+    the summation order of g, the per-128-point-tile eikonal and seed sums
+    within 1e-5 relative (of their largest), written only on the gated
+    points' tiles, and the same bits on a second run."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    run, (gbar, sbar, lane), points = eik_case(name, dev)
+    gb, sb, loss = run()
+    assert _bf16_units(gb[:, :3], gbar) <= 1.0 and bool((gb[:, 3] == 0).all())
+    assert _bf16_units(sb[points, 0], sbar) <= 1.0 and bool((sb[points, 1:] == 0).all())
+    tiles = points[::128] // 128
+    for col, v in ((1, lane), (2, sbar)):
+        ref = v.reshape(-1, 128).sum(1)
+        assert float((loss[tiles, col] - ref).abs().max() / ref.abs().max()) <= 1e-5, col
+    others = torch.ones(loss.shape[0], dtype=torch.bool, device=dev)
+    others[tiles] = False
+    assert bool((loss[others] == 0).all()) and bool((loss[:, [0, 3]] == 0).all())
+    for a, b in zip((gb, sb, loss), run()):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
