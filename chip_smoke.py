@@ -44,21 +44,30 @@ non-zero and prints no result. Phases, one JSON line each:
    points, a primal product, the product with a plain-store epilogue, a
    variant-b weight-gradient launch), against float32 torch products,
    timed on the device beside their operations and bytes bounds and
-   torch.matmul of the same bf16 product.
+   torch.matmul of the same bf16 product; and the two K = 0 chain launches
+   (rank-one, 65536 x 512) that last_kernel's rank-one rows replace.
 7. k2pt: K2's three per-point kernels alone at the flagship chunk's b and c
    shapes (65536 points; every point, or the first 4096 of each scene's
-   16384, gated): last_kernel, eik_kernel (both u operands 512 wide) and
+   16384, gated) and last_kernel also at d (none gated): last_kernel with
+   its rank-one rows, eik_kernel (both u operands 512 wide) and
    skinny_kernel (delta^T x + u0^T gbar), each against its plain version
-   (last_plain, eik_plain, skinny_plain), timed on the device beside its
-   bytes bound, its plain version and, for skinny_kernel, torch.matmul of
-   its two pairs concatenated; registers and spills (ptxas).
+   (last_plain with last_rank1_plain, eik_plain, skinny_plain) and twice
+   for equal bits, timed on the device beside its bytes bound, its plain
+   version and, for skinny_kernel, torch.matmul of its two pairs
+   concatenated; registers, spills and shared memory (ptxas). last_kernel
+   is also launched without its rank-one rows (d: with and without their
+   column sums), which must leave its other outputs bit for bit as they
+   were, and timed so as the row streamer alone; the rank1_ab line sets
+   that time plus the K = 0 chain launch of phase 6 against the launch
+   with the rank-one rows, at b and d.
 8. training: the port's Stage-1 path as a user runs it. The flagship
    specs.json with its DataSource, splits, NumEpochs (6), SnapshotFrequency
    (3) and AdditionalSnapshots ([]) changed, on 64 seeded ellipsoids
    (100k + 100k SdfSamples each); ``python -m msd_tpu_torch.train_deep_sdf
    --device cuda`` runs in process for 12 steps, then ``-c latest`` with
    NumEpochs 8 for 4 more. Then step times, K2's share of the step, its
-   CUDA kernels' launches per step, a torch.profiler split of the step's device time by kernel with the
+   CUDA kernels' launches per step (chain_kernel's held to the launcher's
+   count), a torch.profiler split of the step's device time by kernel with the
    device's idle share, the point sampler's time at chunk 128 and 1, and
    the trainer's step on K2 a and on its float32 autograd path.
 9. k2d: K2's frozen-decoder variant d (loss and latent gradient only, the
@@ -79,7 +88,8 @@ non-zero and prints no result. Phases, one JSON line each:
    correlation, the tables, 2 meshes at N=257 through K1 and their Chamfer
    where a mesh has a surface: the 16-step Stage-1 decoder of phase 8 may
    give a field with none), then ``-c latest`` with NumEpochs 42. Then
-   the step's time, K2 d's share and launches per step, a torch.profiler
+   the step's time, K2 d's share and launches per step (and its CUDA
+   kernels', chain_kernel's held to the launcher's count), a torch.profiler
    split, and the trainer's step on K2 d against its float32 autograd path
    (loss and VAE gradient).
 
@@ -473,12 +483,16 @@ def design_bytes(decoder, n_points, variant, eik_share=1.0):
     """Bytes K2's design moves through device memory for ``n_points``
     (activations only; weights and per-scene terms are small): each bf16
     chain activation, its width padded to WIDTH_PAD, is written once and
-    read by the next product, the masks and the weight gradients."""
+    read by the next product, the masks and the weight gradients. The last
+    hidden layer's rank-one seed rows (u with an eikonal, over the gated
+    share; delta without) come from last_kernel, which reads that layer's h
+    anyway: their mask read is not counted."""
     from msd_tpu_torch.ops.fused_train import WIDTH_PAD, layer_plan
 
     plan = layer_plan(decoder)
     widths = [-(-o // WIDTH_PAD) * WIDTH_PAD * 2 for o in plan.out[:-1]]
     hidden = sum(widths)
+    fused = widths[-1] * (eik_share if variant == "c" else 1.0)
     if variant == "b":
         # h: 1 write + 5 reads (next product, u mask, t mask, delta mask,
         # wgrad); u, t, delta: 1 write + 2 reads each
@@ -494,7 +508,23 @@ def design_bytes(decoder, n_points, variant, eik_share=1.0):
         # h: 1 write + 2 reads (next product, delta mask); delta: 1 write +
         # 1 read, except the layer-0 delta, which is not stored
         per_point = hidden * 3 + (hidden - widths[0]) * 2
-    return float(per_point + 64) * n_points
+    return float(per_point - fused + 64) * n_points
+
+
+def check_chain_launches(per_step, decoder, B, P, variant):
+    """Raise unless ``per_step["chain_kernel"]`` (KERNEL_LAUNCHES per step)
+    is one K2 call's chain_kernel launches for ``variant`` over B scenes of
+    P points: per chunk of whole scenes the primal's H (hidden layers),
+    with an eikonal (b, c) the u-chain's H - 1, the t-chain's H and the
+    delta chain's H, without (a, d) the delta chain's H - 1: last_kernel
+    writes the last hidden layer's u, or without an eikonal its delta."""
+    from msd_tpu_torch.ops.fused_train import CHUNK_POINTS, layer_plan
+
+    H = layer_plan(decoder).nl - 1
+    chunks = -(-B // max(1, CHUNK_POINTS // P))
+    want = (4 * H - 1 if variant in "bc" else 2 * H - 1) * chunks
+    if per_step["chain_kernel"] != want:
+        raise AssertionError(f"chain_kernel launches per K2 {variant} step {per_step['chain_kernel']}, want {want}")
 
 
 def k2_check_plain(decoder, out, ref, name, shape):
@@ -560,13 +590,14 @@ def check_k2(decoder, seed, dev):
 
 
 # msd_ft_dynamic_smem's kernel ids
-SMEM_IDS = {"chain_kernel": 0, "wgrad_kernel": 1, "eik_kernel": 2, "skinny_kernel": 3}
+SMEM_IDS = {"chain_kernel": 0, "wgrad_kernel": 1, "eik_kernel": 2, "skinny_kernel": 3, "last_kernel": 4}
 
 
 def gemm_report(log, kernels=("chain_kernel", "wgrad_kernel", "eik_kernel", "skinny_kernel")):
     """Registers, spills and ptxas warnings of each named kernel, from
     nvcc's ``-Xptxas -v`` log, with its dynamic shared memory (eik_kernel's
-    at the flagship's two 512-wide u operands)."""
+    at the flagship's two 512-wide u operands, last_kernel's at the
+    flagship's 512-wide h without an eikonal)."""
     from msd_tpu_torch.ops._build import load_library
 
     lib = load_library("fused_train")
@@ -575,7 +606,8 @@ def gemm_report(log, kernels=("chain_kernel", "wgrad_kernel", "eik_kernel", "ski
         if "Compiling entry function" in ln:
             cur = next((k for k in kernels if k in ln), None)
             if cur:
-                out[cur] = {"ptxas": [], "dynamic_smem_bytes": lib.msd_ft_dynamic_smem(SMEM_IDS.get(cur, -1), 1024)}
+                width = 512 if cur == "last_kernel" else 1024
+                out[cur] = {"ptxas": [], "dynamic_smem_bytes": lib.msd_ft_dynamic_smem(SMEM_IDS.get(cur, -1), width)}
         elif cur and ("registers" in ln or "spill" in ln or "arning" in ln):
             out[cur]["ptxas"].append(ln.strip())
     return out
@@ -597,7 +629,10 @@ def check_k2gemm(seed, dev, n=65536, W=512, P=16384):
     launch (two 65536-point pairs). Each is held against a float32 torch
     product on the card (TF32 off), timed on the device (device_only) beside
     its operations and bytes bounds and, as ``library_ms``, torch.matmul of
-    the same bf16 product (a yardstick timed only here)."""
+    the same bf16 product (a yardstick timed only here). Then the two K = 0
+    launches that last_kernel's rank-one rows replace on the main path (the
+    u-chain's first at b, the delta chain's first at d), timed beside their
+    bytes bound, for the record (no PyTorch call computes them)."""
     import torch
 
     from msd_tpu_torch.ops._build import load_library
@@ -653,6 +688,33 @@ def check_k2gemm(seed, dev, n=65536, W=512, P=16384):
                              "library_ms": time_ms(lambda: torch.matmul(A, B.t()), device_only=True),
                              **bounds(2.0 * n * W * W, nbytes)}
         del product, v
+        # the K = 0 launches that last_kernel's rank-one rows replace, for the
+        # record: "u last" at b (every point gated) and "delta last" at d,
+        # with its column sums; one exact float32 product per entry
+        xv, wx = torch.zeros(n, 4, device=dev), torch.zeros(W, 4, device=dev)
+        xv[:, 0] = (1e-3 * torch.randn(n, generator=g, device=dev)).to(bf).float()
+        wx[:, 0] = (0.02 * torch.randn(W, generator=g, device=dev)).to(bf).float()
+        v = torch.where(mask.float() > 0, xv[:, :1] * wx[None, :, 0] + 0.0, 0.0)
+        for name, cs in (("chain_u_last_K0", None), ("chain_delta_last_K0", colsum)):
+
+            def launch(cs=cs):
+                rc = lib.msd_ft_chain(None, None, n, W, 0, ptr(xv), ptr(wx), None, P, 0, 0, ptr(mask), ptr(out),
+                                      ptr(cs), stream)
+                if rc:
+                    raise RuntimeError(f"chain_kernel: {lib.msd_ft_error_string(rc).decode()}")
+
+            launch()
+            torch.cuda.synchronize()
+            err = {"out_equal": torch.equal(out.float(), v.to(bf).float())}
+            if cs is not None:
+                ref_cs = v.reshape(n // 64, 64, W).sum(1)
+                err["colsum"] = float((cs - ref_cs).abs().max() / ref_cs.abs().max())
+            if not err["out_equal"] or err.get("colsum", 0.0) > K2GEMM_TOL["colsum"]:
+                raise AssertionError(f"K2 {name} vs float32: {err}")
+            nbytes = 2.0 * n * W + 16.0 * n + 16.0 * W + 2.0 * n * W + (4.0 * n // 64 * W if cs is not None else 0)
+            results[name] = {"n": n, "N": W, "K": 0, "errors": err, "ms": time_ms(launch, device_only=True),
+                             "library_ms": None, **bounds(1.0 * n * W, nbytes)}
+        del xv, wx, v
         del mask, out, colsum
         pairs = [(A, torch.randn(n, W, generator=g, device=dev).to(bf)),
                  ((torch.randn(n, W, generator=g, device=dev) * 1e-2).to(bf),
@@ -689,7 +751,9 @@ def check_k2gemm(seed, dev, n=65536, W=512, P=16384):
 
 # K2's per-point kernels on their own against their plain versions (float32
 # of the same operands on the card): last_kernel's (y, m tau, seed) and its
-# L1 tile sums within 1e-5 of their largest (float32 in two orders);
+# L1 tile sums within 1e-5 of their largest (float32 in two orders), its
+# rank-one rows equal to last_rank1_plain's on the kernel's own xv (one
+# exact float32 product each) and their column sums within 1e-5;
 # eik_kernel's gb and sb within half a bf16 ulp plus the order of g's sum
 # (bf16 units, as the chain's output) and its tile sums within 1e-5 of their
 # largest; skinny_kernel's sums within 1e-5 relative Frobenius.
@@ -698,16 +762,18 @@ K2PT_TOL = {"rel_max": 1e-5, "bf16_units": 1.0, "skinny": 1e-5}
 
 def check_k2pt(seed, dev, n=65536, W=512, P=16384):
     """K2's three per-point kernels alone at the flagship chunk's shapes, b
-    (every point gated) and c (the first 4096 of each scene's 16384): one
-    launch of last_kernel over the chunk's 65536 points (h 512 wide),
-    eik_kernel over its gated rows (u0 and uL 512 wide, the latent_in
-    layer's) on last_kernel's outputs, and skinny_kernel's dMx_0 sums
-    (delta^T x over the points plus u0^T gbar over the gated rows). Each is
-    held against its plain version on the card, timed on the device
-    (device_only) beside its bytes and operations bounds and its plain
-    version; skinny_kernel also beside torch.matmul of the two pairs
-    concatenated with V in bf16 (``library_ms``, a yardstick not called by
-    the port). skinny_kernel and eik_kernel run twice for equal bits."""
+    (every point gated), c (the first 4096 of each scene's 16384) and, for
+    last_kernel, d (none gated): one launch of last_kernel over the chunk's
+    65536 points (h 512 wide) with its rank-one rows (u of the gated rows,
+    or at d delta of every row and its column sums), eik_kernel over the
+    gated rows (u0 and uL 512 wide, the latent_in layer's) on last_kernel's
+    outputs, and skinny_kernel's dMx_0 sums (delta^T x over the points plus
+    u0^T gbar over the gated rows). Each is held against its plain version
+    on the card, timed on the device (device_only) beside its bytes and
+    operations bounds and its plain version; skinny_kernel also beside
+    torch.matmul of the two pairs concatenated with V in bf16
+    (``library_ms``, a yardstick not called by the port). Each kernel runs
+    twice for equal bits."""
     import torch
 
     from msd_tpu_torch.ops import _build
@@ -755,39 +821,80 @@ def check_k2pt(seed, dev, n=65536, W=512, P=16384):
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for shape, E in (("b", P), ("c", 4096)):
+        for shape, E in (("b", P), ("c", 4096), ("d", 0)):
             ne = S * E
             rows = torch.arange(ne, device=dev)
-            points = rows // E * P + rows % E
+            points = rows // E * P + rows % E if E else rows
             gated_tiles = points[::128] // 128
             others = torch.ones(n // 128, dtype=torch.bool, device=dev)
             others[gated_tiles] = False
             pt, sb = torch.empty(n, 4, device=dev), torch.empty(n, 4, device=dev)
-            mtc, gb = torch.empty(ne, 4, device=dev), torch.empty(ne, 4, device=dev)
+            mtc, gb = (torch.empty(ne, 4, device=dev), torch.empty(ne, 4, device=dev)) if E else (None, None)
             loss = torch.zeros(n // 128, 4, device=dev)
-            eik_coef = 2.0 * 0.002 / (32 * E)  # the flagship step's normaliser
+            # the rank-one rows: u of the gated rows, or (d) delta of every row and its column sums
+            out = torch.empty(ne or n, W, dtype=bf, device=dev)
+            colsum = None if E else torch.empty(n // 64, W, device=dev)
 
-            def last():
+            def last(out=out, colsum=colsum):
                 ok(lib.msd_ft_last(ptr(h), ptr(wl), W, ptr(clast), ptr(gt), None, n, P, E, 0.1, 1.0 / n, ptr(pt),
-                                   ptr(mtc), ptr(sb), ptr(loss), stream), "last_kernel")
+                                   ptr(mtc), ptr(sb), ptr(loss), ptr(out), ptr(colsum), stream), "last_kernel")
 
             last()
             torch.cuda.synchronize()
+            first = [t.clone() for t in (pt, mtc, sb, loss, out, colsum) if t is not None]
             y, mt, l1_seed, l1 = ft.last_plain(h, wl, clast.repeat_interleave(P), gt, 0.1, 1.0 / n)
             err = {"y": rel_max(pt[:, 0], y), "m_tau": rel_max(pt[:, 1], mt), "seed": rel_max(pt[:, 2], l1_seed),
-                   "l1_tiles": rel_max(loss[:, 0], l1.reshape(-1, 128).sum(1)),
-                   "mtc_bf16_units": units(mtc[:, 0], mt[points])}
+                   "l1_tiles": rel_max(loss[:, 0], l1.reshape(-1, 128).sum(1))}
+            h_out, xv = (h[points], mtc[:, 0]) if E else (h, sb[:, 0])
+            ref_out, ref_cs = ft.last_rank1_plain(h_out, wl, xv)
+            if E:
+                err["mtc_bf16_units"] = units(mtc[:, 0], mt[points])
+            else:
+                err["sb_bf16_units"] = units(sb[:, 0], l1_seed)
+                err["colsum"] = rel_max(colsum, ref_cs)
             if bool(others.any()):
                 err["seed_tiles"] = rel_max(loss[others, 2], l1_seed.reshape(-1, 128)[others].sum(1))
-            if max(v for k, v in err.items() if k != "mtc_bf16_units") > K2PT_TOL["rel_max"] \
-                    or err["mtc_bf16_units"] > K2PT_TOL["bf16_units"]:
+            err["rank1_equal"] = torch.equal(out.float(), ref_out)
+            last()
+            torch.cuda.synchronize()
+            err["same_bits"] = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in
+                                   zip(first, [t for t in (pt, mtc, sb, loss, out, colsum) if t is not None]))
+            if max(v for k, v in err.items() if not k.endswith(("units", "equal", "bits"))) > K2PT_TOL["rel_max"] \
+                    or max(v for k, v in err.items() if k.endswith("units")) > K2PT_TOL["bf16_units"] \
+                    or not (err["rank1_equal"] and err["same_bits"]):
                 raise AssertionError(f"last_kernel vs plain at {shape}: {err}")
+            # without the rank-one rows (d: with and without their column
+            # sums, as for a decoder of one hidden layer): the same other
+            # outputs, bit for bit
+            saved = [t.clone() for t in (pt, mtc, sb, loss, colsum) if t is not None]
+            for cs in (None, colsum) if colsum is not None else (None,):
+                if cs is not None:
+                    cs.fill_(float("nan"))
+                last(out=None, colsum=cs)
+                torch.cuda.synchronize()
+                err["without_rows_same_bits"] = err.get("without_rows_same_bits", True) and all(
+                    torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in
+                    zip(saved, [t for t in (pt, mtc, sb, loss, cs) if t is not None]))
+            if not err["without_rows_same_bits"]:
+                raise AssertionError(f"last_kernel without its rank-one rows at {shape}: {err}")
             c_pt = clast.repeat_interleave(P)
             results["last_kernel"][shape] = {
-                "rows": n, "errors": err, "ms": time_ms(last, device_only=True),
-                "plain_ms": time_ms(lambda: ft.last_plain(h, wl, c_pt, gt, 0.1, 1.0 / n), device_only=True),
+                "rows": n, "rank1_rows": ne or n, "errors": err, "ms": time_ms(last, device_only=True),
+                # the row streamer alone (no rank-one rows, no column sums): the
+                # design before the rank-one rows were fused
+                "rows_only_ms": time_ms(lambda: last(out=None, colsum=None), device_only=True),
+                "plain_ms": time_ms(lambda: (ft.last_plain(h, wl, c_pt, gt, 0.1, 1.0 / n),
+                                             ft.last_rank1_plain(h_out, wl, xv)), device_only=True),
                 "library_ms": None,
-                **bounds(2.0 * n * W, 2.0 * n * W + 2.0 * W + 4.0 * S + 4.0 * n + 16.0 * (2 * n) + 8.0 * n / 128)}
+                # h, w_last, the per-scene constants and gt read; pt, mtc or sb, the tile sums, the
+                # rank-one rows and (d) their column sums written
+                **bounds(2.0 * n * W + 2.0 * (ne or n) * W,
+                         2.0 * n * W + 2.0 * W + 4.0 * S + 4.0 * n + 16.0 * (2 * n) + 8.0 * n / 128
+                         + 2.0 * (ne or n) * W + (0 if E else 4.0 * n // 64 * W))}
+            del out, colsum, ref_out, ref_cs, h_out, xv, first, saved
+            if not E:
+                continue  # no gated rows: no eikonal lane, no u^T gbar pair
+            eik_coef = 2.0 * 0.002 / (32 * E)  # the flagship step's normaliser
 
             u0 = (0.05 * torch.randn(ne, W, generator=g, device=dev)).to(bf)
             uL = (0.05 * torch.randn(ne, W, generator=g, device=dev)).to(bf)
@@ -1039,6 +1146,7 @@ def train(root, specs, seed):
     step_med = float(np.median(step_ms[1:]))
     dev = resumed.device
     B, P = resumed.scene_per_batch, resumed.num_samp_per_scene
+    check_chain_launches(kernel_launches, resumed.decoder, B, P, "b")
     pos, pc, neg, nc = resumed.dataset.device_arrays(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -1183,6 +1291,8 @@ def stage2(root, seed, device="cuda", changes=None):
         step_ms.append((time.perf_counter() - t) * 1e3)
     launches_per_step = fused_train.LAUNCHES / len(step_ms)
     kernel_launches = {k: v / len(step_ms) for k, v in fused_train.KERNEL_LAUNCHES.items()}
+    if card:
+        check_chain_launches(kernel_launches, resumed.sdf_decoder, B, P, "d")
     step_med = float(np.median(step_ms[1:]))
     with torch.no_grad():
         z_hat = resumed.vae(resumed._teacher_dev[idx], generator=gen)["z_hat"]
@@ -1373,6 +1483,7 @@ def train_eik(root, specs, seed):
     kernel_launches = {k: v / len(step_ms) for k, v in fused_train.KERNEL_LAUNCHES.items()}
     step_med = float(np.median(step_ms[1:]))
     B, P = trainer.scene_per_batch, trainer.num_samp_per_scene
+    check_chain_launches(kernel_launches, trainer.decoder, B, P, "c")
 
     def k2_call():
         with torch.no_grad():
@@ -1699,6 +1810,13 @@ def main(argv=None):
     k2 = check_k2(decoder, args.seed, dev)
     k2gemm = check_k2gemm(args.seed, dev)
     k2pt = check_k2pt(args.seed, dev)
+    # last_kernel with its rank-one rows against the row streamer alone plus
+    # the K = 0 chain launch those rows replace, per 65536-point chunk
+    phase("rank1_ab", **{shape: {"rows_only_ms": k2pt["last_kernel"][shape]["rows_only_ms"],
+                                 "chain_K0_ms": k2gemm[k0]["ms"], "fused_ms": k2pt["last_kernel"][shape]["ms"],
+                                 "saved_ms": k2pt["last_kernel"][shape]["rows_only_ms"] + k2gemm[k0]["ms"]
+                                 - k2pt["last_kernel"][shape]["ms"]}
+                         for shape, k0 in (("b", "chain_u_last_K0"), ("d", "chain_delta_last_K0"))})
     k2d = check_k2d(decoder, args.seed, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
         training, k2_launches = train(root, specs, args.seed)

@@ -80,17 +80,19 @@
 //                 through the transpose bits of its descriptors; persistent
 //                 blocks walk (split, tile) units; plain float32 stores of
 //                 the partials, no atomics, so the sums are deterministic.
-//   last_kernel   per-point work of the one-output last layer, one warp per
-//                 point, per-128-point-tile loss partials.
-//   eik_kernel, skinny_kernel   row streamers: the eikonal lane and the
-//                 three-column (dMx) and one-row (last layer) weight
-//                 gradients. Each reads bf16 rows of W contiguous values
-//                 once and does a few FMAs per value, so it is bound by
-//                 bytes: at 3.35 TB/s and about 1 us of latency the card
-//                 needs some 25 KB of loads in flight per SM. Every thread
-//                 issues 16-byte loads of several rows before its first
-//                 FMA, and the grid is sized to the SMs, so a 16384-row
-//                 launch (variant c) fills the card too.
+//   last_kernel, eik_kernel, skinny_kernel   row streamers: the
+//                 one-output last layer (y, the seeds, the loss tile sums)
+//                 with the rank-one last hidden layer D_{H-1} xv w_last
+//                 (the u-chain's seed rows, or the delta chain's when there
+//                 is no eikonal), the eikonal lane, and the three-column
+//                 (dMx) and one-row (last layer) weight gradients. Each
+//                 reads bf16 rows of W contiguous values once and does a
+//                 few FMAs per value, so it is bound by bytes: at 3.35 TB/s
+//                 and about 1 us of latency the card needs some 25 KB of
+//                 loads in flight per SM. Every thread issues 16-byte loads
+//                 of several rows before its first FMA, and the grid is
+//                 sized to the SMs, so a 16384-row launch (variant c) fills
+//                 the card too.
 // Hidden widths arrive zero-padded to multiples of 128; padded rows and
 // columns stay zero and the wrapper cuts them off.
 //
@@ -118,6 +120,10 @@ constexpr int SK_COLS = 128, SK_LANES = NTHREADS / 16, SK_DEPTH = 8;
 // EIK_VECS 16-byte vectors of each (1024 columns per pass; 8 KB in flight
 // per warp)
 constexpr int EIK_ROWS = 4, EIK_VECS = 4;
+// last_kernel: a warp takes LAST_ROWS rows side by side, each lane
+// LAST_VECS 16-byte vectors of each per pass (512 columns; 4 KB in flight
+// per warp)
+constexpr int LAST_ROWS = 4, LAST_VECS = 2;
 
 // GEMM kernels: tiles of 128 rows, depth TK per ring stage (one 128-byte
 // swizzle row of bf16); a producer warpgroup and two consumer warpgroups of
@@ -658,73 +664,6 @@ __device__ __forceinline__ float warp_sum128(const float* v) {
   return s;
 }
 
-struct LastParams {
-  const bf16* h;      // [n][K] last hidden activations
-  const bf16* wl;     // [K] last layer's weights
-  int K;
-  const float* clast; // [n / P] per-scene constant of the last layer
-  const float* gt;    // [n] clipped ground truth
-  const float* w;     // [n / P] per-scene 0/1 weights (variant e), or null
-  long long n;
-  int P, E;           // E: rows per scene that run the eikonal chains (0: none)
-  float clamp, inv_ntot;
-  float* pt;          // [n][4] (y, m tau, l1 seed, 0)
-  float* mtc;         // [n / P * E][4] (bf16(m tau), 0, 0, 0) of the gated rows, compact
-  float* sb;          // [n][4] (bf16(delta_last), 0, 0, 0); written outside the gated rows
-  float* loss;        // [n / 128][4] (l1 sum, eikonal sum, delta_last sum, 0)
-};
-
-__global__ void __launch_bounds__(NTHREADS) last_kernel(const LastParams p) {
-  __shared__ float l1s[PT_TILE], sbs[PT_TILE];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const long long base = static_cast<long long>(blockIdx.x) * PT_TILE;
-  // a tile lies wholly inside or outside the gated rows (E and P are
-  // multiples of the tile)
-  const bool gated = base % p.P < p.E;
-  for (int r = w; r < PT_TILE; r += NTHREADS / 32) {
-    const long long pt = base + r;
-    const bf16* h = p.h + pt * p.K;
-    float s = 0.0f;
-    for (int k = lane; k < p.K; k += 32) s += bf(h[k]) * bf(p.wl[k]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) {
-      const float a = s + p.clast[pt / p.P];
-      const float y = tanhf(a);
-      const float tau = 1.0f - y * y;
-      const float m = fabsf(y) < p.clamp ? 1.0f : 0.0f;
-      const float yc = fminf(fmaxf(y, -p.clamp), p.clamp);
-      const float d = yc - p.gt[pt];
-      const float sgn = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
-      const float mt = m * tau;
-      float seed = mt * sgn * p.inv_ntot;
-      float l1 = fabsf(d);
-      if (p.w != nullptr) {  // msd_tpu/ops/fused_train.py:225-226, :295-296
-        const float wt = p.w[pt / p.P];
-        l1 *= wt;
-        seed *= wt;
-      }
-      float4* o = reinterpret_cast<float4*>(p.pt) + pt;
-      *o = make_float4(y, mt, seed, 0.0f);
-      if (gated)
-        reinterpret_cast<float4*>(p.mtc)[(pt / p.P) * p.E + pt % p.P] = make_float4(rnd(mt), 0.0f, 0.0f, 0.0f);
-      else
-        reinterpret_cast<float4*>(p.sb)[pt] = make_float4(rnd(seed), 0.0f, 0.0f, 0.0f);
-      l1s[r] = l1;
-      sbs[r] = seed;
-    }
-  }
-  __syncthreads();
-  if (w == 0) {
-    const float l1 = warp_sum128(l1s);
-    const float sbar = warp_sum128(sbs);
-    if (lane == 0) {
-      p.loss[4 * blockIdx.x] = l1;
-      if (!gated) p.loss[4 * blockIdx.x + 2] = sbar;
-    }
-  }
-}
-
 // Over the gated rows only: row i of the compact operands (u, gb) is point
 // (i / E) P + i % E of the chunk (pt, sb, loss).
 struct EikParams {
@@ -760,6 +699,215 @@ __device__ __forceinline__ float4 add4(float4 a, const float4 b) {
   a.z += b.z;
   a.w += b.w;
   return a;
+}
+
+struct LastParams {
+  const bf16* h;      // [n][K] last hidden activations, K a multiple of 128
+  const bf16* wl;     // [K] last layer's weights
+  int K;
+  const float* clast; // [n / P] per-scene constant of the last layer
+  const float* gt;    // [n] clipped ground truth
+  const float* w;     // [n / P] per-scene 0/1 weights (variant e), or null
+  long long n;
+  int P, E;           // E: rows per scene that run the eikonal chains (0: none)
+  float clamp, inv_ntot;
+  float* pt;          // [n][4] (y, m tau, l1 seed, 0)
+  float* mtc;         // [n / P * E][4] (bf16(m tau), 0, 0, 0) of the gated rows, compact
+  float* sb;          // [n][4] (bf16(delta_last), 0, 0, 0); written outside the gated rows
+  float* loss;        // [n / 128][4] (l1 sum, eikonal sum, delta_last sum, 0)
+  bf16* out;          // the rank-one last hidden layer bf16(D_{H-1} xv w_last), D = 1[h > 0], or null:
+                      // E > 0: u_{H-1} of the gated rows, compact as mtc (xv = bf16(m tau));
+                      // E = 0: delta_{H-1} of every row (xv = bf16(l1 seed))
+  float* colsum;      // E = 0: [n / 64][K] float32 column sums of delta_{H-1} over each 64 rows, or null
+};
+
+// last_kernel's shared column-sum partials: two buffers of one float32 row
+// of K per warp, when it writes column sums
+inline int last_smem(int K, bool colsum) { return colsum ? 2 * (NTHREADS / 32) * K * 4 : 0; }
+
+// Persistent blocks walk the 128-row tiles (tile blockIdx.x + k gridDim.x).
+// Warp w takes the tile's rows 16 w + 4 k + r (k, r < 4), four side by
+// side: lane l reads each row's 16-byte vectors l + 32 j (j < LAST_VECS per
+// pass of 512 columns), all of a pass before its first FMA, against its own
+// columns of w_last, which it holds in registers as float32 for the whole
+// launch (one pass: K <= 512; a wider K reloads them per pass). A butterfly
+// gives every lane the rows' sums; lane r runs row r's scalar epilogue
+// (msd_tpu/ops/fused_train.py:216-227, :294-296) and the rows' xv come back
+// by shuffles. Then each lane writes its columns of the rank-one rows from
+// the h vectors it holds, as the K = 0 chain product would (the float32
+// product of two bf16 values is exact), and, for E = 0, adds them into the
+// warp's column sums (either output may be absent: a decoder of one hidden
+// layer stores no delta rows, only their sums), a shared row of K floats (warps 0-3 hold rows 0-63,
+// warps 4-7 rows 64-127); after the tile's one barrier the block sums its
+// four warps per 64 rows, and warp 0 the tile's L1 and seed sums, in a fixed
+// order, so equal inputs give equal bits.
+__global__ void __launch_bounds__(NTHREADS) last_kernel(const LastParams p) {
+  extern __shared__ float4 last_red[];  // [2][NTHREADS / 32][K] float32 (column sums)
+  __shared__ float l1s[2][PT_TILE], sbs[2][PT_TILE];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int K = p.K, nvec = K / 8;
+  const bool one_pass = nvec <= 32 * LAST_VECS;
+  float* const red = reinterpret_cast<float*>(last_red);
+  float wr[LAST_VECS][8];
+  auto load_w = [&](int v0) {
+#pragma unroll
+    for (int j = 0; j < LAST_VECS; ++j) {
+      const int v = v0 + 32 * j + lane;
+      unpack8(v < nvec ? __ldg(reinterpret_cast<const uint4*>(p.wl) + v) : make_uint4(0u, 0u, 0u, 0u), wr[j]);
+    }
+  };
+  load_w(0);
+  const long long tiles = p.n / PT_TILE;
+  int buf = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    const long long base = tile * PT_TILE;
+    // a tile lies wholly inside or outside the gated rows (E and P are
+    // multiples of the tile)
+    const bool gated = base % p.P < p.E;
+    // the tile's rank-one rows: u of a gated tile, delta of every tile when
+    // E = 0, none else (variant c outside the gated rows)
+    bf16* const out = p.out == nullptr ? nullptr
+                      : p.E == 0       ? p.out + base * K
+                      : gated          ? p.out + ((base / p.P) * p.E + base % p.P) * K
+                                       : nullptr;
+    float* const cs_row = red + (buf * (NTHREADS / 32) + warp) * K;
+#pragma unroll 1
+    for (int k = 0; k < PT_TILE / (NTHREADS / 32) / LAST_ROWS; ++k) {
+      const int r0 = PT_TILE / (NTHREADS / 32) * warp + LAST_ROWS * k;  // rows base + r0 + r, r < LAST_ROWS
+      uint4 a[LAST_ROWS][LAST_VECS];
+      auto load_h = [&](int v0) {
+#pragma unroll
+        for (int j = 0; j < LAST_VECS; ++j) {
+          const int v = v0 + 32 * j + lane;
+#pragma unroll
+          for (int r = 0; r < LAST_ROWS; ++r)
+            a[r][j] = v < nvec ? __ldg(reinterpret_cast<const uint4*>(p.h + (base + r0 + r) * K) + v)
+                               : make_uint4(0u, 0u, 0u, 0u);
+        }
+      };
+      float s[LAST_ROWS];
+#pragma unroll
+      for (int r = 0; r < LAST_ROWS; ++r) s[r] = 0.0f;
+      for (int v0 = 0; v0 < nvec; v0 += 32 * LAST_VECS) {
+        if (!one_pass) load_w(v0);
+        load_h(v0);
+#pragma unroll
+        for (int j = 0; j < LAST_VECS; ++j) {
+#pragma unroll
+          for (int r = 0; r < LAST_ROWS; ++r) {
+            float x[8];
+            unpack8(a[r][j], x);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) s[r] = fmaf(x[e], wr[j][e], s[r]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < LAST_ROWS; ++r) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s[r] += __shfl_xor_sync(0xffffffffu, s[r], off);
+      }
+      float xv = 0.0f;
+      if (lane < LAST_ROWS) {
+        float sv = s[0];
+#pragma unroll
+        for (int r = 1; r < LAST_ROWS; ++r) {
+          if (lane == r) sv = s[r];
+        }
+        const long long pt = base + r0 + lane;
+        const float a_last = sv + p.clast[pt / p.P];
+        const float y = tanhf(a_last);
+        const float tau = 1.0f - y * y;
+        const float m = fabsf(y) < p.clamp ? 1.0f : 0.0f;
+        const float yc = fminf(fmaxf(y, -p.clamp), p.clamp);
+        const float d = yc - p.gt[pt];
+        const float sgn = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
+        const float mt = m * tau;
+        float seed = mt * sgn * p.inv_ntot;
+        float l1 = fabsf(d);
+        if (p.w != nullptr) {  // msd_tpu/ops/fused_train.py:225-226, :295-296
+          const float wt = p.w[pt / p.P];
+          l1 *= wt;
+          seed *= wt;
+        }
+        reinterpret_cast<float4*>(p.pt)[pt] = make_float4(y, mt, seed, 0.0f);
+        if (gated) {
+          xv = rnd(mt);
+          reinterpret_cast<float4*>(p.mtc)[(pt / p.P) * p.E + pt % p.P] = make_float4(xv, 0.0f, 0.0f, 0.0f);
+        } else {
+          xv = rnd(seed);
+          reinterpret_cast<float4*>(p.sb)[pt] = make_float4(xv, 0.0f, 0.0f, 0.0f);
+        }
+        l1s[buf][r0 + lane] = l1;
+        sbs[buf][r0 + lane] = seed;
+      }
+      float xr[LAST_ROWS];
+#pragma unroll
+      for (int r = 0; r < LAST_ROWS; ++r) xr[r] = __shfl_sync(0xffffffffu, xv, r);
+      if (out == nullptr && p.colsum == nullptr) continue;
+      // the rank-one rows: bf16(D xv w_last), +0 where masked, as the chain's
+      // epilogue (fmaf with +0 turns a -0 product into +0)
+      for (int v0 = 0; v0 < nvec; v0 += 32 * LAST_VECS) {
+        if (!one_pass) {
+          load_w(v0);
+          load_h(v0);
+        }
+#pragma unroll
+        for (int j = 0; j < LAST_VECS; ++j) {
+          const int v = v0 + 32 * j + lane;
+          if (v >= nvec) continue;
+          float cs[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) cs[e] = 0.0f;
+#pragma unroll
+          for (int r = 0; r < LAST_ROWS; ++r) {
+            float x[8];
+            unpack8(a[r][j], x);
+            uint32_t o[4];
+#pragma unroll
+            for (int e = 0; e < 8; e += 2) {
+              const float v_lo = x[e] > 0.0f ? fmaf(xr[r], wr[j][e], 0.0f) : 0.0f;
+              const float v_hi = x[e + 1] > 0.0f ? fmaf(xr[r], wr[j][e + 1], 0.0f) : 0.0f;
+              cs[e] += v_lo;
+              cs[e + 1] += v_hi;
+              const __nv_bfloat162 b2 = __floats2bfloat162_rn(v_lo, v_hi);
+              o[e / 2] = *reinterpret_cast<const uint32_t*>(&b2);
+            }
+            if (out != nullptr)
+              reinterpret_cast<uint4*>(out + static_cast<long long>(r0 + r) * K)[v] = make_uint4(o[0], o[1], o[2], o[3]);
+          }
+          if (p.colsum != nullptr) {  // this warp's 16 rows of the tile, pass by pass
+            float4* c = reinterpret_cast<float4*>(cs_row + 8 * v);
+            float4 lo = make_float4(cs[0], cs[1], cs[2], cs[3]), hi = make_float4(cs[4], cs[5], cs[6], cs[7]);
+            if (k > 0) {
+              lo = add4(c[0], lo);
+              hi = add4(c[1], hi);
+            }
+            c[0] = lo;
+            c[1] = hi;
+          }
+        }
+      }
+    }
+    // one barrier per tile: a warp that runs ahead writes the other buffers
+    __syncthreads();
+    if (warp == 0) {
+      const float l1 = warp_sum128(l1s[buf]);
+      const float sbar = warp_sum128(sbs[buf]);
+      if (lane == 0) {
+        p.loss[4 * tile] = l1;
+        if (!gated) p.loss[4 * tile + 2] = sbar;
+      }
+    }
+    if (p.colsum != nullptr) {  // 64 rows: four warps' rows, in order
+      const float* rb = red + buf * (NTHREADS / 32) * K;
+      for (int i = threadIdx.x; i < 2 * K; i += NTHREADS) {
+        const int hf = i / K, col = i - hf * K;
+        const float* v = rb + 4 * hf * K + col;
+        p.colsum[(base / 64 + hf) * K + col] = ((v[0] + v[K]) + v[2 * K]) + v[3 * K];
+      }
+    }
+  }
 }
 
 // Persistent blocks walk the 128-row tiles (tile blockIdx.x + k gridDim.x).
@@ -997,7 +1145,8 @@ inline int bad() { return err(cudaErrorInvalidValue); }
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 // eik_kernel's Mx planes, 3 x width float32, plus 16 bytes of alignment
 inline int eik_smem(int width) { return 12 * width + 16; }
-constexpr int EIK_MAX_SMEM = 200 * 1024;
+// the most dynamic shared memory a row streamer takes (wider rows are refused)
+constexpr int STREAM_MAX_SMEM = 200 * 1024;
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -1034,6 +1183,22 @@ bool bf16_map(CUtensorMap* m, const void* ptr, long long inner, long long outer,
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Persistent row-streamer grids: as many blocks as are resident at once,
+// each taking the same number of 128-row tiles (to one)
+template <typename Kernel>
+cudaError_t resident_grid(Kernel kernel, int smem, long long tiles, unsigned* grid) {
+  int dev, sms, per_sm;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, smem);
+  if (e != cudaSuccess) return e;
+  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const long long waves = (tiles + resident - 1) / resident;
+  *grid = static_cast<unsigned>((tiles + waves - 1) / waves);
+  return cudaSuccess;
 }
 
 // Persistent GEMM grids: one block per SM, or fewer when there is less work
@@ -1095,22 +1260,28 @@ int msd_ft_wgrad(const void* A0, const void* B0, long long n0, const void* A1, c
 }
 
 // Dynamic shared memory, bytes, of chain_kernel (0), wgrad_kernel (1),
-// eik_kernel (2) over ``width`` = W0 + WL columns, skinny_kernel (3)
+// eik_kernel (2) over ``width`` = W0 + WL columns, skinny_kernel (3),
+// last_kernel (4) at K = ``width`` with column sums (none without)
 int msd_ft_dynamic_smem(int kernel, int width) {
   switch (kernel) {
     case 0: return CHAIN_SMEM;
     case 1: return WGRAD_SMEM;
     case 2: return eik_smem(width);
+    case 4: return last_smem(width, true);
     default: return 0;
   }
 }
 
+// out: the rank-one last hidden layer, [n / P * E][K] bf16 (E > 0) or
+// [n][K] (E = 0), or null; colsum: [n / 64][K] float32, only when E = 0, or
+// null
 int msd_ft_last(const void* h, const void* wl, int K, const void* clast, const void* gt, const void* w,
                 long long n, int P, int E, float clamp, float inv_ntot, void* pt, void* mtc, void* sb, void* loss,
-                void* stream) {
+                void* out, void* colsum, void* stream) {
   if (n <= 0 || n % PT_TILE || P <= 0 || P % PT_TILE || n % P || E < 0 || E > P || E % PT_TILE || K <= 0 ||
-      h == nullptr || wl == nullptr || clast == nullptr || gt == nullptr || pt == nullptr ||
-      (E > 0 && mtc == nullptr) || loss == nullptr || (E < P && sb == nullptr))
+      K % 128 || h == nullptr || wl == nullptr || clast == nullptr || gt == nullptr || pt == nullptr ||
+      (E > 0 && mtc == nullptr) || loss == nullptr || (E < P && sb == nullptr) || (E > 0 && colsum != nullptr) ||
+      !aligned16(h) || !aligned16(wl) || !aligned16(out) || last_smem(K, colsum != nullptr) > STREAM_MAX_SMEM)
     return bad();
   LastParams p;
   p.h = static_cast<const bf16*>(h);
@@ -1128,7 +1299,13 @@ int msd_ft_last(const void* h, const void* wl, int K, const void* clast, const v
   p.mtc = static_cast<float*>(mtc);
   p.sb = static_cast<float*>(sb);
   p.loss = static_cast<float*>(loss);
-  last_kernel<<<static_cast<unsigned>(n / PT_TILE), NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  p.out = static_cast<bf16*>(out);
+  p.colsum = static_cast<float*>(colsum);
+  const int smem = last_smem(K, colsum != nullptr);
+  unsigned grid;
+  const cudaError_t e = resident_grid(last_kernel, smem, n / PT_TILE, &grid);
+  if (e != cudaSuccess) return err(e);
+  last_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return err(cudaGetLastError());
 }
 
@@ -1139,7 +1316,7 @@ int msd_ft_eik(const void* u0, const void* mx0, int W0, const void* uL, const vo
   if (n <= 0 || n % PT_TILE || P <= 0 || E <= 0 || E > P || E % PT_TILE || P % PT_TILE || n % E ||
       u0 == nullptr || mx0 == nullptr || W0 <= 0 || W0 % 8 || (uL == nullptr) != (mxL == nullptr) ||
       (uL != nullptr && (WL <= 0 || WL % 8)) || !aligned16(u0) || !aligned16(uL) || !aligned16(mx0) ||
-      !aligned16(mxL) || eik_smem(W0 + WL) > EIK_MAX_SMEM || pt == nullptr || gb == nullptr || sb == nullptr ||
+      !aligned16(mxL) || eik_smem(W0 + WL) > STREAM_MAX_SMEM || pt == nullptr || gb == nullptr || sb == nullptr ||
       loss == nullptr)
     return bad();
   EikParams p;
@@ -1158,17 +1335,11 @@ int msd_ft_eik(const void* u0, const void* mx0, int W0, const void* uL, const vo
   p.gb = static_cast<float*>(gb);
   p.sb = static_cast<float*>(sb);
   p.loss = static_cast<float*>(loss);
-  // persistent: as many blocks as are resident at once, at most one per tile
   const int smem = eik_smem(W0 + WL);
-  int dev, sms, per_sm;
-  cudaError_t e = cudaFuncSetAttribute(eik_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, eik_kernel, NTHREADS, smem);
+  unsigned grid;
+  const cudaError_t e = resident_grid(eik_kernel, smem, n / PT_TILE, &grid);
   if (e != cudaSuccess) return err(e);
-  const long long tiles = n / PT_TILE, resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  eik_kernel<<<static_cast<unsigned>(tiles < resident ? tiles : resident), NTHREADS, smem,
-               static_cast<cudaStream_t>(stream)>>>(p);
+  eik_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return err(cudaGetLastError());
 }
 

@@ -59,7 +59,7 @@ _SIGNATURES = {
         "msd_ft_last": (
             ctypes.c_int,
             [_P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-             ctypes.c_float, _P, _P, _P, _P, _P],
+             ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
         ),
         "msd_ft_eik": (
             ctypes.c_int,

@@ -35,15 +35,18 @@ an f32 accumulator per weight gradient, in 100 MB of VMEM; a Hopper block
 has 227 KB of shared memory and blocks run in no order, so the work is
 split into GEMM launches per layer (``chain_kernel``), weight-gradient
 launches that sum over the chunk's points in float32 with no atomics
-(``wgrad_kernel``, split-K partials summed here), a per-point kernel for
-the last layer (``last_kernel``), and two row streamers, bound by bytes:
+(``wgrad_kernel``, split-K partials summed here), and three row streamers,
+bound by bytes: the last layer with the rank-one last hidden layer
+(``last_kernel``: y, the seeds, the L1 tile sums, and the seed rows of the
+u-chain, or without an eikonal of the delta chain with their column sums),
 the eikonal lane (``eik_kernel``) and the three-column dMx and one-row
 last-layer gradients (``skinny_kernel``, which folds its per-block
 partials in a fixed order inside the launch). Variant d launches only the
 chains and the last layer. Chunks of ``CHUNK_POINTS`` points bound the
-scratch (2.1 GB at the flagship width). ``last_plain``, ``eik_plain`` and
-``skinny_plain`` are the plain versions of the three per-point kernels;
-``fused_train_plain`` computes those quantities through them.
+scratch (2.1 GB at the flagship width). ``last_plain`` with
+``last_rank1_plain``, ``eik_plain`` and ``skinny_plain`` are the plain
+versions of the three per-point kernels; ``fused_train_plain`` computes
+those quantities through them.
 
 The latent enters only through per-scene constants c_l = z @ W_z^T + b,
 computed here; d latent, dW_z and db come back from the kernels' per-scene
@@ -207,6 +210,19 @@ def last_plain(h, wl, c, gt, clamp: float, inv_ntot: float, w=None):
     return y, mt, seed, l1
 
 
+def last_rank1_plain(h, wl, xv, dtype=torch.bfloat16):
+    """Plain version of ``last_kernel``'s rank-one last hidden layer: v =
+    D(h) xv wl^T, D = 1[h > 0], for rows of ``h`` [n, K] (n a multiple of
+    64), weights ``wl`` [K] and a per-row ``xv`` [n], both already rounded:
+    the seed of the u-chain (xv = m tau, msd_tpu/ops/fused_train.py:235-240)
+    or of the delta chain (xv = the delta seed, :298, :305-308), one float32
+    product per entry as the K = 0 chain launch computes it. Returns (v
+    rounded to ``dtype``, float32 [n / 64, K] column sums of v over each 64
+    rows)."""
+    v = torch.where(h.float() > 0, xv.float()[:, None] * wl.float()[None, :] + 0.0, 0.0)
+    return v.to(dtype).float(), v.reshape(-1, 64, v.shape[1]).sum(1)
+
+
 def eik_plain(u0, mx0, uL, mxL, y, seed, eik_coef: float, w=None):
     """Plain version of ``eik_kernel`` (msd_tpu/ops/fused_train.py:242-259,
     :275, :297) over gated rows: g = u0 Mx0 (+ uL MxL) with ``mx0`` [W0,
@@ -346,10 +362,9 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
 
             mte_c = rnd(mt[sel])[:, None]
             u = [None] * (nl - 1)
-            u_next = mte_c
-            for layer in range(nl - 1, 0, -1):
-                u[layer - 1] = rnd((u_next @ W[layer]) * mask(layer - 1))
-                u_next = u[layer - 1]
+            u[nl - 2] = last_rank1_plain(he[nl - 2], W[nl - 1][0], mte_c[:, 0], dtype)[0]
+            for layer in range(nl - 2, 0, -1):
+                u[layer - 1] = rnd((u[layer] @ W[layer]) * mask(layer - 1))
             gbar, sbar[sel], eik_lane = eik_plain(
                 u[0], WX[0], None if latent_li is None else u[latent_li],
                 None if latent_li is None else WX[latent_li], y[sel], sbar[sel], eik_coef,
@@ -372,8 +387,9 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
         def mask(layer):
             return (h[layer] > 0).float()
 
-        # delta chain
-        delta = sbar[:, None]
+        # delta chain; the last hidden layer's rows and 64-row column sums
+        # come from the rank-one product
+        delta, colsum = sbar[:, None], None
         for layer in range(nl - 1, -1, -1):
             d_c = rnd(delta)
             if dMp[layer] is not None:
@@ -383,8 +399,14 @@ def fused_train_plain(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float,
                     dMp[layer] += d_c.t() @ h[layer - 1]
             if dMx[layer] is not None:  # three columns: delta^T x + u^T gbar
                 dMx[layer] += skinny_plain(d_c, xc, *pair[layer])
-            dc[layer][s0:s1] += delta.reshape(s1 - s0, P, -1).sum(1)
-            if layer > 0:
+            if colsum is None:
+                dc[layer][s0:s1] += delta.reshape(s1 - s0, P, -1).sum(1)
+            else:
+                dc[layer][s0:s1] += colsum.reshape(s1 - s0, P // 64, -1).sum(1)
+                colsum = None
+            if layer == nl - 1:
+                delta, colsum = last_rank1_plain(h[layer - 1], W[layer][0], d_c[:, 0], dtype)
+            elif layer > 0:
                 delta = (d_c @ W[layer]) * mask(layer - 1)
     return l1_sum, eik_sum, dMp, dMx, dc
 
@@ -427,6 +449,8 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
                      eik_coef: float, use_eikonal: bool, dtype: torch.dtype, want_wgrad: bool = True,
                      scene_weights=None, eik_rows=None):
     """K2 on the card; same contract as ``fused_train_plain``. bf16 only.
+    ``last_kernel`` writes the last hidden layer's u (with an eikonal) or
+    delta (without) itself, so those chains' launches start one layer down.
     Variant d (``want_wgrad=False``) launches the primal and delta chains
     and the last layer only, and stores no layer-0 delta. Variant c
     (``eik_rows`` E < P) launches the u and t chains, the eikonal lane and
@@ -513,13 +537,14 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
             K = 0 if l == 0 else wpad[l - 1]
             chain(None if l == 0 else h[l - 1], fwd[l], wpad[l], K,
                   X if wx[l] is not None else None, wx[l], cs[l], True, None, h[l], None, f"primal {l}")
+        # the last layer, with the rank-one last hidden layer: the u-chain's
+        # seed rows, or with no eikonal the delta chain's and their column sums
         _check(lib, lib.msd_ft_last(_ptr(h[H - 1]), _ptr(w_last), wpad[H - 1], _ptr(c_last[s0:s1].contiguous()),
                                     _ptr(G), _ptr(wc), n, P, E, clamp, inv_ntot, _ptr(pt), _ptr(mtc),
-                                    _ptr(sb), _ptr(loss), stream), "last_kernel")
+                                    _ptr(sb), _ptr(loss), _ptr(u[H - 1] if use_eikonal else d[H - 1]),
+                                    None if use_eikonal else _ptr(colsum[H - 1]), stream), "last_kernel")
         if use_eikonal:
             # u-chain
-            chain(None, None, wpad[H - 1], 0, mtc, wx_last, None, False, h[H - 1], u[H - 1], None, "u last",
-                  gated=True)
             for l in range(H - 1, 0, -1):
                 chain(u[l], bwd[l], wpad[l - 1], wpad[l], None, None, None, False, h[l - 1], u[l - 1], None,
                       f"u {l - 1}", gated=True)
@@ -535,8 +560,10 @@ def fused_train_cuda(plan: Plan, Mp, Mx, consts, xyz, gt, P: int, clamp: float, 
                 chain(None if l == 0 else t[l - 1], fwd[l], wpad[l], K,
                       gb if wx[l] is not None else None, wx[l], None, False, h[l], t[l], None, f"t {l}",
                       gated=True)
-        # delta chain
-        chain(None, None, wpad[H - 1], 0, sb, wx_last, None, False, h[H - 1], d[H - 1], colsum[H - 1], "delta last")
+        # delta chain (its seed rows need eik_kernel's sbar when there is an eikonal)
+        if use_eikonal:
+            chain(None, None, wpad[H - 1], 0, sb, wx_last, None, False, h[H - 1], d[H - 1], colsum[H - 1],
+                  "delta last")
         for l in range(H - 1, 0, -1):
             chain(d[l], bwd[l], wpad[l - 1], wpad[l], None, None, None, False, h[l - 1], d[l - 1], colsum[l - 1],
                   f"delta {l - 1}")

@@ -254,6 +254,10 @@ K2_CONFIGS = {
     "b_weight_norm": (True, dict(dims=[64] * 5, latent_in=[2], weight_norm=True, norm_layers=[0, 1, 2, 3, 4])),
     "b_no_latent_in": (True, dict(dims=[64] * 5, latent_in=[])),
     "b_odd_width": (True, dict(dims=[200, 200, 200], latent_in=[2])),
+    # one hidden layer: last_kernel writes its u rows (b) or delta rows (a),
+    # or in variant d only their column sums
+    "b_one_hidden": (True, dict(dims=[64], latent_in=[])),
+    "a_one_hidden": (False, dict(dims=[64], latent_in=[])),
 }
 
 
@@ -880,3 +884,149 @@ def test_eik_kernel_matches_plain(name, dev, monkeypatch):
     assert bool((loss[others] == 0).all()) and bool((loss[:, [0, 3]] == 0).all())
     for a, b in zip((gb, sb, loss), run()):
         assert torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+# last_kernel on its own, against last_plain and last_rank1_plain on the
+# card and against the K = 0 chain launch it replaces, at the flagship chunk
+# (65536 points, scenes of P = 16384) with h 512 wide (one pass of a lane's
+# vectors) and at width 128: b (every point gated), c (the first E = 4096
+# of each scene), e (b with scene 2 weighted 0) and d (no gated rows: the
+# delta rows and their column sums); and wider rows, which take several
+# passes (1024) or a last pass part full (640). name -> (K, E, weighted)
+LAST_KERNEL_CASES = {f"{v}_{K}": (K, E, v == "e") for K in (512, 128)
+                     for v, E in (("b", 16384), ("c", 4096), ("e", 16384), ("d", 0))}
+LAST_KERNEL_CASES.update({"b_1024": (1024, 16384, False), "d_1024": (1024, 0, False), "c_640": (640, 4096, False),
+                          "d_640": (640, 0, False)})
+# as chip_smoke.K2PT_TOL: float32 values within 1e-5 of their largest (two
+# summation orders), bf16 values within 1 (_bf16_units: half an ulp)
+LAST_TOL = {"rel_max": 1e-5, "bf16_units": 1.0}
+
+
+def last_case(name, dev, seed=15):
+    """Inputs of LAST_KERNEL_CASES[name] and the kernel's run: (pt, mtc,
+    sb, loss, out, colsum), NaN where the launch writes nothing; ``run(rows=
+    False)`` passes no rank-one rows, ``run(colsum=False)`` no column sums
+    (None in the result)."""
+    K, E, weighted = LAST_KERNEL_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    n, P = SK_N, SK_P
+    S, ne = n // P, n // P * E
+    inp = {
+        "h": torch.relu(torch.randn(n, K, generator=g, device=dev)).to(bf),
+        "wl": (0.04 * torch.randn(K, generator=g, device=dev) / (K / 512) ** 0.5).to(bf),
+        "clast": 0.05 * torch.randn(S, generator=g, device=dev),
+        "gt": (0.25 * torch.randn(n, generator=g, device=dev)).clamp(-0.1, 0.1),
+        "w": torch.tensor([1.0, 1.0, 0.0, 1.0], device=dev) if weighted else None,
+    }
+
+    def run(rows=True, colsum=True):
+        nan = float("nan")
+        pt, sb = torch.full((n, 4), nan, device=dev), torch.full((n, 4), nan, device=dev)
+        mtc = torch.full((ne, 4), nan, device=dev) if E else None
+        loss = torch.full((n // 128, 4), nan, device=dev)
+        out = torch.full((ne if E else n, K), nan, dtype=bf, device=dev) if rows else None
+        colsum = None if E or not colsum else torch.full((n // 64, K), nan, device=dev)
+        lib = _ft_lib()
+        rc = lib.msd_ft_last(_ptr(inp["h"]), _ptr(inp["wl"]), K, _ptr(inp["clast"]), _ptr(inp["gt"]), _ptr(inp["w"]),
+                             n, P, E, 0.1, 1.0 / n, _ptr(pt), _ptr(mtc), _ptr(sb), _ptr(loss), _ptr(out), _ptr(colsum),
+                             torch.cuda.current_stream(dev).cuda_stream)
+        assert rc == 0, lib.msd_ft_error_string(rc).decode()
+        torch.cuda.synchronize()
+        return pt, mtc, sb, loss, out, colsum
+
+    return inp, run
+
+
+def _rel_max(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("name", list(LAST_KERNEL_CASES))
+def test_last_kernel_matches_plain(name, dev, monkeypatch):
+    """last_kernel against last_plain: y, m tau and the L1 seed within 1e-5
+    of their largest, the per-128-point-tile L1 sums and (outside the gated
+    rows) seed sums too, mtc of the gated rows and sb of the others within
+    half a bf16 ulp; the rank-one rows equal last_rank1_plain's on the
+    kernel's own xv, bit for bit, and their column sums within 1e-5; and
+    the same bits on a second launch."""
+    from msd_tpu_torch.ops.fused_train import last_plain, last_rank1_plain
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    K, E, _ = LAST_KERNEL_CASES[name]
+    inp, run = last_case(name, dev)
+    first = run()
+    pt, mtc, sb, loss, out, colsum = first
+    P = SK_P
+    w_pt = None if inp["w"] is None else inp["w"].repeat_interleave(P)
+    y, mt, seed, l1 = last_plain(inp["h"], inp["wl"], inp["clast"].repeat_interleave(P), inp["gt"], 0.1, 1.0 / SK_N,
+                                 w_pt)
+    for col, ref in ((0, y), (1, mt), (2, seed)):
+        assert _rel_max(pt[:, col], ref) <= LAST_TOL["rel_max"], col
+    assert bool((pt[:, 3] == 0).all())
+    assert _rel_max(loss[:, 0], l1.reshape(-1, 128).sum(1)) <= LAST_TOL["rel_max"]
+    gated = (torch.arange(SK_N, device=dev) % P) < E
+    tiles = gated[::128]
+    if E:
+        assert _bf16_units(mtc[:, 0], mt[gated]) <= LAST_TOL["bf16_units"]
+    if not bool(tiles.all()):
+        assert _bf16_units(sb[~gated, 0], seed[~gated]) <= LAST_TOL["bf16_units"]
+        assert _rel_max(loss[~tiles, 2], seed.reshape(-1, 128)[~tiles].sum(1)) <= LAST_TOL["rel_max"]
+    # the rank-one rows: u of the gated rows from mtc, or delta of every row from sb
+    ref_out, ref_cs = last_rank1_plain(inp["h"][gated], inp["wl"], mtc[:, 0]) if E else \
+        last_rank1_plain(inp["h"], inp["wl"], sb[:, 0])
+    assert torch.equal(out.float(), ref_out)
+    if colsum is not None:
+        assert _rel_max(colsum, ref_cs) <= LAST_TOL["rel_max"]
+    for a, b in zip(first, run()):
+        assert a is None or torch.equal(a.nan_to_num().view(torch.int8), b.nan_to_num().view(torch.int8))
+
+
+@pytest.mark.parametrize("name", list(LAST_KERNEL_CASES))
+def test_last_rank1_matches_chain(name, dev):
+    """last_kernel's rank-one rows against the K = 0 chain_kernel launch
+    they replace ("u last" over the gated rows, "delta last" without
+    gated rows), on the kernel's own xv: the bf16 rows bit for bit (both
+    compute one exact float32 product and round it; a masked or zero entry
+    is +0 in both) and the delta rows' 64-row column sums within 1e-5
+    relative (float32 sums in another order)."""
+    K, E, _ = LAST_KERNEL_CASES[name]
+    inp, run = last_case(name, dev)
+    pt, mtc, sb, loss, out, colsum = run()
+    P = SK_P
+    rows = out.shape[0]
+    wx = torch.zeros(K, 4, device=dev)
+    wx[:, 0] = inp["wl"].float()
+    xv = mtc if E else sb
+    chain_out = torch.full_like(out, float("nan"))
+    chain_cs = None if E else torch.full_like(colsum, float("nan"))
+    lib = _ft_lib()
+    rc = lib.msd_ft_chain(None, None, rows, K, 0, _ptr(xv), _ptr(wx), None, P, E if 0 < E < P else 0, 0,
+                          _ptr(inp["h"]), _ptr(chain_out), _ptr(chain_cs), torch.cuda.current_stream(dev).cuda_stream)
+    assert rc == 0, lib.msd_ft_error_string(rc).decode()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), chain_out.view(torch.int16))
+    if not E:
+        assert float((colsum - chain_cs).norm() / chain_cs.norm()) <= 1e-5
+        assert _rel_max(colsum, chain_cs) <= 1e-5
+
+
+# name -> (LAST_KERNEL_CASES entry, column sums kept): d without the delta
+# rows but with their sums is K2 d on a decoder of one hidden layer
+LAST_NO_ROWS_CASES = {"b_512": ("b_512", False), "c_512": ("c_512", False), "d_512": ("d_512", False),
+                      "d_512_colsum": ("d_512", True), "d_640_colsum": ("d_640", True)}
+
+
+@pytest.mark.parametrize("name", list(LAST_NO_ROWS_CASES))
+def test_last_kernel_without_rank1_rows(name, dev):
+    """last_kernel launched without its rank-one rows (and, at d, with or
+    without their column sums) writes every other output bit for bit as the
+    launch with them."""
+    case, keep_colsum = LAST_NO_ROWS_CASES[name]
+    _, run = last_case(case, dev)
+    full = run()
+    part = run(rows=False, colsum=keep_colsum)
+    assert part[4] is None and (part[5] is not None) == keep_colsum
+    for a, b in zip(full, part):
+        if a is not None and b is not None:
+            assert torch.equal(a.nan_to_num().view(torch.int8), b.nan_to_num().view(torch.int8))

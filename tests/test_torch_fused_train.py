@@ -91,6 +91,9 @@ CASES = {
     "a_latent_in": dict(use_eikonal=False),
     "b_weight_norm": dict(use_eikonal=True, weight_norm=True),
     "b_no_latent_in": dict(use_eikonal=True, latent_in=()),
+    # one hidden layer: last_kernel writes the only layer's u or delta rows
+    "b_one_hidden": dict(use_eikonal=True, latent_in=(), nl=1),
+    "a_one_hidden": dict(use_eikonal=False, latent_in=(), nl=1),
 }
 
 
@@ -200,10 +203,12 @@ def test_flop_and_byte_counts_at_flagship_width():
     assert step_flops(dec, 1, "a") == 2 * 3 * 1573376
     assert step_flops(dec, 1, "d") == 2 * 2 * 1573376  # 6.29 MFLOP per point
     hidden = (7 * 512 + 256) * 2  # bf16 bytes of one point's hidden widths, 253 padded to 256
-    assert design_bytes(dec, 1, "b") == hidden * 15 + 64
-    assert design_bytes(dec, 1, "a") == hidden * 7 + 64
+    last = 512 * 2  # last_kernel reads the last hidden layer's h for its rank-one rows' mask
+    assert design_bytes(dec, 1, "b") == hidden * 15 - last + 64
+    assert design_bytes(dec, 1, "a") == hidden * 7 - last + 64
+    assert design_bytes(dec, 1, "c", 0.25) == hidden * (7 + 8 * 0.25) - last * 0.25 + 64
     # d: h written once and read twice; delta of layers 1-7 written and read once
-    assert design_bytes(dec, 1, "d") == hidden * 3 + (hidden - 512 * 2) * 2 + 64
+    assert design_bytes(dec, 1, "d") == hidden * 3 + (hidden - 512 * 2) * 2 - last + 64
 
 
 # K2 variant d (want_wgrad=False, the frozen decoder of the Stage-2 step):
@@ -213,6 +218,8 @@ D_CASES = {
     "latent_in": dict(),
     "weight_norm": dict(weight_norm=True),
     "no_latent_in": dict(latent_in=()),
+    # one hidden layer: its delta rows are not stored, only their column sums
+    "one_hidden": dict(latent_in=(), nl=1),
 }
 
 

@@ -1,9 +1,10 @@
 """The plain versions of K2's per-point kernels (``last_plain``,
-``eik_plain``, ``skinny_plain`` in msd_tpu_torch/ops/fused_train.py) against
-a float64 numpy evaluation of the formulas of msd_tpu's Pallas kernel
-(msd_tpu/ops/fused_train.py:216-227, :242-259, :263, :267-270, :294-304),
-on seeded bf16 operands at width 64; ``skinny_kernel``'s split arithmetic;
-and ``fused_train_plain`` computing those quantities through them.
+``last_rank1_plain``, ``eik_plain``, ``skinny_plain`` in
+msd_tpu_torch/ops/fused_train.py) against a float64 numpy evaluation of the
+formulas of msd_tpu's Pallas kernel (msd_tpu/ops/fused_train.py:216-227,
+:235-259, :263, :267-270, :294-308), on seeded bf16 operands at widths 64
+and 128; ``skinny_kernel``'s split arithmetic; and ``fused_train_plain``
+computing those quantities through them, in all five variants.
 """
 
 import numpy as np
@@ -195,3 +196,104 @@ def test_fused_train_plain_goes_through_the_per_point_plain_versions(monkeypatch
     out = ft.fused_point_grads(dec, weights, biases, lat, xyz, gt, CLAMP, True, B * P, dtype=torch.float32)
     assert all(torch.isfinite(t).all() for t in out[0] + out[1])
     assert calls == {"last_plain": 2, "eik_plain": 2, "skinny_plain": 6}
+
+
+# name: (rows, width, xv: "m_tau" (u-chain seeds, >= 0) or "seed" (signed
+# delta seeds, some zero), rounding dtype)
+RANK1_CASES = {
+    "u_seed_bf16": (256, 64, "m_tau", torch.bfloat16),
+    "delta_seed_bf16": (256, 128, "seed", torch.bfloat16),
+    "delta_seed_f32": (128, 64, "seed", torch.float32),
+}
+
+
+@pytest.mark.parametrize("name", list(RANK1_CASES))
+def test_last_rank1_plain_matches_numpy(name):
+    """The rank-one last hidden layer D(h) xv w_last (:235-240 for the
+    u-chain, :298, :305-308 for the delta chain) against float64 numpy:
+    every product of two bf16 values is exact in float32, so the rounded
+    rows equal numpy's rounded to the same type, masked and zero entries
+    are +0, and the 64-row column sums are within 1e-6 of their largest."""
+    n, k, kind, dtype = RANK1_CASES[name]
+    rng = np.random.default_rng(11 + len(name))
+    h, hn = bf16(rng, n, k)
+    h = torch.relu(h.float()).to(torch.bfloat16)
+    hn = np.maximum(hn, 0.0)
+    wl, wln = bf16(rng, k, scale=0.05)
+    if kind == "m_tau":
+        xv, xvn = bf16(rng, n)
+        xv, xvn = xv.abs(), np.abs(xvn)
+    else:
+        xv, xvn = bf16(rng, n, scale=1e-4)
+        xv[::7], xvn[::7] = 0.0, 0.0
+    out, colsum = ft.last_rank1_plain(h, wl, xv.float(), dtype)
+    v = (hn > 0) * (xvn[:, None] * wln[None, :])
+    assert out.dtype == torch.float32 and out.shape == (n, k) and colsum.shape == (n // 64, k)
+    assert torch.equal(out, torch.tensor(v, dtype=torch.float32).to(dtype).float())
+    assert not bool(torch.signbit(out[out == 0]).any())
+    close(colsum, v.reshape(n // 64, 64, k).sum(1), rtol=1e-6)
+
+
+# K2's five variants on a small decoder: name -> (P, eik_points, scene
+# weights, use_eikonal, want_wgrad); c gates 256 of 512 points per scene
+ROUTING_CASES = {
+    "b": (256, None, None, True, True),
+    "a": (256, None, None, False, True),
+    "c": (512, 256, None, True, True),
+    "d": (256, None, None, False, False),
+    "e": (256, None, [1.0, 1.0, 1.0, 0.0], True, True),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTING_CASES))
+def test_fused_train_plain_routes_the_rank_one_layer(name, monkeypatch):
+    """fused_train_plain takes the last hidden layer's u (with an eikonal)
+    and delta rows from last_rank1_plain, as the kernels take them from
+    last_kernel, and gives what it gave with the product written inline
+    (u_next @ W_last) * D and dc summed over each scene's rows: the same
+    rank-one rows, every output within float32 summation order (1e-6 of
+    the largest entry) in bf16, two chunks of two scenes."""
+    from msd_tpu_torch.models.deepsdf import DeepSDFDecoder
+
+    P, E, w, use_eik, want_wgrad = ROUTING_CASES[name]
+    dec = DeepSDFDecoder(16, dims=[32] * 4, latent_in=[2], weight_norm=False, norm_layers=[],
+                         generator=torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(5)
+    B = 4
+    weights = [dec.layer_weight(i).detach() for i in range(dec.num_layers - 1)]
+    biases = [getattr(dec, f"lin{i}").bias.detach() for i in range(dec.num_layers - 1)]
+    lat = torch.tensor(0.3 * rng.standard_normal((B, 16)), dtype=torch.float32)
+    xyz = torch.tensor(rng.uniform(-1, 1, (B, P, 3)), dtype=torch.float32)
+    gt = torch.tensor(0.25 * rng.standard_normal((B, P)), dtype=torch.float32)
+    kw = dict(dtype=torch.bfloat16, want_wgrad=want_wgrad, eik_points=E)
+    if w is not None:
+        kw.update(scene_weights=torch.tensor(w), n_real=int(sum(w)))
+    monkeypatch.setattr(ft, "CHUNK_POINTS", 2 * P)
+    calls = []
+    rank1 = ft.last_rank1_plain
+
+    def counted(h, wl, xv, dtype):
+        calls.append(h.shape[0])
+        return rank1(h, wl, xv, dtype)
+
+    def inline(h, wl, xv, dtype):  # the product as written before; a scene's dc in one sum
+        v = (xv[:, None] @ wl[None, :]) * (h > 0).float()
+        cs = torch.zeros(v.shape[0] // 64, v.shape[1])
+        cs[:: P // 64] = v.reshape(-1, P, v.shape[1]).sum(1)  # read for the delta rows only
+        return v.to(dtype).float(), cs
+
+    monkeypatch.setattr(ft, "last_rank1_plain", counted)
+    got = ft.fused_point_grads(dec, weights, biases, lat, xyz, gt, CLAMP, use_eik, B * P, **kw)
+    gated = ft.eikonal_rows(P, E, use_eik)
+    assert calls == ([2 * gated, 2 * P] if use_eik else [2 * P]) * 2
+    monkeypatch.setattr(ft, "last_rank1_plain", inline)
+    ref = ft.fused_point_grads(dec, weights, biases, lat, xyz, gt, CLAMP, use_eik, B * P, **kw)
+
+    def tensors(out):  # (dweights, dbiases, dlat, sdf, eikonal), flat; None where d has none
+        return [t for part in out for t in (part if isinstance(part, list) else [part])]
+
+    for x, y in zip(tensors(got), tensors(ref), strict=True):
+        assert (x is None) == (y is None)
+        if x is not None:
+            close(x, y.double().numpy(), rtol=1e-6)
+
