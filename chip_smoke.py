@@ -104,7 +104,28 @@ non-zero and prints no result. Phases, one JSON line each:
    flagship's configuration of ``bench.py``'s "bench-eik4096") for 8 steps,
    K2 c once per step; then its step time, K2's share of the step and
    launches per step.
-13. dp: the flagship Stage-1 at ScenesPerBatch 32 on 3 ranks, so the batch
+13. training_gmm: ``examples/ADNI/minimal_eikonal_gmm/specs.json`` at its
+   own width and batch (16 scenes x 16384 points, eikonal, GMM prior; K2
+   b over 4 chunks per step) on the training phase's data, warm-started
+   from that phase's decoder (PretrainedSDFDecoderDir, absolute), with
+   ``UseCovarianceLoss`` added, a msd_tpu key the shipped config leaves
+   off, so both latent-batch losses run. The warm-started decoder must
+   equal phase 8's latest.pth, and the trainer's first step on K2 must
+   match the same trainer's float32 autograd path from the same state (the
+   GMM gradient and both latent-batch losses to 1e-5 relative, the decoder
+   and latent gradients within K2_TOL's autograd limits). Then the CLI for
+   2 epochs (8 steps) and ``-c latest`` for 1 more: K2 b once per step, its
+   CUDA kernels' launches at the training phase's per-chunk counts, the
+   GMM prior's Adam moments bit for bit through the checkpoint, the GMM and
+   covariance TensorBoard scalars finite. Then the step's median ms (host
+   clock), K2's share of it, a torch.profiler split, and the step timed
+   with the two latent-batch losses on and off in turns.
+14. training_iso: the flagship Stage 1 with isometry and grad-metric
+   isotropy (mixup with probability 0.5, 256 near-surface points on a
+   random 8 of each batch's 16 scenes) through the CLI for 4 steps: the
+   trainer logs why it takes the autograd path, K2 launches no time, the
+   four isometry scalars are finite; then the step's median ms.
+15. dp: the flagship Stage-1 at ScenesPerBatch 32 on 3 ranks, so the batch
    pads to 33 and every rank runs K2 e, for 3 steps, against one process
    on the same batches (step-1 losses and summed pre-Adam gradients); then
    2 epochs of the Stage-2 experiment on 2 ranks (K2 d split by scenes)
@@ -112,9 +133,11 @@ non-zero and prints no result. Phases, one JSON line each:
    GPUs, else gloo with every rank on cuda:0: a correctness drive of the
    multi-rank path, not a scaling figure.
 
-Then the ``kernels`` line, the card's ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``. Any failed phase raises and exits
-non-zero.
+Each phase's line carries the wall seconds since the previous line
+(``since_last_s``). Then the ``kernels`` line, the
+card's ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any
+failed phase raises and exits non-zero. There is no phase filter: every run
+drives every phase.
 """
 
 from __future__ import annotations
@@ -143,8 +166,15 @@ HBM_BYTES_PER_S = 3.35e12
 TOL = {"float32": {"max": 1e-5}, "bfloat16": {"max": 1e-2, "mean": 1e-4, "sign": 0.9999}}
 
 
+_LAST_PHASE = [time.time()]
+
+
 def phase(tag, /, **kw):
-    print(json.dumps({"phase": tag, **kw}), flush=True)
+    """Print a phase's JSON line with the wall seconds since the previous
+    phase's line (``since_last_s``)."""
+    now = time.time()
+    print(json.dumps({"phase": tag, "since_last_s": now - _LAST_PHASE[0], **kw}), flush=True)
+    _LAST_PHASE[0] = now
 
 
 def ellipsoid_samples(axes, n, rng):
@@ -1498,6 +1528,259 @@ def train_eik(root, specs, seed):
             "k2_kernel_launches_per_step": kernel_launches, "profile": profile}, launches["c"]
 
 
+GMM_SPECS = os.path.join(ROOT, "examples", "ADNI", "minimal_eikonal_gmm", "specs.json")
+GMM_SCALARS = ("Loss/train_covariance", "Loss/train_gmm", "Loss/train_gmm_nll", "Loss/train_gmm_entropy")
+ISO_SCALARS = ("Loss/train_isometry", "Loss/train_isometry_G1", "Loss/train_isometry_G2",
+               "Loss/train_grad_metric_iso")
+# The GMM prior's gradient of K2's trainer against its float32 autograd
+# path: both see the same latent rows, so they differ by summation order.
+GMM_GRAD_TOL = 1e-5
+
+
+class ScalarRecorder:
+    """Stands in for the Stage-1 trainer's TensorBoard writer and keeps
+    every scalar it is given, {tag: [values]}."""
+
+    def __init__(self):
+        self.scalars = {}
+
+    def add_scalar(self, tag, value, step=None):
+        self.scalars.setdefault(tag, []).append(float(value))
+
+    def add_hparams(self, *args, **kwargs):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def run_cli(argv, recorder):
+    """``python -m msd_tpu_torch.train_deep_sdf`` in process with its
+    TensorBoard writer replaced by ``recorder``; returns the trainer. The
+    root logger's level and handlers, which the CLI sets, are restored."""
+    import logging
+
+    import torch
+
+    from msd_tpu_torch import train_deep_sdf
+    from msd_tpu_torch.train import stage1 as stage1_mod
+
+    root_logger = logging.getLogger()
+    level, handlers, opened = root_logger.level, list(root_logger.handlers), stage1_mod.open_summary_writer
+    stage1_mod.open_summary_writer = lambda log_dir: recorder
+    try:
+        trainer = train_deep_sdf.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        stage1_mod.open_summary_writer = opened
+        for h in list(root_logger.handlers):
+            root_logger.removeHandler(h)
+            if h not in handlers:
+                h.close()
+        for h in handlers:
+            root_logger.addHandler(h)
+        root_logger.setLevel(level)
+    return trainer
+
+
+def finite_scalars(recorder, tags, n):
+    """Raise unless each of ``tags`` was logged ``n`` times, every value
+    finite; returns {tag: values}."""
+    got = {t: recorder.scalars.get(t, []) for t in tags}
+    if any(len(v) != n or not all(math.isfinite(x) for x in v) for v in got.values()):
+        raise AssertionError(f"scalars {json.dumps(got)}, want {n} finite values each")
+    return got
+
+
+def first_step_grads(trainer, idx, batch, lrs):
+    """One step of ``trainer`` (epoch 1) from its state; the step's metrics
+    and its pre-clip gradients (decoder by name, latent rows of ``idx``,
+    GMM parameters), in float64 on the card."""
+    aux = trainer.step(idx, batch, 1, *lrs)
+    grads = {"net." + n: p.grad.double() for n, p in trainer.decoder.named_parameters()}
+    grads["latents"] = trainer.latents.grad[idx].double()
+    grads.update({"gmm." + k: p.grad.double() for k, p in trainer.gmm.items() if p.grad is not None})
+    return {k: float(v) for k, v in aux.items()}, grads
+
+
+def train_gmm(root, seed, training_launches):
+    """Stage 1 of ``examples/ADNI/minimal_eikonal_gmm/specs.json`` at its own
+    width and batch (16 scenes, K2 b over 4 chunks per step) on the training
+    phase's 64 ellipsoids, warm-started from that phase's decoder
+    (PretrainedSDFDecoderDir, absolute), with ``UseCovarianceLoss`` added
+    (the shipped config leaves it off) so both latent-batch losses run:
+    first the trainer's first step on K2 against the same trainer's float32
+    autograd path from the same state, then the CLI for 2 epochs (8 steps)
+    and ``-c latest`` for 1 more. ``training_launches`` is the training
+    phase's K2 kernel launches per 8-chunk step. Returns the phase summary
+    and K2's launches in the two runs."""
+    import torch
+
+    import msd_tpu_torch.workspace as ws
+    from msd_tpu_torch.data.sdf_samples import sample_sdf_batch
+    from msd_tpu_torch.models import build_decoder
+    from msd_tpu_torch.ops import fused_train
+    from msd_tpu_torch.ops.fused_train import fused_sdf_loss
+    from msd_tpu_torch.train.stage1 import Stage1Trainer, step_seed
+    from msd_tpu_torch.utils.checkpoint import load_model
+
+    with open(GMM_SPECS) as f:
+        specs = json.load(f)
+    exp = os.path.join(root, "train_gmm_experiment")
+    split_path = os.path.join(root, "train_split.json")
+    pretrained = os.path.join(root, "train_experiment")
+    changes = {"DataSource": os.path.join(root, "train_data", "SdfSamples"), "TrainSplit": split_path,
+               "TestSplit": split_path, "NumEpochs": 2, "SnapshotFrequency": 2, "AdditionalSnapshots": [],
+               "PretrainedSDFDecoderDir": pretrained, "UseCovarianceLoss": True}
+    ws.save_experiment_specifications(exp, dict(specs, **changes))
+    t0 = time.time()
+
+    # step 0: the warm start, and the first step on K2 against autograd
+    k2 = Stage1Trainer(exp, device="cuda")
+    ref = build_decoder(specs["NetworkArch"], specs["CodeLength"], specs["NetworkSpecs"])
+    load_model(pretrained, "latest", ref)
+    for (n, a), (_, b) in zip(ref.state_dict().items(), k2.decoder.state_dict().items()):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError(f"warm start: {n} differs from the training phase's latest.pth")
+    ag = Stage1Trainer(exp, specs=dict(k2.specs, UseFusedTrainKernel=False), device="cuda")
+    if not k2.use_fused or ag.use_fused or k2.gmm is None:
+        raise AssertionError("want K2 with the GMM prior, and its autograd path")
+    dev = k2.device
+    B, P = k2.scene_per_batch, k2.num_samp_per_scene
+    rng = np.random.default_rng(k2.seed + 1)  # the CLI run's first batch
+    idx = torch.as_tensor(rng.permutation(k2.num_scenes)[:B], device=dev)
+    pos, pc, neg, nc = k2.dataset.device_arrays(dev)
+    gen = torch.Generator(device=dev).manual_seed(step_seed(k2.seed, 1))
+    batch = sample_sdf_batch(pos, pc, neg, nc, idx, P, gen)
+    lrs = [s.get_learning_rate(1, []) for s in k2.lr_schedules]
+    fused_train.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    aux_k2, g_k2 = first_step_grads(k2, idx, batch, lrs)
+    if fused_train.VARIANT_LAUNCHES["b"] != 1 or fused_train.LAUNCHES != 1:
+        raise AssertionError(f"K2 launches in the first step: {fused_train.VARIANT_LAUNCHES}, want b once")
+    aux_ag, g_ag = first_step_grads(ag, idx, batch, lrs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del k2, ag
+    torch.cuda.empty_cache()
+    vs_autograd = {k: _cmp(g_k2[k], g_ag[k]) for k in g_ag}
+    loss_rel = {k: abs(aux_k2[k] - aux_ag[k]) / max(abs(aux_ag[k]), 1e-30)
+                for k in ("sdf", "eikonal", "covariance", "gmm")}
+    bad = [k for k, r in vs_autograd.items()
+           if (r["rel"] > GMM_GRAD_TOL if k.startswith("gmm.")
+               else r["rel"] > K2_TOL["autograd_grad"] or r["cos"] < K2_TOL["autograd_cos"])]
+    bad += [k for k, r in loss_rel.items()
+            if r > (GMM_GRAD_TOL if k in ("covariance", "gmm") else K2_TOL["autograd_loss"])]
+    if bad or not any(k.startswith("gmm.") for k in g_ag):
+        raise AssertionError(f"first step, K2 vs float32 autograd: {bad}: "
+                             f"{json.dumps({'grads': vs_autograd, 'loss_rel': loss_rel})}")
+    t_check = time.time() - t0
+
+    recorder = ScalarRecorder()
+    fused_train.reset_launches()
+    t0 = time.time()
+    trainer = run_cli(["-e", exp, "--device", "cuda", "--quiet"], recorder)
+    t_first = time.time() - t0
+    launches = {"first": {"calls": fused_train.LAUNCHES, "variants": dict(fused_train.VARIANT_LAUNCHES),
+                          "kernels": dict(fused_train.KERNEL_LAUNCHES)}}
+    steps_first = len(trainer.loss_log)
+    chunks = -(-B // max(1, fused_train.CHUNK_POINTS // P))
+    want = {k: v * chunks / 8 * steps_first for k, v in training_launches.items()}
+    if (steps_first != 8 or fused_train.VARIANT_LAUNCHES["b"] != 8 or fused_train.LAUNCHES != 8
+            or dict(fused_train.KERNEL_LAUNCHES) != want):
+        raise AssertionError(f"{steps_first} steps, K2 launches {json.dumps(launches)}; want b once per step, "
+                             f"kernels {want}")
+    mu = {k: v.clone() for k, v in trainer.optimizer.mu["gmm"].items()}
+    nu = {k: v.clone() for k, v in trainer.optimizer.nu["gmm"].items()}
+    del trainer
+    resumed_check = Stage1Trainer(exp, device="cuda")
+    fresh = {k: v.detach().clone() for k, v in resumed_check.gmm.items()}
+    resumed_check.resume("latest")
+    if not all(torch.equal(resumed_check.optimizer.mu["gmm"][k], mu[k])
+               and torch.equal(resumed_check.optimizer.nu["gmm"][k], nu[k]) for k in mu):
+        raise AssertionError("the GMM prior's Adam moments changed through the checkpoint")
+    if not all(torch.equal(resumed_check.gmm[k], fresh[k]) for k in fresh):
+        raise AssertionError("resume changed the GMM parameters (msd_tpu starts them afresh from the seed)")
+    del resumed_check
+
+    ws.save_experiment_specifications(exp, dict(specs, **dict(changes, NumEpochs=3)))
+    fused_train.reset_launches()
+    resumed = run_cli(["-e", exp, "-c", "latest", "--device", "cuda", "--quiet"], recorder)
+    launches["resumed"] = {"calls": fused_train.LAUNCHES, "variants": dict(fused_train.VARIANT_LAUNCHES)}
+    if fused_train.VARIANT_LAUNCHES["b"] != 4 or fused_train.LAUNCHES != 4 or len(resumed.loss_log) != 12:
+        raise AssertionError(f"resumed run: K2 {json.dumps(launches['resumed'])}, {len(resumed.loss_log)} "
+                             "losses; want b once per step, 12 losses")
+    scalars = finite_scalars(recorder, GMM_SCALARS, 3)
+
+    step_ms, idx, batch = step_times(resumed, seed)
+    step_med = float(np.median(step_ms[1:]))
+
+    def k2_call():
+        with torch.no_grad():
+            fused_sdf_loss(resumed.decoder, resumed.latents[idx], batch[:3].permute(1, 2, 0).contiguous(), batch[3],
+                           resumed.clamp_dist, True, B * P)
+
+    k2_ms = time_ms(k2_call)
+    profile = profile_steps(lambda: resumed.step(idx, batch, 9, 5e-4, 1e-3), 3)
+
+    def step_ms_with(latent_losses):  # CUDA events; GMM prior and covariance switched as the specs would
+        resumed.use_gmm_prior = resumed.use_covariance = latent_losses
+        return time_ms(lambda: resumed.step(idx, batch, 9, 5e-4, 1e-3), reps=5, warmup=1)
+
+    # in turns on, off, off, on (off: the GMM group's Adam update still runs, on zero gradients)
+    latent_losses_ab = {f"{i}_{'on' if on else 'off'}": step_ms_with(on) for i, on in enumerate((1, 0, 0, 1))}
+    resumed.use_gmm_prior = resumed.use_covariance = True
+    return {"source": os.path.relpath(GMM_SPECS, ROOT), "changed": changes | {"NumEpochs (resume)": 3},
+            "scenes_per_batch": B, "chunks_per_step": chunks, "check_seconds": t_check,
+            "check_peak_mem_gb": peak_gb,
+            "first_run_seconds": t_first, "epoch_losses": resumed.loss_log_epoch, "scalars": scalars,
+            "first_step_vs_autograd": {"loss_rel": loss_rel, "grads": vs_autograd},
+            "k2_launches": launches, "step_ms_median": step_med, "step_ms": step_ms, "k2_ms_in_step": k2_ms,
+            "k2_share_of_step": k2_ms / step_med, "profile": profile,
+            "step_ms_latent_losses_ab": latent_losses_ab}, launches["first"]["calls"] + launches["resumed"]["calls"]
+
+
+def train_iso(root, specs, seed):
+    """The flagship Stage 1 with isometry and grad-metric isotropy (mixup
+    with probability 0.5; 256 near-surface points on a random 8 of the
+    batch's 16 scenes) through the CLI for 4 steps on the training phase's
+    data: the trainer must take the autograd path and say why, and K2 must
+    not launch. Returns the phase summary."""
+    import torch
+
+    import msd_tpu_torch.workspace as ws
+    from msd_tpu_torch.ops import fused_train
+
+    exp = os.path.join(root, "train_iso_experiment")
+    split_path = os.path.join(root, "train_split.json")
+    changes = {"DataSource": os.path.join(root, "train_data", "SdfSamples"), "TrainSplit": split_path,
+               "TestSplit": split_path, "NumEpochs": 1, "SnapshotFrequency": 1, "AdditionalSnapshots": [],
+               "ScenesPerBatch": 16, "UseIsometryLoss": True, "UseGradMetricIsotropyLoss": True,
+               "UseIsometryMixup": True, "IsometryMixupProb": 0.5, "IsometryNumPoints": 256,
+               "IsometryScenesPerBatch": 8}
+    ws.save_experiment_specifications(exp, dict(specs, **changes))
+    recorder = ScalarRecorder()
+    fused_train.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    log = os.path.join(root, "train_iso.log")
+    trainer = run_cli(["-e", exp, "--device", "cuda", "--log", log], recorder)
+    seconds = time.time() - t0
+    with open(log) as f:
+        reason = next((ln.strip() for ln in f if "Stage-1 step takes the autograd path" in ln), "")
+    if (trainer.use_fused or fused_train.LAUNCHES or "UseIsometryLoss is on" not in reason
+            or "UseGradMetricIsotropyLoss is on" not in reason or len(trainer.loss_log) != 4):
+        raise AssertionError(f"isometry run: fused {trainer.use_fused}, K2 launches {fused_train.LAUNCHES}, "
+                             f"reason {reason!r}, {len(trainer.loss_log)} steps; want the autograd path, 4 steps")
+    scalars = finite_scalars(recorder, ISO_SCALARS, 1)
+    step_ms, _, _ = step_times(trainer, seed, n=5)
+    return {"changed": changes, "steps": len(trainer.loss_log), "seconds": seconds, "reason": reason,
+            "k2_launches": fused_train.LAUNCHES, "scalars": scalars, "step_ms_median": float(np.median(step_ms[1:])),
+            "step_ms": step_ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 # The data-parallel phase: step-1 losses against the one-process run's to
 # 1e-5 relative, the summed pre-Adam gradients to 1e-3 relative Frobenius
 # (the same bf16 per-point values, float32 sums in another order).
@@ -1826,6 +2109,10 @@ def main(argv=None):
         k2ce = check_k2ce(decoder, args.seed, dev)
         training_eik, k2c_launches = train_eik(root, specs, args.seed)
         phase("training_eik4096", **training_eik)
+        training_gmm, k2_gmm_launches = train_gmm(root, args.seed, training["k2_kernel_launches_per_step"])
+        phase("training_gmm", **training_gmm)
+        training_iso = train_iso(root, specs, args.seed)
+        phase("training_iso", **training_iso)
         dp_summary, k2e_launches = dp(root, specs, args.seed)
         phase("dp", **dp_summary)
 
@@ -1852,12 +2139,13 @@ def main(argv=None):
                     **{k: k1["float32"][k] for k in ("ms", "plain_ms", "bound_ms")}},
     }, {
         "name": "fused_train", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_train.cu",
-        "replaces": "msd_tpu/ops/fused_train.py:423", "launches": k2_launches,
+        "replaces": "msd_tpu/ops/fused_train.py:423", "launches": k2_launches + k2_gmm_launches,
+        "launches_training": k2_launches, "launches_training_gmm": k2_gmm_launches,
         "max_abs_err": b["vs_plain"]["max_abs_err"], "max_rel_frobenius": b["vs_plain"]["worst_grad_rel"],
         "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
         "library_ms": None, "library_note": "no single PyTorch call computes the loss and every gradient",
         "variant": "b (eikonal)", "points": b["points"], "design_bytes_ms": b["design_bytes_ms"],
-        "step_ms": training["step_ms_median"], **autograd_step,
+        "step_ms": training["step_ms_median"], **autograd_step, "gmm_step_ms": training_gmm["step_ms_median"],
         "gemm": {k: {f: r[f] for f in ("ms", "library_ms", "bound_ms", "bound_by", "tflops")}
                  for k, r in k2gemm.items()},
         "pointwise": {k: {shape: {f: r[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}

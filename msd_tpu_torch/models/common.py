@@ -61,3 +61,32 @@ class WeightNormLinear(nn.Module):
 
     def forward(self, x):
         return nn.functional.linear(x, self.weight, self.bias)
+
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the leading axes of [..., C] with ``msd_tpu``'s
+    parameters (``batch_norm_init``, ``msd_tpu/models/pointnet.py:25-33``:
+    scale 1, bias 0, mean 0, var 1) under torch's names (``weight``,
+    ``bias``, buffers ``running_mean``, ``running_var``). In training mode
+    it normalizes with the batch's mean and biased variance, else with the
+    running statistics, as ``batch_norm_apply`` (:36-51). It never updates
+    the running statistics: ``msd_tpu``'s SIREN decoder drops the new ones
+    that ``batch_norm_apply`` returns, where ``torch.nn.BatchNorm1d`` in
+    training mode would keep them."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x):
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean, var = x.mean(dim=dims), x.var(dim=dims, unbiased=False)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias

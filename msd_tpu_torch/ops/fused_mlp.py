@@ -46,6 +46,7 @@ import ctypes
 import torch
 
 from msd_tpu_torch.models.common import LAYER_NORM_EPS
+from msd_tpu_torch.models.deepsdf import DeepSDFDecoder
 
 # Output tile of the mma_sync kernel per operand type: every hidden width
 # is zero-padded to a multiple of it.
@@ -127,12 +128,15 @@ class FusedDecoderSpec:
     route ``wtiles`` holds the hidden layers' ``wgmma_tiles`` of ``wp``
     (layers 1 to n_layers - 2) in one bf16 buffer, ``n_wtiles`` of them, and
     ``wx4`` each layer's ``wx`` as float32 [out_pad, 4] (or None). Raises
-    UnsupportedConfig for the configs the TPU kernel refuses too, and
-    ValueError for an operand type other than bfloat16 or float32."""
+    UnsupportedConfig for the configs the TPU kernel refuses too (another
+    decoder than ``DeepSDFDecoder``, ``xyz_in_all``, weights over
+    ``MAX_WEIGHT_BYTES``), and ValueError for an operand type other than bfloat16 or float32."""
 
     def __init__(self, decoder, dtype: torch.dtype = torch.bfloat16):
         if dtype not in _DTYPE_CODE:
             raise ValueError(f"fused kernel: operand dtype {dtype} is not ported (bfloat16 or float32)")
+        if not isinstance(decoder, DeepSDFDecoder):  # msd_tpu/ops/fused_mlp.py:21 serves DeepSDFDecoder only
+            raise UnsupportedConfig(f"fused kernel: {type(decoder).__name__} is not a DeepSDFDecoder")
         if decoder.xyz_in_all:
             raise UnsupportedConfig("fused kernel: xyz_in_all not supported")
         self.dtype = dtype

@@ -38,8 +38,24 @@ Differences from ``msd_tpu`` (documented): the random streams (torch
 generators, not JAX keys), so runs of the two packages draw different
 points from the same seed; the scene batches come from the same numpy
 generator and agree. Epoch blocks (``train/epoch_blocks.py``) were a relay
-workaround and are not ported. Covariance, GMM prior, isometry and
-grad-metric isotropy raise as not ported yet.
+workaround and are not ported.
+
+The latent regularizers (``losses/stage1.py``). Covariance and the GMM
+prior act on the batch's real latent rows after the CodeBound projection,
+once per step (:555-574, :660-671); their gradients add to what K2 or
+autograd gave, after the sum over ranks, so every rank adds them once.
+The GMM parameters train as a third optimizer group "gmm" at the latent
+learning rate, unclipped; like ``msd_tpu`` the checkpoint keeps their Adam
+moments and not the parameters, which a resumed run initialises afresh
+from the seed. Isometry and grad-metric isotropy take the autograd path,
+as they turn K2 off in ``msd_tpu`` (:322-323): per ``batch_split`` chunk,
+on near-surface points of the chunk's real scenes (or a random
+``IsometryScenesPerBatch`` of them), all scenes in one decoder call;
+over ranks rank 0 adds them. Their draws (point selection noise, probes,
+mixup) come from the step's generator and a numpy generator seeded by
+(Seed, step). Stage 1 trains ``deep_sdf_decoder`` only: ``msd_tpu``'s
+trainer cannot checkpoint another decoder (its ``save_model`` needs
+``params_to_torch_state_dict``, which only ``DeepSDFDecoder`` has).
 """
 
 from __future__ import annotations
@@ -58,8 +74,16 @@ from msd_tpu_torch.data.sdf_samples import SdfDataset, sample_sdf_batch
 from msd_tpu_torch.data.splits import load_split
 from msd_tpu_torch.device import resolve_device
 from msd_tpu_torch.losses.sdf import code_regularization, safe_l2norm
+from msd_tpu_torch.losses.stage1 import (
+    covariance_loss,
+    gmm_prior_init,
+    gmm_prior_loss,
+    grad_metric_isotropy_loss,
+    isometry_loss,
+    select_near_surface_points,
+)
 from msd_tpu_torch.lr_schedules import StepLearningRateOnPlateauSchedule, get_learning_rate_schedules
-from msd_tpu_torch.models import build_decoder
+from msd_tpu_torch.models import DeepSDFDecoder, build_decoder
 from msd_tpu_torch.ops.fused_train import fused_sdf_loss, supports_fused_train
 from msd_tpu_torch.parallel import pad_to_multiple
 from msd_tpu_torch.utils import checkpoint as ckpt
@@ -69,14 +93,6 @@ from msd_tpu_torch.utils.optim import GroupAdam, project_code_bound
 # MatmulPrecision spec values that keep the bf16 products K2 computes in
 # (msd_tpu/train/stage1.py:64-70); every other value runs float32 autograd.
 _BF16_PRECISIONS = ("default", "bfloat16")
-
-# Stage-1 spec switches of msd_tpu that the port does not run yet.
-_NOT_PORTED = {
-    "UseCovarianceLoss": "covariance loss (ROADMAP M9)",
-    "UseGMMPriorLoss": "GMM prior (ROADMAP M9)",
-    "UseIsometryLoss": "isometry loss (ROADMAP M9)",
-    "UseGradMetricIsotropyLoss": "grad-metric isotropy loss (ROADMAP M9)",
-}
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -99,9 +115,6 @@ class Stage1Trainer:
         validate_stage1_specs(specs)
         note_noop_keys(specs)
         logging.info("Experiment description: \n%s", specs.get("Description", "(none)"))
-        for key, what in _NOT_PORTED.items():
-            if get_spec_with_default(specs, key, False):
-                raise NotImplementedError(f"{key}: {what} is not ported to msd_tpu_torch yet")
         if get_spec_with_default(specs, "ProfileEpochs", None):
             logging.info("ProfileEpochs: profiling is not ported to msd_tpu_torch yet; ignored")
 
@@ -127,10 +140,38 @@ class Stage1Trainer:
         self.eikonal_num_points = int(eik_points) if eik_points else None
         self.seed = get_spec_with_default(specs, "Seed", 0)
         self.lr_schedules = get_learning_rate_schedules(specs)
+        # latent regularizers, with msd_tpu's defaults (msd_tpu/train/stage1.py:119-143)
+        self.use_covariance = get_spec_with_default(specs, "UseCovarianceLoss", False)
+        self.lambda_cov = get_spec_with_default(specs, "CovarianceLossLambda", 1e-3)
+        self.use_gmm_prior = get_spec_with_default(specs, "UseGMMPriorLoss", False)
+        self.gmm_lambda = get_spec_with_default(specs, "GMMLambda", 1e-4)
+        self.gmm_k = get_spec_with_default(specs, "GMMK", 2)
+        self.gmm_init_sigma = get_spec_with_default(specs, "GMMInitSigma", 0.5)
+        self.gmm_min_sigma = get_spec_with_default(specs, "GMMMinSigma", 0.05)
+        self.gmm_learn_pi = get_spec_with_default(specs, "GMMLearnPi", False)
+        self.use_isometry = get_spec_with_default(specs, "UseIsometryLoss", False)
+        self.lambda_iso = get_spec_with_default(specs, "IsometryLossLambda", 1e-3)
+        self.iso_num_points = get_spec_with_default(specs, "IsometryNumPoints", 256)
+        self.iso_num_probes = get_spec_with_default(specs, "IsometryNumProbes", 1)
+        get_spec_with_default(specs, "IsometryComputeFrequency", 1)  # read and unused, as in msd_tpu
+        iso_cap = get_spec_with_default(specs, "IsometryScenesPerBatch", None)
+        self.iso_scenes_per_batch = int(iso_cap) if iso_cap else None
+        self.use_isometry_mixup = get_spec_with_default(specs, "UseIsometryMixup", False)
+        self.iso_mixup_alpha = get_spec_with_default(specs, "IsometryMixupAlpha", 0.2)
+        self.iso_mixup_prob = get_spec_with_default(specs, "IsometryMixupProb", 0.0)
+        self.use_grad_metric_iso = get_spec_with_default(specs, "UseGradMetricIsotropyLoss", False)
+        self.grad_metric_iso_lambda = get_spec_with_default(specs, "GradMetricIsoLossLambda", 1.0)
+        self.grad_metric_iso_alpha = get_spec_with_default(specs, "GradMetricIsoAlpha", 1.0)
+        self.grad_metric_iso_normalize = get_spec_with_default(specs, "GradMetricIsoNormalize", True)
 
         # --- decoder and latents ---
         gen = torch.Generator().manual_seed(self.seed)
         self.decoder = build_decoder(specs["NetworkArch"], self.latent_size, specs["NetworkSpecs"], generator=gen)
+        if not isinstance(self.decoder, DeepSDFDecoder):
+            raise NotImplementedError(
+                f"NetworkArch {specs['NetworkArch']!r}: Stage 1 trains deep_sdf_decoder only; msd_tpu's trainer "
+                "cannot checkpoint another decoder (its save_model needs params_to_torch_state_dict, which only "
+                "DeepSDFDecoder has)")
         if get_spec_with_default(specs, "UsePretrainedSDFDecoder", False):
             self._load_pretrained_decoder()
         self.decoder = self.decoder.to(self.device).train()
@@ -144,7 +185,12 @@ class Stage1Trainer:
         code_init_std = get_spec_with_default(specs, "CodeInitStdDev", 1.0)
         lat = torch.randn(self.num_scenes, self.latent_size, generator=gen) * (code_init_std / math.sqrt(self.latent_size))
         self.latents = lat.to(self.device).requires_grad_(True)
-        self.optimizer = GroupAdam({"net": dict(self.decoder.named_parameters()), "lat": {"weight": self.latents}})
+        groups = {"net": dict(self.decoder.named_parameters()), "lat": {"weight": self.latents}}
+        self.gmm = None
+        if self.use_gmm_prior:
+            init = gmm_prior_init(gen, self.gmm_k, self.latent_size, self.gmm_init_sigma)
+            self.gmm = groups["gmm"] = {k: v.to(self.device).requires_grad_(True) for k, v in init.items()}
+        self.optimizer = GroupAdam(groups)
 
         # --- path ---
         precision = str(get_spec_with_default(specs, "MatmulPrecision", "default")).lower()
@@ -157,6 +203,10 @@ class Stage1Trainer:
             reasons.append("dropout is active")
         if not supports_fused_train(self.decoder, self.num_samp_per_scene):
             reasons.append("supports_fused_train is false for this decoder and SamplesPerScene")
+        if self.use_isometry:
+            reasons.append("UseIsometryLoss is on")
+        if self.use_grad_metric_iso:
+            reasons.append("UseGradMetricIsotropyLoss is on")
         self.use_fused = not reasons
         if reasons:
             logging.info("Stage-1 step takes the autograd path: %s", "; ".join(reasons))
@@ -250,7 +300,70 @@ class Stage1Trainer:
             eik = 0.002 * sq.sum() / (eik_scenes * E)
         return sdf + eik, sdf.detach(), eik.detach()
 
-    def step(self, scene_idx, batch, epoch, lr_net, lr_lat, batch_split: int = 1):
+    def _isometry_losses(self, lat_rows, xyz, gt, gen, rng):
+        """Isometry and grad-metric isotropy over one chunk's real scenes
+        (``lat_rows`` [b, L], ``xyz`` [b, P, 3], ``gt`` [b, P]), the
+        counterpart of msd_tpu/train/stage1.py:495-555: near-surface points,
+        optional mixup of a scene's latent with another scene's, an optional
+        random subset of the scenes; each term is its mean over the scenes
+        times its lambda. Returns (the terms' sum, their metrics). The
+        decoder runs without dropout, as there."""
+        dev = lat_rows.device
+        b, m = lat_rows.shape
+        cap = self.iso_scenes_per_batch
+        rows = rng.permutation(b)[:cap] if cap is not None and 0 < cap < b else np.arange(b)
+        rows_t = torch.as_tensor(rows, device=dev)
+        S, n = len(rows), self.iso_num_points
+        noise = torch.rand(S, xyz.shape[1], generator=gen, device=dev)
+        pts = select_near_surface_points(noise, xyz[rows_t], gt[rows_t], self.clamp_dist, n)
+        lat = lat_rows[rows_t]
+        if self.use_isometry_mixup and b > 1:
+            # a partner among the other real scenes, a Beta(a, a) blend (:503-510)
+            mix = torch.as_tensor(rng.random(S) < self.iso_mixup_prob, device=dev)
+            partner = rng.integers(0, b - 1, S)
+            partner = torch.as_tensor(partner + (partner >= rows), device=dev)
+            alpha = torch.as_tensor(rng.beta(self.iso_mixup_alpha, self.iso_mixup_alpha, S), dtype=lat.dtype,
+                                    device=dev)[:, None]
+            lat = torch.where(mix[:, None], alpha * lat + (1 - alpha) * lat_rows[partner], lat)
+        lat = lat[:, None, :].expand(S, n, m)
+        total, out = lat.new_zeros(()), {}
+        training = self.decoder.training
+        self.decoder.eval()
+        try:
+            if self.use_isometry:
+                probes = torch.randn(S, self.iso_num_probes, m, generator=gen, device=dev)
+                loss, a = isometry_loss(self.decoder, lat, pts, m, probes)
+                iso = loss.mean() * self.lambda_iso
+                total = total + iso
+                out.update(iso=iso.detach(), iso_g1=a["iso_g1"].mean(), iso_g2=a["iso_g2"].mean())
+            if self.use_grad_metric_iso:
+                loss, _ = grad_metric_isotropy_loss(self.decoder, lat, pts, m, self.grad_metric_iso_alpha,
+                                                    self.grad_metric_iso_normalize)
+                gmi = loss.mean() * self.grad_metric_iso_lambda
+                total = total + gmi
+                out["grad_metric_iso"] = gmi.detach()
+        finally:
+            self.decoder.train(training)
+        return total, out
+
+    def _latent_batch_losses(self, scene_idx):
+        """Covariance and the GMM prior on the batch's latent rows, once per
+        step (msd_tpu/train/stage1.py:555-574); returns (their sum, metrics)."""
+        rows = self.latents[scene_idx]
+        total, aux = rows.new_zeros(()), {}
+        if self.use_covariance:
+            cov = self.lambda_cov * covariance_loss(rows)
+            total = total + cov
+            aux["covariance"] = cov.detach()
+        if self.use_gmm_prior:
+            nll, gmm_aux = gmm_prior_loss(self.gmm, rows, min_sigma=self.gmm_min_sigma, learn_pi=self.gmm_learn_pi)
+            gmm = self.gmm_lambda * nll
+            total = total + gmm
+            aux["gmm"] = gmm.detach()
+            aux.update(gmm_aux)
+        return total, aux
+
+    def step(self, scene_idx, batch, epoch, lr_net, lr_lat, batch_split: int = 1, generator=None):
         """One training step on ``batch`` [4, B, P] (SoA: x, y, z, sdf) of
         the scenes ``scene_idx`` [B] (long); returns the step's metrics as
         device scalars. Counterpart of ``step`` in
@@ -258,7 +371,9 @@ class Stage1Trainer:
         gradients, the clamped L1 keeps the full batch's normalizer and
         the chunks' eikonal means are summed. Over several ranks every rank
         passes the same batch; a chunk is padded to a multiple of the world
-        size with scenes that alias scene 0 and carry weight 0."""
+        size with scenes that alias scene 0 and carry weight 0.
+        ``generator`` (on the trainer's device) gives the isometry terms'
+        draws; None seeds one from (Seed, step)."""
         B, P = self.scene_per_batch, self.num_samp_per_scene
         num_total = B * P
         world = self.world_size
@@ -274,9 +389,16 @@ class Stage1Trainer:
             for p in group.values():
                 p.grad = None
         dev = self.latents.device
-        aux = {k: torch.zeros((), device=dev) for k in ("sdf", "eikonal", "reg")}
+        iso = self.use_isometry or self.use_grad_metric_iso
+        iso_keys = (("iso", "iso_g1", "iso_g2") if self.use_isometry else ()) + (
+            ("grad_metric_iso",) if self.use_grad_metric_iso else ())
+        aux = {k: torch.zeros((), device=dev) for k in ("sdf", "eikonal", "reg") + iso_keys}
+        if iso:
+            gen = generator or torch.Generator(device=dev).manual_seed(step_seed(self.seed, self.global_batch_idx))
+            rng = np.random.default_rng([self.seed, self.global_batch_idx])
         # over ranks the autograd path sums its gradients after the chunks;
-        # the code regulariser, alike on every rank, enters rank 0's only
+        # the code regulariser and the isometry terms, alike on every rank,
+        # enter rank 0's only
         sum_after = world > 1 and not self.use_fused
         for i in range(batch_split):
             idx_c = scene_idx[i * bs:(i + 1) * bs]
@@ -305,16 +427,31 @@ class Stage1Trainer:
                 aux["reg"] = aux["reg"] + reg.detach()
                 if not sum_after or self.group.is_main:
                     total = total + reg
+            if iso and (not sum_after or self.group.is_main):
+                iso_total, iso_aux = self._isometry_losses(lat_rows[:bs], xyz[:bs], gt[:bs], gen, rng)
+                total = total + iso_total
+                for k, v in iso_aux.items():
+                    aux[k] = aux[k] + v
             total.backward()
             aux["sdf"] = aux["sdf"] + sdf
             aux["eikonal"] = aux["eikonal"] + eik
         if sum_after:
             self.group.all_reduce_([p.grad for p in self.decoder.parameters()]
-                                   + [self.latents.grad, aux["sdf"], aux["eikonal"]])
-        norms = self.optimizer.step({"net": lr_net, "lat": lr_lat}, max_norm=self.grad_clip)
+                                   + [self.latents.grad, aux["sdf"], aux["eikonal"]] + [aux[k] for k in iso_keys])
+        if self.use_covariance or self.use_gmm_prior:
+            # after the sum over ranks: every rank adds the same term once
+            lb_total, lb_aux = self._latent_batch_losses(scene_idx)
+            if lb_total.requires_grad:
+                lb_total.backward()
+            aux.update(lb_aux)
+        lrs = {"net": lr_net, "lat": lr_lat, "gmm": lr_lat}
+        norms = self.optimizer.step({g: lrs[g] for g in self.optimizer.groups}, max_norm=self.grad_clip)
         if "net" in norms:
             aux["net_grad_norm"] = norms["net"]
         aux["total"] = aux["sdf"] + aux["eikonal"] + aux["reg"]
+        for k in ("iso", "grad_metric_iso", "covariance", "gmm"):
+            if k in aux:
+                aux["total"] = aux["total"] + aux[k]
         return aux
 
     def _param_norms(self):
@@ -342,7 +479,7 @@ class Stage1Trainer:
             self.global_batch_idx += 1
             gen = torch.Generator(device=dev).manual_seed(step_seed(self.seed, self.global_batch_idx))
             batch = sample_sdf_batch(pos, pc, neg, nc, idx_all[i], self.num_samp_per_scene, gen)
-            steps.append(self.step(idx_all[i], batch, epoch, lr_net, lr_lat, batch_split))
+            steps.append(self.step(idx_all[i], batch, epoch, lr_net, lr_lat, batch_split, gen))
         keys = sorted(steps[0])
         extra = {"lat_mag_post": torch.linalg.vector_norm(self.latents.detach(), dim=1).mean()}
         extra.update({"pm_" + k: v for k, v in self._param_norms().items()})
@@ -390,6 +527,18 @@ class Stage1Trainer:
         w.add_scalar("Loss/train_reg", mean["reg"], epoch)
         if self.use_eikonal:
             w.add_scalar("Loss/train_eikonal", mean["eikonal"], epoch)
+        if self.use_covariance:
+            w.add_scalar("Loss/train_covariance", mean["covariance"], epoch)
+        if self.use_gmm_prior:
+            w.add_scalar("Loss/train_gmm", mean["gmm"], epoch)
+            w.add_scalar("Loss/train_gmm_nll", mean["gmm_nll"], epoch)
+            w.add_scalar("Loss/train_gmm_entropy", mean["gmm_entropy"], epoch)
+        if self.use_isometry:
+            w.add_scalar("Loss/train_isometry", mean["iso"], epoch)
+            w.add_scalar("Loss/train_isometry_G1", mean["iso_g1"], epoch)
+            w.add_scalar("Loss/train_isometry_G2", mean["iso_g2"], epoch)
+        if self.use_grad_metric_iso:
+            w.add_scalar("Loss/train_grad_metric_iso", mean["grad_metric_iso"], epoch)
         w.add_scalar("Learning Rate/Params", lr_pair[0], epoch)
         w.add_scalar("Learning Rate/Latent", lr_pair[1], epoch)
         w.add_scalar("Mean Latent Magnitude/train", mean["lat_mag_post"], epoch)

@@ -11,10 +11,12 @@ between the reference, ``msd_tpu`` and this port in every direction:
   stores the VAE's mu there;
 * OptimizerParameters/<E>.pth = {"epoch", "optimizer_state_dict":
   {"msd_tpu_adam": [count, mu leaves..., nu leaves...]}}, ``msd_tpu``'s
-  layout: its Adam state flattened in JAX's order (sorted dict keys: "lat"
-  before "net", "sdf" before "vae", then "bn<i>"/"lin<i>" by name, then "b"
-  before "w", or "b", "g", "v"; "bias" before "scale"; list entries in
-  order), weights stored [in, out];
+  layout: its Adam state flattened in JAX's order (sorted dict keys: "gmm"
+  (the GMM prior's "log_sigma", "logits", "mu") before "lat" before "net",
+  "sdf" before "vae", then "bn<i>"/"lin<i>" by name, then "b" before "w",
+  or "b", "g", "v"; "bias" before "scale"; list entries in order), weights
+  stored [in, out]. As in ``msd_tpu``, no file holds the GMM parameters
+  themselves, only their moments;
 * Logs.pth                    = loss/lr/timing/magnitude histories + epoch.
 """
 
@@ -149,20 +151,22 @@ def _load_flat(experiment_directory, filename, optimizer, entries):
     return data["epoch"]
 
 
-def _stage1_entries(decoder):
-    return [("lat", "weight", None)] + [("net", n, tr) for _, n, tr in msd_tpu_names(decoder)]
+def _stage1_entries(decoder, optimizer):
+    gmm = [("gmm", k, None) for k in sorted(optimizer.groups.get("gmm", ()))]
+    return gmm + [("lat", "weight", None)] + [("net", n, tr) for _, n, tr in msd_tpu_names(decoder)]
 
 
 def save_optimizer(experiment_directory, filename, decoder, optimizer, epoch):
     """``optimizer``: ``utils.optim.GroupAdam`` over groups "net" (the
-    decoder's parameters by name) and "lat" (the latent table)."""
-    _save_flat(experiment_directory, filename, optimizer, _stage1_entries(decoder), epoch)
+    decoder's parameters by name), "lat" (the latent table) and, with the
+    GMM prior, "gmm"."""
+    _save_flat(experiment_directory, filename, optimizer, _stage1_entries(decoder, optimizer), epoch)
 
 
 def load_optimizer(experiment_directory, filename, decoder, optimizer):
     """Fill ``optimizer`` (count and moments, on their devices) from a file
     in ``msd_tpu``'s layout; returns the epoch."""
-    return _load_flat(experiment_directory, filename, optimizer, _stage1_entries(decoder))
+    return _load_flat(experiment_directory, filename, optimizer, _stage1_entries(decoder, optimizer))
 
 
 def _stage2_entries(vae, sdf_decoder):

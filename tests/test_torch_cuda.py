@@ -532,6 +532,40 @@ def test_trainer_k2_variant_c_on_card(dev, train_data, tmp_path):
     assert all(np.isfinite(v) for v in m.values())
 
 
+def test_trainer_gmm_step_k2_b_against_autograd(dev, train_data, tmp_path):
+    """A step in the manner of the minimal_eikonal_gmm configs (eikonal, GMM
+    prior, covariance) on K2 b against the same trainer's float32 autograd
+    path from the same state: K2 b once; the losses and GMM gradients to
+    1e-5 relative (both see the same latent rows); the decoder and latent
+    gradients within the smoke's K2-versus-autograd limits."""
+    from msd_tpu_torch.data.sdf_samples import sample_sdf_batch
+    from msd_tpu_torch.ops import fused_train as ft
+    from msd_tpu_torch.train.stage1 import Stage1Trainer
+
+    specs = dict(train_data, UseGMMPriorLoss=True, UseCovarianceLoss=True, GMMLambda=1e-2, GMMInitSigma=0.6,
+                 GMMMinSigma=0.5, CovarianceLossLambda=0.1)
+    k2 = Stage1Trainer(str(tmp_path / "k2"), specs=specs, device="cuda")
+    ag = Stage1Trainer(str(tmp_path / "ag"), specs=dict(specs, UseFusedTrainKernel=False), device="cuda")
+    assert k2.use_fused and not ag.use_fused and set(k2.optimizer.groups) == {"net", "lat", "gmm"}
+    idx = torch.tensor([3, 0], device=dev)
+    pos, pc, neg, nc = k2.dataset.device_arrays(dev)
+    batch = sample_sdf_batch(pos, pc, neg, nc, idx, 256, torch.Generator(device=dev).manual_seed(5))
+    before = dict(ft.VARIANT_LAUNCHES)
+    a = k2.step(idx, batch, 3, 5e-4, 1e-3)
+    b = ag.step(idx, batch, 3, 5e-4, 1e-3)
+    assert ft.VARIANT_LAUNCHES["b"] == before["b"] + 1
+    assert sum(ft.VARIANT_LAUNCHES.values()) == sum(before.values()) + 1
+    for k in ("covariance", "gmm", "gmm_nll", "gmm_entropy"):
+        assert torch.isfinite(a[k]) and abs(float(a[k]) - float(b[k])) <= 1e-5 * abs(float(b[k])), k
+    for k in ("mu", "log_sigma"):
+        assert _rel(k2.gmm[k].grad, ag.gmm[k].grad) < 1e-5, k
+    assert k2.gmm["logits"].grad is None and ag.gmm["logits"].grad is None  # GMMLearnPi false
+    grads = [(p.grad, q.grad) for p, q in zip(k2.decoder.parameters(), ag.decoder.parameters())]
+    for got, ref in grads + [(k2.latents.grad, ag.latents.grad)]:
+        cos = float((got.double() * ref.double()).sum() / (got.double().norm() * ref.double().norm()))
+        assert _rel(got, ref) < 0.15 and cos > 0.99
+
+
 def _dp_rank(group, specs, exp, idx, batch):
     from msd_tpu_torch.ops import fused_train as ft
     from msd_tpu_torch.train.stage1 import Stage1Trainer

@@ -128,10 +128,26 @@ def test_init_is_seeded_and_bounded():
 
 
 def test_registry_builds_deepsdf_and_rejects_others():
+    """The DeepSDF decoder builds; a NetworkArch the registry does not know raises."""
     dec = build_decoder("deep_sdf_decoder", 8, {"dims": [16, 16], "latent_in": [1]})
     assert isinstance(dec, DeepSDFDecoder)
-    with pytest.raises(KeyError, match="not ported"):
-        build_decoder("siren_decoder", 8, {})
+    with pytest.raises(KeyError, match="unknown NetworkArch"):
+        build_decoder("pointnet_decoder", 8, {})
+
+
+@pytest.mark.parametrize("arch,specs", [
+    ("deep_sdf_decoder", {"dims": [16, 16], "latent_in": [1]}),
+    ("siren_decoder", {"dims": [32, 32], "latent_in": [1], "xyz_in": [1], "nonlinearity": "sine"}),
+    ("local_decoder", {"dims": [32, 32], "grid_size": 4, "global_latent_size": 8}),
+])
+def test_registry_builds_every_architecture(arch, specs):
+    """All three architectures of msd_tpu's registry build from a seed, the
+    same weights from the same seed."""
+    a = build_decoder(arch, 8, specs, generator=torch.Generator().manual_seed(3))
+    b = build_decoder(arch, 8, specs, generator=torch.Generator().manual_seed(3))
+    assert type(a).__name__ == {"deep_sdf_decoder": "DeepSDFDecoder", "siren_decoder": "SirenDecoder",
+                                "local_decoder": "LocalShapesDecoder"}[arch]
+    assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
 
 
 def test_give_surface_cuts_the_box():

@@ -56,13 +56,17 @@ def stage1_experiment(tmp_path, **overrides):
 
 def trainer_state(tr):
     """Parameters, pre-clip gradients, latents and Adam state of a Stage-1
-    trainer, on the CPU."""
+    trainer, on the CPU; the GMM prior's parameters and gradients among the
+    decoder's, as "gmm.<name>"."""
     def cpu(d):
         return {k: v.detach().cpu().clone() for k, v in d.items()}
 
+    params = dict(tr.decoder.named_parameters())
+    params.update({"gmm." + k: v for k, v in (tr.gmm or {}).items()})
     return {
-        "params": cpu(dict(tr.decoder.named_parameters())),
-        "grads": {n: p.grad.detach().cpu().clone() for n, p in tr.decoder.named_parameters()},
+        "params": cpu(params),
+        "grads": {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().clone()
+                  for n, p in params.items()},
         "latents": tr.latents.detach().cpu().clone(),
         "lat_grad": tr.latents.grad.detach().cpu().clone(),
         "count": tr.optimizer.count,
@@ -77,6 +81,8 @@ def load_trainer_state(tr, state):
     with torch.no_grad():
         for n, p in tr.decoder.named_parameters():
             p.copy_(state["params"][n])
+        for k, p in (tr.gmm or {}).items():
+            p.copy_(state["params"]["gmm." + k])
         tr.latents.copy_(state["latents"])
         tr.optimizer.count = state["count"]
         for moments, src in ((tr.optimizer.mu, state["mu"]), (tr.optimizer.nu, state["nu"])):
@@ -161,6 +167,31 @@ def test_stage1_padded_step_on_3_ranks_equals_one_process(tmp_path, fused):
     for _, state in ranks[1:]:
         assert all(torch.equal(state["params"][n], ranks[0][1]["params"][n]) for n in state["params"])
         assert torch.equal(state["latents"], ranks[0][1]["latents"])
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["k2", "autograd"])
+def test_stage1_latent_batch_losses_on_3_ranks_equal_one_process(tmp_path, fused):
+    """Covariance and the GMM prior over 3 ranks (4 scenes padded to 6):
+    each rank adds their gradient once, after the sum over ranks, so
+    losses, gradients (the GMM's too), parameters and Adam state equal the
+    one-process step's to 1e-5."""
+    exp = stage1_experiment(tmp_path, UseFusedTrainKernel=fused, UseCovarianceLoss=True, UseGMMPriorLoss=True,
+                            GMMLearnPi=True, GMMLambda=1e-2, CovarianceLossLambda=1e-1)
+    one = Stage1Trainer(exp, device="cpu")
+    assert one.use_fused == fused and one.gmm is not None
+    idx = np.array([4, 1, 5, 2])
+    pos, pc, neg, nc = one.dataset.device_arrays(one.device)
+    batch = sample_sdf_batch(pos, pc, neg, nc, torch.as_tensor(idx), 256, torch.Generator().manual_seed(3))
+    ref = one.step(torch.as_tensor(idx), batch, 3.0, 1e-3, 5e-3)
+    ref = ({k: float(v) for k, v in ref.items()}, trainer_state(one))
+    assert ref[0]["gmm"] != 0 and ref[0]["covariance"] != 0
+    assert float(ref[1]["grads"]["gmm.mu"].abs().max()) > 0
+    ranks = run_ranks(stage1_rank, 3, (exp, None, idx, batch, 3.0, (1e-3, 5e-3)), devices=cpus(3),
+                      timeout=TIMEOUT)
+    for aux, state in ranks:
+        for k in ref[0]:
+            np.testing.assert_allclose(aux[k], ref[0][k], rtol=1e-5, atol=1e-9, err_msg=k)
+        assert_states_close(state, ref[1])
 
 
 def test_batch_split_with_padded_chunks_raises(tmp_path):

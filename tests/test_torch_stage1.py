@@ -41,14 +41,19 @@ def _experiment(tmp_path, **overrides):
 
 
 def _port_from_jax(port, jt):
-    """Copy msd_tpu's parameters, latents and Adam state into the port."""
+    """Copy msd_tpu's parameters, latents, GMM parameters and Adam state
+    into the port."""
     params = jax.tree.map(np.asarray, jt.state["net"])
     port.decoder.load_state_dict(params_from_jax(port.decoder, params))
     with torch.no_grad():
         port.latents.copy_(torch.tensor(np.asarray(jt.state["lat"])))
+        for k, v in jt.state.get("gmm", {}).items():
+            port.gmm[k].copy_(torch.tensor(np.asarray(v)))
     port.optimizer.count = int(jt.opt_state.count)
     for moments, jm in ((port.optimizer.mu, jt.opt_state.mu), (port.optimizer.nu, jt.opt_state.nu)):
         moments["lat"]["weight"].copy_(torch.tensor(np.asarray(jm["lat"])))
+        for k, v in jm.get("gmm", {}).items():
+            moments["gmm"][k].copy_(torch.tensor(np.asarray(v)))
         for path, name, transposed in ckpt.msd_tpu_names(port.decoder):
             mod, leaf = path.split(".")
             v = torch.tensor(np.asarray(jm["net"][mod][leaf]))
@@ -88,6 +93,12 @@ def _assert_state_matches(port, state, opt, tol=1e-5):
                                        rtol=tol, atol=tol, err_msg=path)
     for moments, jm in ((port.optimizer.mu, opt.mu), (port.optimizer.nu, opt.nu)):
         np.testing.assert_allclose(moments["lat"]["weight"].numpy(), np.asarray(jm["lat"]), rtol=tol, atol=tol)
+    assert ("gmm" in state) == (port.gmm is not None)
+    for k, v in state.get("gmm", {}).items():
+        np.testing.assert_allclose(port.gmm[k].detach().numpy(), np.asarray(v), rtol=tol, atol=tol, err_msg=k)
+        for moments, jm in ((port.optimizer.mu, opt.mu), (port.optimizer.nu, opt.nu)):
+            np.testing.assert_allclose(moments["gmm"][k].numpy(), np.asarray(jm["gmm"][k]), rtol=tol, atol=tol,
+                                       err_msg=k)
 
 
 @pytest.mark.parametrize("batch_split", [1, 2])
@@ -209,11 +220,116 @@ def test_checkpoints_cross_both_ways(tmp_path):
     _assert_state_matches(port, state, opt)
 
 
-def test_not_ported_features_raise(tmp_path):
-    exp = _experiment(tmp_path)
-    for key in ("UseCovarianceLoss", "UseGMMPriorLoss", "UseIsometryLoss", "UseGradMetricIsotropyLoss"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Stage1Trainer(exp, specs=dict(SPECS, **{key: True}), device="cpu")
+REGULARIZERS = {
+    "UseCovarianceLoss": ("covariance",),
+    "UseGMMPriorLoss": ("gmm", "gmm_nll", "gmm_entropy"),
+    "UseIsometryLoss": ("iso", "iso_g1", "iso_g2"),
+    "UseGradMetricIsotropyLoss": ("grad_metric_iso",),
+}
+
+
+@pytest.mark.parametrize("key", list(REGULARIZERS))
+def test_regularizer_builds_and_steps(tmp_path, key):
+    """Each Stage-1 regularizer builds and steps: finite metrics that the
+    total includes; isometry and grad-metric isotropy take the autograd
+    path, covariance and the GMM prior keep K2. The isometry terms run with
+    mixup and on a random 2 of each batch's 4 scenes."""
+    exp = _experiment(tmp_path, IsometryNumPoints=64, UseIsometryMixup=True, IsometryMixupProb=0.5,
+                      IsometryScenesPerBatch=2, **{key: True})
+    trainer = Stage1Trainer(exp, device="cpu")
+    assert trainer.use_fused == (key in ("UseCovarianceLoss", "UseGMMPriorLoss"))
+    assert ("gmm" in trainer.optimizer.groups) == (key == "UseGMMPriorLoss")
+    mean = trainer.train_epoch(1)
+    for k in REGULARIZERS[key]:
+        assert np.isfinite(mean[k]), (k, mean)
+    extra = mean[REGULARIZERS[key][0]]
+    assert extra != 0.0
+    np.testing.assert_allclose(mean["total"], mean["sdf"] + mean["eikonal"] + mean["reg"] + extra, rtol=1e-5)
+
+
+def test_stage1_refuses_other_decoders(tmp_path):
+    exp = _experiment(tmp_path, NetworkArch="siren_decoder", NetworkSpecs={"dims": [32, 32]})
+    with pytest.raises(NotImplementedError, match="cannot checkpoint"):
+        Stage1Trainer(exp, device="cpu")
+
+
+@pytest.mark.parametrize("batch_split,learn_pi", [(1, False), (2, True)])
+def test_latent_batch_losses_step_matches_jax(tmp_path, monkeypatch, batch_split, learn_pi):
+    """Covariance and the GMM prior on K2 (its plain version; msd_tpu's
+    fused step through the Pallas interpreter), from the same parameters,
+    GMM and Adam state: loss parts, parameters, latents, GMM parameters and
+    every Adam moment to 1e-5."""
+    exp = _experiment(tmp_path, UseGMMPriorLoss=True, UseCovarianceLoss=True, GMMLearnPi=learn_pi,
+                      GMMLambda=1e-2, CovarianceLossLambda=1e-1, GMMK=3, GMMMinSigma=0.1)
+    monkeypatch.setenv("MSD_FUSED_FORCE", "interpret")
+    jt, port = JaxTrainer(exp), Stage1Trainer(exp, device="cpu")
+    assert port.use_fused and port.gmm is not None
+    _port_from_jax(port, jt)
+    idx = np.array([4, 1, 5, 2])
+    key = jax.random.PRNGKey(7)
+    state, opt, aux = _jax_step(jt, idx, key, 3.0, (1e-3, 5e-3), batch_split)
+    assert jt._fused_active
+    ours = port.step(torch.tensor(idx), _jax_batch(jt, idx, key), 3.0, 1e-3, 5e-3, batch_split)
+    for k in ("sdf", "eikonal", "reg", "covariance", "gmm", "gmm_nll", "gmm_entropy", "total", "net_grad_norm"):
+        np.testing.assert_allclose(float(ours[k]), aux[k], rtol=1e-5, atol=1e-8, err_msg=k)
+    _assert_state_matches(port, state, opt)
+
+
+def test_grad_metric_isotropy_step_matches_jax(tmp_path):
+    """Grad-metric isotropy on the autograd path against msd_tpu's XLA step.
+    IsometryNumPoints is every point of a scene and there is no mixup, so
+    the selection only permutes the points and the loss does not depend on
+    the draws: loss parts, parameters, latents and Adam moments to 1e-4."""
+    exp = _experiment(tmp_path, UseGradMetricIsotropyLoss=True, IsometryNumPoints=512, GradMetricIsoAlpha=0.5)
+    jt, port = JaxTrainer(exp), Stage1Trainer(exp, device="cpu")
+    assert not port.use_fused
+    _port_from_jax(port, jt)
+    idx = np.array([2, 5, 0, 3])
+    key = jax.random.PRNGKey(4)
+    state, opt, aux = _jax_step(jt, idx, key, 3.0, (1e-3, 5e-3))
+    assert not jt._fused_active
+    ours = port.step(torch.tensor(idx), _jax_batch(jt, idx, key), 3.0, 1e-3, 5e-3)
+    assert aux["grad_metric_iso"] > 0
+    for k in ("sdf", "eikonal", "reg", "grad_metric_iso", "total", "net_grad_norm"):
+        np.testing.assert_allclose(float(ours[k]), aux[k], rtol=1e-4, atol=1e-8, err_msg=k)
+    _assert_state_matches(port, state, opt, tol=1e-4)
+
+
+def test_gmm_optimizer_file_crosses_both_ways(tmp_path):
+    """An optimizer file with the GMM prior's moments, written by msd_tpu,
+    resumes in the port and back; neither package saves the GMM parameters,
+    so a resumed run starts them afresh from the seed, and only their Adam
+    moments carry over."""
+    exp = _experiment(tmp_path, UseGMMPriorLoss=True, GMMLearnPi=True, GMMLambda=1e-2)
+    jt = JaxTrainer(exp)
+    jt.train_epoch(1)
+    jt.epoch = 1
+    jt.save_checkpoint("1")
+    jt.save_logs()
+    port = Stage1Trainer(exp, device="cpu")
+    fresh = {k: v.detach().clone() for k, v in port.gmm.items()}
+    assert port.resume("1") == 2
+    assert all(torch.equal(port.gmm[k], fresh[k]) for k in fresh)
+    for moments, jm in ((port.optimizer.mu, jt.opt_state.mu), (port.optimizer.nu, jt.opt_state.nu)):
+        for k, v in jm["gmm"].items():
+            assert np.any(np.asarray(v)), k
+            np.testing.assert_array_equal(moments["gmm"][k].numpy(), np.asarray(v), err_msg=k)
+    port.train_epoch(2)
+    port.epoch = 2
+    port.save_checkpoint("2")
+    port.save_logs()
+    jt2 = JaxTrainer(exp)
+    assert jt2.resume("2") == 3
+    for moments, jm in ((port.optimizer.mu, jt2.opt_state.mu), (port.optimizer.nu, jt2.opt_state.nu)):
+        for k in ("log_sigma", "logits", "mu"):
+            np.testing.assert_array_equal(moments["gmm"][k].numpy(), np.asarray(jm["gmm"][k]), err_msg=k)
+    assert int(jt2.opt_state.count) == port.optimizer.count
+    # a file without a GMM does not load into a trainer with one
+    plain = Stage1Trainer(exp, specs=dict(port.specs, UseGMMPriorLoss=False), device="cpu")
+    plain.epoch = 3
+    plain.save_checkpoint("3")
+    with pytest.raises(Exception, match="structure mismatch"):
+        ckpt.load_optimizer(exp, "3.pth", port.decoder, port.optimizer)
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["k2_c", "autograd"])

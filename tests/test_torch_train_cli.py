@@ -121,3 +121,34 @@ def test_eval_test_writes_meshes_and_scalars(experiment, tmp_path):
         assert os.path.isfile(os.path.join(exp, ws.tb_logs_dir, ws.tb_logs_test_reconstructions, name, "epoch=3.ply"))
     trainer.writer.flush()
     assert any(f.startswith("events") for f in os.listdir(os.path.join(exp, ws.tb_logs_dir)))
+
+
+@pytest.mark.parametrize("dataset", ["ADNI", "OAI-ZIB"])
+def test_cli_trains_shipped_gmm_config(experiment, tmp_path, dataset):
+    """A shipped minimal_eikonal_gmm specs.json through the CLI: its data
+    paths, widths and epochs cut to the tiny experiment's, warm-started from
+    that experiment's decoder (PretrainedSDFDecoderDir). It trains on K2 with
+    the GMM prior as a third optimizer group, whose moments the optimizer
+    file carries first."""
+    from chip_smoke import ROOT
+
+    exp, data, split_path, _ = experiment
+    with open(os.path.join(ROOT, "examples", dataset, "minimal_eikonal_gmm", "specs.json")) as f:
+        specs = json.load(f)
+    assert specs["UseGMMPriorLoss"] and specs["UsePretrainedSDFDecoder"]
+    changes = dict(DataSource=os.path.join(data, "SdfSamples"), TrainSplit=split_path, TestSplit=split_path,
+                   NetworkSpecs=SPECS["NetworkSpecs"], CodeLength=SPECS["CodeLength"], SamplesPerScene=256,
+                   ScenesPerBatch=2, NumEpochs=2, SnapshotFrequency=2, AdditionalSnapshots=[], EvalTrainFrequency=0,
+                   EvalTestFrequency=0, PretrainedSDFDecoderDir=exp)
+    gmm_exp = str(tmp_path / "gmm")
+    ws.save_experiment_specifications(gmm_exp, dict(specs, **changes))
+    trainer = train_deep_sdf.main(["-e", gmm_exp, "--device", "cpu", "--quiet"])
+    assert trainer.use_fused and trainer.epoch == 2 and set(trainer.optimizer.groups) == {"gmm", "lat", "net"}
+    assert len(trainer.loss_log) == 4 and np.all(np.isfinite(trainer.loss_log))
+    opt = torch.load(os.path.join(gmm_exp, ws.optimizer_params_subdir, "latest.pth"), weights_only=False)
+    flat = opt["optimizer_state_dict"]["msd_tpu_adam"]
+    n_net = len(list(trainer.decoder.parameters()))
+    assert len(flat) == 1 + 2 * (3 + 1 + n_net)
+    K, L = specs["GMMK"], SPECS["CodeLength"]
+    assert [tuple(t.shape) for t in flat[1:5]] == [(K, L), (K,), (K, L), (4, L)]  # log_sigma, logits, mu, lat
+    torch.testing.assert_close(flat[1:4], [trainer.optimizer.mu["gmm"][k].cpu() for k in ("log_sigma", "logits", "mu")])
