@@ -93,6 +93,25 @@ non-zero and prints no result. Phases, one JSON line each:
    split, and the trainer's step on K2 d against its float32 autograd path
    (loss and VAE gradient).
 
+10b. stage2_points: Stage 2 in points mode on the same Stage-1 experiment:
+   the flagship Stage-2 spec with EncoderType pointnet2 (PointNet++, the
+   point VAE's default; no shipped config sets a point encoder),
+   SurfacePointCount 2048 from DataSourceMesh, the ellipsoids' .obj meshes
+   that write_dataset writes with the port's save_obj, every flagship loss
+   on, ScenesPerBatch 32, K2 d. Driven through the trainer API, as
+   msd_tpu's points-mode tests drive it (tests/test_stage2_points_mode.py),
+   since a CLI run stops at its first snapshot: 4 epochs of train_epoch (K2
+   d once per step), run_eval on the train split and 2 meshes of z_hat at
+   N=257 (K1), compute_vae_latents twice (equal bits, BatchNorm statistics
+   fixed), save_checkpoint refused. Then the step's median ms, peak device
+   memory, K2 d's launches per step, a torch.profiler split (device ms,
+   operations, idle share, the largest other kernels), and FPS, the ball
+   query and K2 d alone at the step's shapes (CUDA events and profiler) as
+   shares of the step, with FPS also replayed as one CUDA graph. Then
+   resnet_pointnet and pointnet_encoder 2 epochs each: finite losses, K2 d
+   once per step, pointnet_encoder's BatchNorm means moved by training and
+   fixed by compute_vae_latents.
+
 11. k2ce: K2 variants c (EikonalNumPoints 4096 of 16384 points per scene)
    and e (per-scene 0/1 weights; eikonal on, one pad scene) against float32
    autograd and their plain version on 4 seeded scenes x 16384 points, then
@@ -202,20 +221,42 @@ def ellipsoid_samples(axes, n, rng):
     return pos[:n], neg[:n], surface(30000).astype(np.float32)
 
 
+def ellipsoid_mesh(axes, n_theta=24, n_phi=48):
+    """(verts [V, 3], faces [F, 3]) of a UV-triangulated ellipsoid with
+    semi-axes ``axes``, centred at the origin; faces wind outwards."""
+    theta = np.linspace(0, np.pi, n_theta)[1:-1]
+    phi = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    t, p = np.meshgrid(theta, phi, indexing="ij")
+    ring = np.stack([np.sin(t) * np.cos(p), np.sin(t) * np.sin(p), np.cos(t)], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0, 0, 1]], ring, [[0, 0, -1]]]) * np.asarray(axes)
+    n_ring, bottom = n_theta - 2, len(verts) - 1
+    j, jn = np.arange(n_phi), (np.arange(n_phi) + 1) % n_phi
+    faces = [np.stack([np.zeros(n_phi, int), 1 + j, 1 + jn], 1),
+             np.stack([np.full(n_phi, bottom), 1 + (n_ring - 1) * n_phi + jn, 1 + (n_ring - 1) * n_phi + j], 1)]
+    for r in range(n_ring - 1):
+        a, b = 1 + r * n_phi, 1 + (r + 1) * n_phi
+        faces += [np.stack([a + j, b + j, b + jn], 1), np.stack([a + j, b + jn, a + jn], 1)]
+    return verts.astype(np.float32), np.concatenate(faces).astype(np.int32)
+
+
 def write_dataset(data_dir, n_shapes, n_samples, seed):
     """SdfSamples/SurfaceSamples of ``n_shapes`` seeded ellipsoids under
-    ``data_dir`` (dataset "smoke", class "ellipsoid"); returns the nested
-    split."""
-    from msd_tpu_torch.data.mesh_io import save_ply
+    ``data_dir`` (dataset "smoke", class "ellipsoid") and each one's mesh
+    as ``Meshes/<id>.obj`` (the point encoders' DataSourceMesh); returns
+    the nested split."""
+    from msd_tpu_torch.data.mesh_io import save_obj, save_ply
 
     rng = np.random.default_rng(seed)
     names = [f"ellipsoid{i}" for i in range(n_shapes)]
+    os.makedirs(os.path.join(data_dir, "Meshes"), exist_ok=True)
     for name in names:
-        pos, neg, surf = ellipsoid_samples(rng.uniform(0.35, 0.7, 3), n_samples, rng)
+        axes = rng.uniform(0.35, 0.7, 3)
+        pos, neg, surf = ellipsoid_samples(axes, n_samples, rng)
         for sub in ("SdfSamples", "SurfaceSamples"):
             os.makedirs(os.path.join(data_dir, sub, "smoke", "ellipsoid"), exist_ok=True)
         np.savez(os.path.join(data_dir, "SdfSamples", "smoke", "ellipsoid", name + ".npz"), pos=pos, neg=neg)
         save_ply(os.path.join(data_dir, "SurfaceSamples", "smoke", "ellipsoid", name + ".ply"), surf)
+        save_obj(os.path.join(data_dir, "Meshes", name + ".obj"), *ellipsoid_mesh(axes))
     return {"smoke": {"ellipsoid": names}}
 
 
@@ -1067,7 +1108,7 @@ def profile_steps(step, n):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    by_name = {}
+    by_name, other = {}, {}
     kernels = 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -1079,11 +1120,15 @@ def profile_steps(step, n):
         name = next((k for k in ("chain_kernel", "wgrad_kernel", "last_kernel", "eik_kernel", "skinny_kernel")
                      if k in e.key), "other")
         by_name[name] = by_name.get(name, 0.0) + us / 1e3 / n
+        if name == "other":
+            other[e.key[:80]] = (us / 1e3 / n, e.count / n)
     device_ms = sum(by_name.values())
     if device_ms == 0:
         return {"note": "the profiler recorded no device time: not measured"}
+    top = sorted(other.items(), key=lambda kv: -kv[1][0])[:8]
     return {"ms_per_step_by_kernel": by_name, "device_ms_per_step": device_ms, "device_ops_per_step": kernels / n,
-            "wall_ms_per_step": wall_ms / n, "device_idle_share": 1 - device_ms / (wall_ms / n)}
+            "wall_ms_per_step": wall_ms / n, "device_idle_share": 1 - device_ms / (wall_ms / n),
+            "top_other": {k: {"ms_per_step": ms, "launches_per_step": c} for k, (ms, c) in top}}
 
 
 def step_times(trainer, seed, n=11):
@@ -1372,6 +1417,201 @@ def stage2(root, seed, device="cuda", changes=None):
         "scenes_per_s": B / (step_med * 1e-3), "k2_kernel_launches_per_step": kernel_launches, "profile": profile,
         "autograd_step_ms": autograd_step_ms, "step_vs_autograd": vs_autograd,
     }, k2_first + k2_resumed, k1_first + k1_resumed
+
+
+def stage2_points(root, seed, device="cuda", changes=None):
+    """Stage 2 in points mode on the Stage-1 experiment and data the
+    training phase left under ``root`` (and the stage2 phase's labels.pt):
+    the flagship Stage-2 spec with EncoderType pointnet2 and 2048 surface
+    points per shape from the ellipsoids' meshes, driven through the trainer
+    API as msd_tpu's points-mode tests drive it (a CLI run stops at its
+    first snapshot: no point-encoder VAE can be checkpointed). Returns
+    (phase summary, K2 d launches, K1 launches). ``changes`` updates the
+    spec further (a CPU rehearsal shrinks it with them)."""
+    import torch
+
+    import msd_tpu_torch.workspace as ws
+    from msd_tpu_torch.data.sdf_samples import sample_sdf_batch
+    from msd_tpu_torch.models import pointnet2
+    from msd_tpu_torch.ops import fused_mlp, fused_train
+    from msd_tpu_torch.ops.fused_train import fused_sdf_l1
+    from msd_tpu_torch.train import stage2_eval as ev
+    from msd_tpu_torch.train.stage2 import Stage2Trainer
+
+    t0 = time.time()
+    stage1_exp, data_dir = os.path.join(root, "train_experiment"), os.path.join(root, "train_data")
+    split_path = os.path.join(root, "train_split.json")
+    with open(FLAGSHIP_STAGE2) as f:
+        specs = json.load(f)
+    changed = {
+        "DataSource": os.path.join(data_dir, "SdfSamples"), "TrainSplit": split_path, "TestSplit": split_path,
+        "PretrainedLatentPath": os.path.join(stage1_exp, ws.latent_codes_subdir, "latest.pth"),
+        "PretrainedSDFDecoderPath": os.path.join(stage1_exp, ws.model_params_subdir, "latest.pth"),
+        "DataSourceMesh": os.path.join(data_dir, "Meshes"), "EncoderType": "pointnet2", "SurfacePointCount": 2048,
+        "EvalGTMeshDir": os.path.join(data_dir, "SurfaceSamples", "smoke", "ellipsoid"), "EvalGTMeshExt": ".ply",
+        **(changes or {}),
+    }
+    base = dict(specs, **changed)
+    exp = os.path.join(root, "stage2_points_experiment")
+    ws.save_experiment_specifications(exp, base)
+    trainer = Stage2Trainer(exp, device=device)
+    dev = trainer.device
+    card = dev.type == "cuda"  # the counters count CUDA launches; a CPU rehearsal runs the plain versions
+    S, B, P = trainer.num_scenes, trainer.scene_per_batch, trainer.num_samp_per_scene
+    cloud = trainer.dataset.surface_points.shape[1]
+    if (trainer.vae_input_mode != "points" or not trainer.fused_ok or trainer.train_sdf_decoder
+            or trainer.dataset.surface_points.shape != (S, changed["SurfacePointCount"], 3)):
+        raise AssertionError("the points-mode trainer did not take K2 d on surface clouds")
+    t_setup = time.time() - t0
+
+    # a few epochs of train_epoch, the counters set to 0 just before
+    epochs, nb = 4, len(trainer.train_indices) // B
+    fused_train.LAUNCHES = fused_mlp.LAUNCHES = 0
+    t0 = time.time()
+    metrics = []
+    for e in range(1, epochs + 1):
+        trainer.epoch = e
+        metrics.append(trainer.train_epoch(e))
+    _sync(dev)
+    t_train = time.time() - t0
+    k2_train = fused_train.LAUNCHES
+    if k2_train != epochs * nb * card:
+        raise AssertionError(f"K2 d launches {k2_train}, want one per step ({epochs * nb})")
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"non-finite training metrics: {metrics}")
+
+    # the eval epoch's pieces: run_eval and two meshes of z_hat through K1
+    fused_mlp.LAUNCHES = 0
+    recorder = ScalarRecorder()
+    kl_w, crw = trainer.epoch_weights(epochs)[2:]
+    em = ev.run_eval(trainer, epochs, "eval_train", scene_indices=trainer.train_indices, kl_weight=kl_w,
+                     code_reg_weight=crw, writer=recorder)
+    written, _ = ev.generate_eval_meshes(trainer, epochs, "train", trainer.train_indices[:2], writer=recorder,
+                                         return_meshes=True)
+    _sync(dev)
+    k1_eval = fused_mlp.LAUNCHES
+    if card and k1_eval <= 0:
+        raise AssertionError("the eval meshes launched no K1")
+    if not all(math.isfinite(v) for v in em.values()):
+        raise AssertionError(f"non-finite eval metrics: {em}")
+
+    # the latent export, twice, in eval mode: equal bits, statistics fixed
+    stats = {k: v.clone() for k, v in trainer.vae.state_dict().items() if "running_" in k}
+    mu_a, mu_b = trainer.compute_vae_latents(), trainer.compute_vae_latents()
+    if not (np.array_equal(mu_a, mu_b) and np.isfinite(mu_a).all() and mu_a.shape == (S, trainer.vae_latent_dim)):
+        raise AssertionError("compute_vae_latents: two calls differ or are not finite")
+    if not all(torch.equal(v, trainer.vae.state_dict()[k]) for k, v in stats.items()):
+        raise AssertionError("compute_vae_latents moved the BatchNorm statistics")
+    try:
+        trainer.save_checkpoint("latest")
+    except NotImplementedError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("save_checkpoint of a point-encoder VAE did not raise")
+
+    # the step on one batch: time, peak memory, K2 d's launches and share
+    pos, pc, neg, nc = trainer.dataset.device_arrays(dev)
+    idx = torch.as_tensor(trainer.train_indices[:B], device=dev)
+    labels = trainer._batch_labels(trainer.train_indices[:B], np.random.default_rng(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = sample_sdf_batch(pos, pc, neg, nc, idx, P, gen)
+    weights = trainer.epoch_weights(epochs + 1)
+
+    def step():
+        return trainer.step(idx, labels, *[weights[i] for i in (2, 3, 0, 1)], batch=batch, generator=gen)
+
+    fused_train.reset_launches()
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(11):
+        _sync(dev)
+        t = time.perf_counter()
+        step()
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if card else None
+    if fused_train.LAUNCHES != len(step_ms) * card:
+        raise AssertionError(f"K2 d launches {fused_train.LAUNCHES} in {len(step_ms)} steps")
+    kernel_launches = {k: v / len(step_ms) for k, v in fused_train.KERNEL_LAUNCHES.items()}
+    if card:
+        check_chain_launches(kernel_launches, trainer.sdf_decoder, B, P, "d")
+    step_med = float(np.median(step_ms[1:]))
+    profile = profile_steps(step, 3)
+    with torch.no_grad():
+        z_hat = trainer.vae(trainer._surface_dev[idx], generator=gen)["z_hat"]
+    xyz, gt = batch[:3].permute(1, 2, 0).contiguous(), batch[3]
+
+    def k2d_call():
+        with torch.no_grad():
+            fused_sdf_l1(trainer.sdf_decoder, z_hat, xyz, gt, trainer.clamp_dist, train_net=False)
+
+    # FPS and the ball query alone at the step's shapes (both abstractions)
+    clouds = trainer._surface_dev[idx]
+    s1, s2 = trainer.vae.encoder.draw_starts(clouds, gen)
+    sa1, sa2 = pointnet2.PointNet2Encoder.SA_CONFIG[:2]
+    with torch.no_grad():
+        xyz1 = pointnet2.index_points(clouds, pointnet2.farthest_point_sample(clouds, sa1["npoint"], s1))
+        xyz2 = pointnet2.index_points(xyz1, pointnet2.farthest_point_sample(xyz1, sa2["npoint"], s2))
+
+    def fps():
+        pointnet2.farthest_point_sample(clouds, sa1["npoint"], s1)
+        pointnet2.farthest_point_sample(xyz1, sa2["npoint"], s2)
+
+    def ball_query():
+        pointnet2.query_ball_point(sa1["radius"], sa1["nsample"], clouds, xyz1)
+        pointnet2.query_ball_point(sa2["radius"], sa2["nsample"], xyz1, xyz2)
+
+    pieces = {}
+    for name, fn in (("k2d", k2d_call), ("fps", fps), ("ball_query", ball_query)):
+        ms = time_ms(fn) if card else None
+        prof = profile_steps(fn, 3)
+        pieces[name] = {"ms": ms, "share_of_step": ms / step_med if card else None, "profile": prof}
+        if card and "device_ms_per_step" in prof and "device_ms_per_step" in profile:
+            pieces[name]["device_share_of_step"] = prof["device_ms_per_step"] / profile["device_ms_per_step"]
+    if card:  # the same FPS work replayed as one CUDA graph: its launches off the host
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fps()
+        pieces["fps"]["cuda_graph_ms"] = time_ms(graph.replay)
+
+    # the other two encoders, 2 epochs each
+    others, k2_others = {}, 0
+    for enc in ("resnet_pointnet", "pointnet_encoder"):
+        e_exp = os.path.join(root, f"stage2_{enc}_experiment")
+        ws.save_experiment_specifications(e_exp, dict(base, EncoderType=enc))
+        tr = Stage2Trainer(e_exp, device=device)
+        # the per-point layers' BatchNorms (the z head's stays put with KL on)
+        bns = list(getattr(tr.vae.encoder, "bns", []))
+        before = [m.running_mean.clone() for m in bns]
+        fused_train.LAUNCHES = 0
+        ms = []
+        for e in (1, 2):
+            tr.epoch = e
+            ms.append(tr.train_epoch(e))
+        _sync(dev)
+        k2_others += fused_train.LAUNCHES
+        if fused_train.LAUNCHES != 2 * nb * card or not all(math.isfinite(v) for m in ms for v in m.values()):
+            raise AssertionError(f"{enc}: K2 d launches {fused_train.LAUNCHES} or non-finite losses {ms}")
+        r = {"epoch_losses": [m["total"] for m in ms], "k2d_launches": fused_train.LAUNCHES}
+        if enc == "pointnet_encoder":
+            after = [m.running_mean.clone() for m in bns]
+            tr.compute_vae_latents()
+            r["bn_means_moved"] = all(not torch.equal(a, b) for a, b in zip(before, after))
+            r["bn_means_fixed_in_eval"] = all(torch.equal(a, m.running_mean) for a, m in zip(after, bns))
+            if not (r["bn_means_moved"] and r["bn_means_fixed_in_eval"]):
+                raise AssertionError(f"pointnet_encoder BatchNorm means: {r}")
+        others[enc] = r
+    return {
+        "changed": changed, "scenes": S, "train_scenes": len(trainer.train_indices), "surface_points": cloud,
+        "setup_seconds": t_setup, "train_seconds": t_train, "steps": epochs * nb,
+        "epoch_losses": [m["total"] for m in metrics], "eval_metrics": em,
+        "eval_meshes_with_surface": f"{len(written)} of 2", "k2d_launches": k2_train, "k1_launches_eval": k1_eval,
+        "latents_bit_equal": True, "save_checkpoint_refused": refused,
+        "step_ms_median": step_med, "step_ms": step_ms, "scenes_per_s": B / (step_med * 1e-3),
+        "peak_memory_gb": peak_gb, "k2_kernel_launches_per_step": kernel_launches, "profile": profile,
+        "pieces": pieces, "other_encoders": others,
+    }, k2_train + k2_others, k1_eval
 
 
 # K2 c and e: K2 b's limits against the plain version, with the loss sums at
@@ -2106,6 +2346,8 @@ def main(argv=None):
         phase("training", **training)
         stage2_summary, k2d_launches, k1_stage2 = stage2(root, args.seed)
         phase("stage2", **stage2_summary)
+        points_summary, k2d_points, k1_points = stage2_points(root, args.seed)
+        phase("stage2_points", **points_summary)
         k2ce = check_k2ce(decoder, args.seed, dev)
         training_eik, k2c_launches = train_eik(root, specs, args.seed)
         phase("training_eik4096", **training_eik)
@@ -2127,6 +2369,7 @@ def main(argv=None):
     print(json.dumps({"kernels": [{
         "name": "fused_mlp", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "msd_tpu/ops/fused_mlp.py:211", "launches": launches, "launches_stage2": k1_stage2,
+        "launches_stage2_points": k1_points,
         "max_abs_err": worst(bf16), "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes the whole decoder",
@@ -2159,6 +2402,7 @@ def main(argv=None):
                      | {"max_abs_err": k2d["vs_plain"]["dlat"]["max_abs_err"],
                         "max_rel_frobenius": k2d["vs_plain"]["dlat"]["rel"], "loss_rel": k2d["vs_plain"]["loss_rel"],
                         "launches": k2d_launches, "step_ms": stage2_summary["step_ms_median"],
+                        "launches_stage2_points": k2d_points, "points_step_ms": points_summary["step_ms_median"],
                         "autograd_step_ms": stage2_summary["autograd_step_ms"], "library_ms": None},
         **{f"variant_{v}": {k: k2ce[v][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "design_bytes_ms")}
            | {"max_abs_err": k2ce[v]["vs_plain"]["max_abs_err"],

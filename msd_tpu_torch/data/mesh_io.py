@@ -1,8 +1,9 @@
 """Mesh and point-cloud IO (PLY, OBJ) without third-party mesh libraries.
 
-Counterpart of ``msd_tpu/data/mesh_io.py``: the same PLY layout (vertex
-x/y/z float32, face ``vertex_indices`` as uchar count + int32 indices, the
-layout the reference writes, deep_sdf/mesh.py:143-158), byte for byte.
+Counterpart of ``msd_tpu/data/mesh_io.py``: the same OBJ lines and PLY
+layout (vertex x/y/z float32, face ``vertex_indices`` as uchar count +
+int32 indices, the layout the reference writes, deep_sdf/mesh.py:143-158),
+byte for byte.
 Binary triangle faces are read in one vectorised pass.
 """
 
@@ -43,6 +44,15 @@ def load_obj(path: str) -> Tuple[np.ndarray, np.ndarray]:
         np.asarray(verts, np.float32),
         np.asarray(faces, np.int32).reshape(-1, 3),
     )
+
+
+def save_obj(path: str, vertices: np.ndarray, faces: np.ndarray):
+    """Write ``v x y z`` and 1-based ``f a b c`` lines (msd_tpu's layout)."""
+    with open(path, "w") as f:
+        for v in np.asarray(vertices):
+            f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        for face in np.asarray(faces).astype(np.int64):
+            f.write(f"f {face[0]+1} {face[1]+1} {face[2]+1}\n")
 
 
 def save_ply(
@@ -209,3 +219,44 @@ def load_mesh(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         return load_ply(path)
     raise ValueError(f"unsupported mesh format: {path}")
 
+
+
+def save_mesh(path: str, vertices: np.ndarray, faces: np.ndarray):
+    """Extension-dispatched mesh writer (.obj ascii, else binary .ply)."""
+    if path.lower().endswith(".obj"):
+        save_obj(path, vertices, faces)
+    else:
+        save_ply(path, vertices, faces)
+
+
+class NoMeshFileError(RuntimeError):
+    """No mesh file found in a shape directory (ref: deep_sdf/data.py:55-58)."""
+
+
+class MultipleMeshFileError(RuntimeError):
+    """More than one mesh file found (ref: deep_sdf/data.py:61-64)."""
+
+
+def find_mesh_in_directory(shape_dir: str) -> str:
+    """The single .obj under ``shape_dir`` (ref: deep_sdf/data.py:67-76)."""
+    import glob
+
+    mesh_filenames = list(glob.iglob(shape_dir + "/**/*.obj")) + list(glob.iglob(shape_dir + "/*.obj"))
+    if len(mesh_filenames) == 0:
+        raise NoMeshFileError()
+    if len(mesh_filenames) > 1:
+        raise MultipleMeshFileError()
+    return mesh_filenames[0]
+
+
+def get_surface_points(mesh_path: str, num_points: int = 2048, seed: int = 0) -> np.ndarray:
+    """[num_points, 3] float32 area-uniform surface samples of a mesh file,
+    drawn with ``np.random.default_rng(seed)`` (ref: deep_sdf/data.py:139-152)."""
+    from msd_tpu_torch.ops.sampling import sample_mesh_surface
+
+    verts, faces = load_mesh(mesh_path)
+    if faces is None:
+        raise ValueError(f"mesh has no faces: {mesh_path}")
+    (pts,) = sample_mesh_surface(np.asarray(verts, np.float32), np.asarray(faces, np.int32), num_points,
+                                 rng=np.random.default_rng(seed))
+    return np.asarray(pts, np.float32)

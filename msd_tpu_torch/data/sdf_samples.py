@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -87,12 +88,36 @@ def sample_sdf_batch(pos, pos_counts, neg, neg_counts, scene_indices, subsample:
     return torch.cat([draw(pos, pos_counts, half), draw(neg, neg_counts, subsample - half)], dim=2)
 
 
+def surface_clouds(data_source_mesh: str, instance_ids: List[str], count: int) -> np.ndarray:
+    """[S, count, 3] float32 surface samples of each id's mesh, tried as
+    ``id.obj``, ``id.ply``, then ``id`` under ``data_source_mesh``, all from
+    one ``np.random.default_rng(0)`` in id order; a missing mesh gives a
+    zero cloud and a warning (msd_tpu/data/sdf_samples.py:222-240; ref:
+    deep_sdf/data.py:139-142, :209-217)."""
+    from msd_tpu_torch.data.mesh_io import load_mesh
+    from msd_tpu_torch.ops.sampling import sample_mesh_surface
+
+    rng = np.random.default_rng(0)
+    clouds = []
+    for iid in instance_ids:
+        path = next((p for p in (os.path.join(data_source_mesh, iid + ext) for ext in (".obj", ".ply", ""))
+                     if os.path.isfile(p)), None)
+        if path is None:
+            logging.warning("Requested non-existent mesh file for '%s'", iid)
+            clouds.append(np.zeros((count, 3), np.float32))
+            continue
+        v, f = load_mesh(path)
+        clouds.append(sample_mesh_surface(v, f, count, rng)[0])
+    return np.stack(clouds)
+
+
 @dataclass
 class SdfDataset:
     """All SDF samples of a split as padded arrays (host copies AoS
     [S, Nmax, 4]); ``device_arrays`` puts them on a device in SoA layout.
     ``labels`` [S, L] (NaN where an id has none) when a label map was
-    given."""
+    given; ``surface_points`` [S, P, 3] float32, for the point encoders,
+    when asked for."""
 
     npyfiles: List[str]
     instance_ids: List[str]
@@ -102,17 +127,17 @@ class SdfDataset:
     neg_counts: np.ndarray
     subsample: int
     labels: Optional[np.ndarray] = None
+    surface_points: Optional[np.ndarray] = None
     _device: dict = field(default_factory=dict, repr=False)
 
     @classmethod
     def from_split(cls, data_source: str, split, subsample: int, labels: Optional[dict] = None,
-                   warn_missing_labels: bool = True, return_surface_points: bool = False) -> "SdfDataset":
+                   warn_missing_labels: bool = True, data_source_mesh: Optional[str] = None,
+                   return_surface_points: bool = False, surface_point_count: int = 2048) -> "SdfDataset":
         """``labels``: an id -> vector map (``data.labels.load_labels``).
-        Surface point clouds, for the point encoders, are not ported yet."""
-        if return_surface_points:
-            raise NotImplementedError(
-                "surface point clouds (point encoders, ROADMAP M9) are not ported to msd_tpu_torch yet"
-            )
+        ``return_surface_points``: a cloud of ``surface_point_count`` points
+        per kept shape, sampled from its mesh under ``data_source_mesh``
+        (``surface_clouds``)."""
         npyfiles = get_instance_filenames(data_source, split)
         instance_ids = split_instance_ids(split)
         pos_list, neg_list, keep_files, keep_ids = [], [], [], []
@@ -137,7 +162,12 @@ class SdfDataset:
         label_arr = None
         if labels is not None:
             label_arr = labels_for_instances(labels, keep_ids, warn_missing=warn_missing_labels)
-        return cls(keep_files, keep_ids, pos, pos_counts, neg, neg_counts, subsample, label_arr)
+        surface = None
+        if return_surface_points:
+            if not data_source_mesh:
+                raise RuntimeError("data_source_mesh must be set when return_surface_points=True")
+            surface = surface_clouds(data_source_mesh, keep_ids, surface_point_count)
+        return cls(keep_files, keep_ids, pos, pos_counts, neg, neg_counts, subsample, label_arr, surface)
 
     def __len__(self):
         return len(self.npyfiles)

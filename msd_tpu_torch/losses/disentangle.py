@@ -1,18 +1,21 @@
-"""Stage-2 disentanglement losses that ``Stage2Trainer`` reaches
-(counterpart of part of ``msd_tpu/losses/disentangle.py``; ref:
-deep_sdf/loss.py:11-87, :212-314, :543-829, :833-857).
+"""Stage-2 disentanglement losses (counterpart of
+``msd_tpu/losses/disentangle.py``; ref: deep_sdf/loss.py:11-87, :212-314,
+:543-1076).
 
 As in ``msd_tpu``, every supervised loss takes an optional boolean
 ``valid`` mask instead of the reference's filtered (dynamic-shape) batch,
 and computes masked statistics over the whole batch; with ``valid=None``
 it equals the reference's filtered call. The ``stop_gradient`` points of
-``msd_tpu`` are ``.detach()`` here, in the same places. Not ported yet
-(ROADMAP M8): ``snn_loss``, ``cls_correlation_loss``,
-``reg_correlation_loss``, ``wasserstein_loss``, ``snnl_cross_entropy``.
+``msd_tpu`` are ``.detach()`` here, in the same places. ``Stage2Trainer``
+reaches the SNNL family, the attribute, leakage, cross-covariance, rank,
+match-std and sensitivity losses; ``snn_loss``, the correlation losses,
+``wasserstein_loss`` and ``snnl_cross_entropy`` are public API no trainer
+calls, as in ``msd_tpu``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 STABILITY_EPS = 1e-5  # reference's 0.00001
@@ -236,3 +239,105 @@ def attribute_loss(latent_code, attribute, factor: float = 1.0, valid=None):
     pair = (m[:, None] & m[None, :]).to(lc.dtype)
     diff = torch.abs(torch.tanh((lc[:, None] - lc[None, :]) * factor) - torch.sign(attr[:, None] - attr[None, :]))
     return torch.sum(diff * pair) / torch.clamp(pair.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# losses no trainer reaches (ref: deep_sdf/loss.py:543-583, :862-974, :976-1076)
+
+
+def snn_loss(x, y, T: float, valid=None):
+    """Legacy SNNL: dim-0 similarity over same-class pairs, the other dims
+    in the denominator (ref: deep_sdf/loss.py:543-583)."""
+    b, d = x.shape
+    m = _mask_or_ones(b, valid, x.device)
+    y = y.reshape(-1)
+    pair_valid = m[:, None] & m[None, :]
+    no_diag = (1.0 - torch.eye(b, dtype=x.dtype, device=x.device)) * pair_valid.to(x.dtype)
+    same = ((y[:, None] == y[None, :]) & pair_valid).to(x.dtype)
+
+    def exp_d(col):
+        return torch.exp(-((col[:, None] - col[None, :]) ** 2) / T) * no_diag
+
+    e0 = exp_d(x[:, 0])
+    rest = torch.zeros_like(e0)
+    for i in range(1, d):
+        rest = rest + exp_d(x[:, i]) * same
+    frac = (e0 * same).sum(dim=1) / (
+        STABILITY_EPS + 0.5 * e0.sum(dim=1) + 0.5 * (rest / float(max(d - 1, 1))).sum(dim=1)
+    )
+    return _masked_mean(-torch.log(STABILITY_EPS + frac), m)
+
+
+def cls_correlation_loss(z_batch, y_batch, valid=None):
+    """Point-biserial correlation loss (ref: loss.py:889-923): 1 - |r| of
+    dim 0 plus the other dims' |r| summed over the valid batch size, the
+    reference's batch-length buffer (:912-918), as ``msd_tpu``."""
+    b, d = z_batch.shape
+    m = _mask_or_ones(b, valid, z_batch.device)
+    y = y_batch.reshape(-1)
+    m1 = m & (y == 1.0)
+    m0 = m & (y == 0.0)
+    n1, n0 = m1.sum(), m0.sum()
+    n = n1 + n0
+    mlt = torch.sqrt((n1 * n0) / torch.clamp(n**2, min=1))
+    stds = torch.clamp(_masked_std(z_batch, m), min=1e-12)
+    r = (_masked_mean(z_batch, m1) - _masked_mean(z_batch, m0)) / stds * mlt
+    return 1.0 - torch.abs(r[0]) + torch.abs(r[1:]).sum() / torch.clamp(m.sum(), min=1)
+
+
+def reg_correlation_loss(z_batch, y_batch, valid=None):
+    """Pearson correlation loss on target dim 1 (ref: loss.py:927-974),
+    with the same batch-length divisor (:953-969)."""
+    b, d = z_batch.shape
+    m = _mask_or_ones(b, valid, z_batch.device)
+    y = y_batch.reshape(-1).to(z_batch.dtype)
+    mf = m.to(z_batch.dtype)
+
+    def corr(col):
+        dz = (col - _masked_mean(col, m)) * mf
+        dy = (y - _masked_mean(y, m)) * mf
+        return (dz * dy).sum() / torch.clamp(torch.sqrt((dz**2).sum() * (dy**2).sum()), min=1e-12)
+
+    others = torch.stack([corr(z_batch[:, i]) for i in range(d) if i != 1])
+    return 1.0 - torch.abs(corr(z_batch[:, 1])) + torch.abs(others).sum() / torch.clamp(m.sum(), min=1)
+
+
+def wasserstein_loss(x, delta: float = 1.0, rng=None):
+    """Sliced-permutation Wasserstein with Hungarian matching (ref:
+    loss.py:862-886): each column of x permuted on its own by ``rng`` (a
+    numpy Generator or seed, where ``msd_tpu`` derives the seed from a JAX
+    key), the rows matched to x by scipy's ``linear_sum_assignment`` on
+    Euclidean distances, then the Huber loss of x against the match. The
+    matching runs on the host; the gradient flows through x."""
+    from scipy.optimize import linear_sum_assignment
+    from scipy.spatial.distance import cdist
+
+    rng = np.random.default_rng(rng)
+    x_np = x.detach().cpu().numpy()
+    bsize, dim = x_np.shape
+    u = np.stack([x_np[rng.permutation(bsize), i] for i in range(dim)], axis=1)
+    ind = linear_sum_assignment(cdist(x_np, u))[1]
+    diff = x - torch.as_tensor(u[ind], device=x.device, dtype=x.dtype)
+    abs_d = torch.abs(diff)
+    return torch.where(abs_d <= delta, 0.5 * diff**2, delta * (abs_d - 0.5 * delta)).mean()
+
+
+def pairwise_euclid_distance(A, B):
+    """[i, j] = |A_j|^2 + |B_i|^2 - 2 B_i . A_j (msd_tpu/losses/disentangle.py:384)."""
+    return (A**2).sum(dim=1)[None, :] + (B**2).sum(dim=1)[:, None] - 2 * B @ A.T
+
+
+def pairwise_cos_distance(A, B):
+    """1 - cosine similarity of the rows of A and B (msd_tpu/losses/disentangle.py:391)."""
+    a = A / torch.clamp(torch.linalg.vector_norm(A, dim=1, keepdim=True), min=1e-12)
+    b = B / torch.clamp(torch.linalg.vector_norm(B, dim=1, keepdim=True), min=1e-12)
+    return 1 - a @ b.T
+
+
+def snnl_cross_entropy(x, y, temp: float = 100.0, cos_distance: bool = True):
+    """Soft nearest-neighbour cross entropy (ref: deep_sdf/loss.py:1065-1076)."""
+    dm = pairwise_cos_distance(x, x) if cos_distance else pairwise_euclid_distance(x, x)
+    f = torch.exp(-(dm / temp)) - torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
+    pick = f / (STABILITY_EPS + f.sum(dim=1, keepdim=True))
+    same = (y.reshape(-1)[None, :] == y.reshape(-1)[:, None]).to(x.dtype)
+    return -torch.mean(torch.log(STABILITY_EPS + (pick * same).sum(dim=1)))

@@ -28,6 +28,15 @@ def weight_norm_effective(weight_v: torch.Tensor, weight_g: torch.Tensor) -> tor
     return weight_g.reshape(-1, 1) * weight_v / norm
 
 
+def linear_from_jax(sd: dict, name: str, p: dict):
+    """``name.weight``/``name.bias`` of a state dict from an ``msd_tpu``
+    linear layer ({"w": [in, out], "b": [out]}; a bias-free one has no
+    "b")."""
+    sd[name + ".weight"] = torch.tensor(p["w"]).t().contiguous()
+    if "b" in p:
+        sd[name + ".bias"] = torch.tensor(p["b"])
+
+
 class Linear(nn.Linear):
     """nn.Linear with the reference's default init, U(±1/sqrt(in)) for
     weight and bias, drawn from an explicit generator."""
@@ -70,14 +79,21 @@ class BatchNorm(nn.Module):
     scale 1, bias 0, mean 0, var 1) under torch's names (``weight``,
     ``bias``, buffers ``running_mean``, ``running_var``). In training mode
     it normalizes with the batch's mean and biased variance, else with the
-    running statistics, as ``batch_norm_apply`` (:36-51). It never updates
-    the running statistics: ``msd_tpu``'s SIREN decoder drops the new ones
-    that ``batch_norm_apply`` returns, where ``torch.nn.BatchNorm1d`` in
-    training mode would keep them."""
+    running statistics, as ``batch_norm_apply`` (:36-51).
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    ``update_stats`` (off by default) decides whether a training-mode
+    forward also folds the batch into the running statistics, as the
+    ``bn_updates`` that ``batch_norm_apply`` returns: mean and the unbiased
+    variance ``var * n / max(n - 1, 1)`` with momentum 0.1, under
+    ``no_grad``. The point encoders keep them; ``msd_tpu``'s SIREN decoder
+    drops them, so its BatchNorm leaves the switch off."""
+
+    MOMENTUM = 0.1
+
+    def __init__(self, dim: int, eps: float = 1e-5, update_stats: bool = False):
         super().__init__()
         self.eps = eps
+        self.update_stats = update_stats
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
@@ -87,6 +103,12 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = tuple(range(x.dim() - 1))
             mean, var = x.mean(dim=dims), x.var(dim=dims, unbiased=False)
+            if self.update_stats:
+                n = x.numel() // x.shape[-1]
+                with torch.no_grad():
+                    m = self.MOMENTUM
+                    self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                    self.running_var.copy_((1 - m) * self.running_var + m * (var * n / max(n - 1, 1)))
         else:
             mean, var = self.running_mean, self.running_var
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from msd_tpu_torch.models.common import LAYER_NORM_EPS, Linear
+from msd_tpu_torch.models.common import LAYER_NORM_EPS, Linear, linear_from_jax
 
 
 def _act(name: str):
@@ -151,34 +151,38 @@ class ResidualMLPVAE(nn.Module):
         return self.decoder(z)
 
 
+def _stack_from_jax(sd, prefix, stack_params):
+    for i, stage in enumerate(stack_params["stages"]):
+        if "proj" in stage:
+            linear_from_jax(sd, f"{prefix}.stages.{i}.proj", stage["proj"])
+        for j, block in enumerate(stage["blocks"]):
+            b = f"{prefix}.stages.{i}.blocks.{j}"
+            linear_from_jax(sd, b + ".fc1", block["fc1"])
+            linear_from_jax(sd, b + ".fc2", block["fc2"])
+            if "norm" in block:
+                sd[b + ".norm.weight"] = torch.tensor(block["norm"]["scale"])
+                sd[b + ".norm.bias"] = torch.tensor(block["norm"]["bias"])
+
+
+def decoder_params_from_jax(params_np) -> dict:
+    """``decoder.backbone...`` and ``decoder.out`` of a VAE's
+    ``ResidualMLPDecoder`` from ``msd_tpu``'s decoder params."""
+    sd = {}
+    _stack_from_jax(sd, "decoder.backbone", params_np["backbone"])
+    linear_from_jax(sd, "decoder.out", params_np["out"])
+    return sd
+
+
 def vae_params_from_jax(params_np) -> dict:
     """A ``state_dict`` for ``ResidualMLPVAE`` from ``msd_tpu``'s VAE params
     (nested dicts of numpy arrays; linear weights stored [in, out]), the
     naming of ``params_to_torch_state_dict`` (msd_tpu/models/
     residual_mlp_vae.py:184-216)."""
     sd = {}
-
-    def linear(name, p):
-        sd[name + ".weight"] = torch.tensor(p["w"]).t().contiguous()
-        sd[name + ".bias"] = torch.tensor(p["b"])
-
-    def stack(prefix, stack_params):
-        for i, stage in enumerate(stack_params["stages"]):
-            if "proj" in stage:
-                linear(f"{prefix}.stages.{i}.proj", stage["proj"])
-            for j, block in enumerate(stage["blocks"]):
-                b = f"{prefix}.stages.{i}.blocks.{j}"
-                linear(b + ".fc1", block["fc1"])
-                linear(b + ".fc2", block["fc2"])
-                if "norm" in block:
-                    sd[b + ".norm.weight"] = torch.tensor(block["norm"]["scale"])
-                    sd[b + ".norm.bias"] = torch.tensor(block["norm"]["bias"])
-
-    stack("encoder.backbone", params_np["encoder"]["backbone"])
-    linear("encoder.mu_head", params_np["encoder"]["mu_head"])
-    linear("encoder.logvar_head", params_np["encoder"]["logvar_head"])
-    stack("decoder.backbone", params_np["decoder"]["backbone"])
-    linear("decoder.out", params_np["decoder"]["out"])
+    _stack_from_jax(sd, "encoder.backbone", params_np["encoder"]["backbone"])
+    linear_from_jax(sd, "encoder.mu_head", params_np["encoder"]["mu_head"])
+    linear_from_jax(sd, "encoder.logvar_head", params_np["encoder"]["logvar_head"])
+    sd.update(decoder_params_from_jax(params_np["decoder"]))
     return sd
 
 

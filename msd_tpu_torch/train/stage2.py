@@ -1,8 +1,9 @@
 """Stage-2 disentanglement-VAE trainer (counterpart of
-``msd_tpu/train/stage2.py``, latent encoders), on one device or
-data-parallel over ranks.
+``msd_tpu/train/stage2.py``), on one device or data-parallel over ranks.
 
-One step: the residual MLP-VAE over the batch's Stage-1 latents, the chosen
+One step: the VAE over the batch's Stage-1 latents (the residual MLP-VAE)
+or over its shapes' surface point clouds (``PointNetLatentVAE``, a point
+``EncoderType``), the chosen
 VAE objective (beta-VAE, DIP-VAE, beta-TCVAE), every enabled
 disentanglement loss on mu (SNNL cls/reg/age, attribute, leakage, cross
 covariance, rank, match-std, sensitivity, DIP-VAE-II covariance), and the
@@ -25,9 +26,26 @@ takes the point batch [4, B, P] and the two noise tensors (the VAE's
 reparameterisation and the covariance penalty's) as arguments and draws
 them from a torch generator seeded from (Seed, step) when they are not
 given; the scene batches and label mixing come from the same numpy
-generator as ``msd_tpu`` and agree. Epoch blocks were a relay workaround
-and are not ported. Point encoders (``EncoderType`` other than
-``residual_mlp``/``mlp``/``latent``, ROADMAP M9) raise as not ported yet.
+generator as ``msd_tpu`` and agree. PointNet++'s FPS start indices are a
+``step`` argument too, drawn from the same generator when not given;
+``compute_vae_latents`` draws them from a generator seeded 0 per chunk,
+where ``msd_tpu`` uses ``PRNGKey(0)``. Epoch blocks were a relay workaround
+and are not ported.
+
+Points mode (``EncoderType`` resnet_pointnet/pointnet, pointnet2/pointnet++
+or pointnet_encoder; msd_tpu/train/stage2.py:143-171, :296-309): the
+training set carries ``SurfacePointCount`` surface points per shape from
+``DataSourceMesh``, the VAE encodes the batch's clouds and still
+reconstructs the teacher latents. The encoders' BatchNorm running
+statistics are buffers, outside Adam: the step's one training-mode VAE
+forward folds its batch into them, which equals ``msd_tpu``'s overwrite
+after Adam (it keeps zero-gradient moments for them); eval mode
+(``compute_vae_latents``, the eval blocks) leaves them, and the
+sensitivity loss decodes only. As ``msd_tpu`` cannot, the port does not
+checkpoint a point-encoder VAE: ``save_checkpoint`` and
+``PretrainedVAEPath`` raise, so ``train()`` stops at its first snapshot.
+``group=`` raises too: per-rank BatchNorm statistics would differ from
+``msd_tpu``'s over the global batch.
 
 Data-parallel (``group=``, a ``parallel.DataParallelGroup``; the
 counterpart of ``Stage2Trainer(mesh=)``, msd_tpu/train/stage2.py:512-553):
@@ -61,6 +79,7 @@ from msd_tpu_torch.losses import vae as vl
 from msd_tpu_torch.losses.sdf import deep_sdf_loss, safe_l2norm
 from msd_tpu_torch.lr_schedules import StepLearningRateOnPlateauSchedule, get_learning_rate_schedules
 from msd_tpu_torch.models import build_decoder
+from msd_tpu_torch.models.pointnet_vae import PointNetLatentVAE
 from msd_tpu_torch.models.residual_mlp_vae import ResidualMLPVAE
 from msd_tpu_torch.ops.fused_train import fused_sdf_l1, supports_fused_train
 from msd_tpu_torch.train.stage1 import step_seed
@@ -70,6 +89,8 @@ from msd_tpu_torch.utils.optim import GroupAdam
 
 _LATENT_ENCODERS = ("residual_mlp", "mlp", "latent", "latent_mlp")
 _CLASSIFICATION = ("classification", "class", "cls", "binary")
+_NO_POINT_CHECKPOINT = ("cannot checkpoint a point-encoder VAE, as msd_tpu cannot (PointNetLatentVAE has no "
+                        "torch state-dict conversion, msd_tpu/models/pointnet_vae.py)")
 _DIP_OBJECTIVES = {"dip_vae", "dip_vae_ii", "dip_vae2", "dip_ii", "dip2", "dip_vae_i", "dip_vae1", "dip_i", "dip1"}
 
 
@@ -174,18 +195,31 @@ class Stage2Trainer:
         self.vae_latent_dim = g("VAELatentDim", 16)
         self.use_kl = bool(g("UseKLLoss", True))
         self.encoder_type = str(g("EncoderType", "residual_mlp")).lower()
-        if self.encoder_type not in _LATENT_ENCODERS:
-            raise NotImplementedError(
-                f"EncoderType {self.encoder_type!r}: point encoders are not ported to msd_tpu_torch yet (ROADMAP M9)"
+        if self.encoder_type in _LATENT_ENCODERS:
+            self.vae_input_mode = "latent"
+            self.vae = ResidualMLPVAE(
+                input_dim=self.vae_input_dim, latent_dim=self.vae_latent_dim,
+                encoder_hidden_dims=g("VAEEncoderHiddenDims", [256, 128]),
+                decoder_hidden_dims=g("VAEDecoderHiddenDims", [128, 256, 256]),
+                num_blocks=g("VAEBlocks", 1), activation=g("VAEActivation", "gelu"), dropout=g("VAEDropout", 0.0),
+                use_layernorm=g("VAELayerNorm", True), use_kl=self.use_kl, generator=gen,
             )
-        self.vae = ResidualMLPVAE(
-            input_dim=self.vae_input_dim, latent_dim=self.vae_latent_dim,
-            encoder_hidden_dims=g("VAEEncoderHiddenDims", [256, 128]),
-            decoder_hidden_dims=g("VAEDecoderHiddenDims", [128, 256, 256]),
-            num_blocks=g("VAEBlocks", 1), activation=g("VAEActivation", "gelu"), dropout=g("VAEDropout", 0.0),
-            use_layernorm=g("VAELayerNorm", True), use_kl=self.use_kl, generator=gen,
-        )
+        else:
+            self.vae_input_mode = "points"
+            self.vae = PointNetLatentVAE(
+                latent_dim=self.vae_latent_dim, output_dim=self.vae_input_dim, encoder_type=self.encoder_type,
+                decoder_hidden_dims=g("VAEDecoderHiddenDims", [128, 256, 256]), decoder_blocks=g("VAEBlocks", 1),
+                decoder_activation=g("VAEActivation", "gelu"), decoder_dropout=g("VAEDropout", 0.0),
+                decoder_layernorm=g("VAELayerNorm", True), use_kl=self.use_kl, generator=gen,
+            )
+            if group is not None:
+                raise NotImplementedError(
+                    "Stage 2 with a point encoder over ranks: its BatchNorm statistics would be each rank's, "
+                    "where msd_tpu takes them over the global batch"
+                )
         vae_path = resolve_spec_path(g("PretrainedVAEPath", None), experiment_directory)
+        if vae_path and self.vae_input_mode == "points":
+            raise NotImplementedError(f"PretrainedVAEPath: {_NO_POINT_CHECKPOINT}")
         if vae_path:
             data = torch.load(vae_path, map_location="cpu", weights_only=False)
             self.vae.load_state_dict(data.get("vae_state_dict", data) if isinstance(data, dict) else data)
@@ -303,8 +337,13 @@ class Stage2Trainer:
             dataset = SdfDataset.from_split(
                 self.data_source, load_split(specs["TrainSplit"]), self.num_samp_per_scene,
                 labels=self._labels_map, warn_missing_labels=g("WarnMissingLabels", True),
+                data_source_mesh=g("DataSourceMesh", None),
+                return_surface_points=self.vae_input_mode == "points" and g("ReturnSurfacePoints", True),
+                surface_point_count=g("SurfacePointCount", 2048),
             )
         self.dataset = dataset
+        if self.vae_input_mode == "points" and dataset.surface_points is None:
+            raise RuntimeError("Surface points required for point-based encoder.")
         self.val_split_file = g("ValSplit", None)
         self.test_split_file = g("TestSplit", None)
         self._eval_datasets = {}
@@ -367,6 +406,7 @@ class Stage2Trainer:
         self.global_batch_idx = 0
         self._writer = None
         self._teacher_dev = None
+        self._surface_dev = None
         self._last_kl_weight = 0.0
         self._last_code_reg_weight = 0.0
         self.last_train_sap = None
@@ -494,7 +534,7 @@ class Stage2Trainer:
         return total, aux
 
     def step(self, scene_idx, labels, kl_weight, code_reg_weight, lr_vae, lr_sdf, batch_split: int = 1,
-             batch=None, noise=None, cov_noise=None, generator=None):
+             batch=None, noise=None, cov_noise=None, fps_start=None, generator=None):
         """One training step on the scenes ``scene_idx`` [B] (long) with
         ``labels`` = (label_values, label_valid, age_values, age_valid) [B]
         from ``_batch_labels``; returns the step's metrics as device
@@ -503,7 +543,8 @@ class Stage2Trainer:
 
         ``batch`` [4, B, P] (SoA: x, y, z, sdf), ``noise`` [B, D] (the
         reparameterisation's) and ``cov_noise`` [B, D] (the covariance
-        penalty's) are drawn from ``generator`` when not given."""
+        penalty's) are drawn from ``generator`` when not given, and so are
+        PointNet++'s FPS starts ``fps_start`` ((start1 [B], start2 [B]))."""
         dev = self.device
         B, P = scene_idx.shape[0], self.num_samp_per_scene
         if batch_split > 1 and (B * P) % batch_split != 0:
@@ -524,7 +565,12 @@ class Stage2Trainer:
         if self._teacher_dev is None:
             self._teacher_dev = torch.as_tensor(self.teacher_latents, device=dev)
         teacher = self._teacher_dev[scene_idx]
-        out = self.vae(teacher, noise=noise)
+        if self.vae_input_mode == "points":  # the clouds stay on the device, as the teacher latents
+            if self._surface_dev is None:
+                self._surface_dev = torch.as_tensor(self.dataset.surface_points, dtype=torch.float32, device=dev)
+            out = self.vae(self._surface_dev[scene_idx], noise=noise, fps_start=fps_start, generator=generator)
+        else:
+            out = self.vae(teacher, noise=noise)
         mu, logvar, z, z_hat = out["mu"], out["logvar"], out["z"], out["z_hat"]
         vae_total, aux = self._vae_losses(mu, logvar, z, z_hat, teacher, labels, kl_weight, cov_noise)
 
@@ -705,15 +751,27 @@ class Stage2Trainer:
 
     # ------------------------------------------------------------------
     def compute_vae_latents(self, inputs=None, batch_size: int = 1024) -> np.ndarray:
-        """The VAE's mu for every scene (the train latents, or ``inputs``),
-        exported to LatentCodes (ref: :1638-1659)."""
-        x = torch.as_tensor(self.teacher_latents if inputs is None else np.asarray(inputs, np.float32),
-                            device=self.device)
+        """The VAE's mu for every scene (the train latents, in points mode
+        the surface clouds, or ``inputs``), exported to LatentCodes (ref:
+        :1638-1659). In eval mode; a point encoder's FPS starts come from a
+        generator seeded 0 for each chunk."""
+        points = self.vae_input_mode == "points"
+        if inputs is None:
+            inputs = self.dataset.surface_points if points else self.teacher_latents
+        x = torch.as_tensor(np.asarray(inputs, np.float32), device=self.device)
+
+        def encode(chunk):
+            if points:
+                return self.vae.encode(chunk, generator=torch.Generator(device=self.device).manual_seed(0))[0]
+            return self.vae.encoder(chunk)[0]
+
         with eval_mode(self.vae):
-            mu = [self.vae.encoder(x[s:s + batch_size])[0] for s in range(0, x.shape[0], batch_size)]
+            mu = [encode(x[s:s + batch_size]) for s in range(0, x.shape[0], batch_size)]
         return torch.cat(mu).cpu().numpy()
 
     def save_checkpoint(self, name: str):
+        if self.vae_input_mode == "points":
+            raise NotImplementedError(_NO_POINT_CHECKPOINT)
         if not self.is_main:
             return
         ckpt.save_stage2_model(self.experiment_directory, name + ".pth", self.vae, self.sdf_decoder, self.epoch)
@@ -826,11 +884,17 @@ class Stage2Trainer:
 
     def eval_split(self, epoch: int, split_label: str, teacher_latents: np.ndarray, dataset):
         """SAP and correlation on an eval split: the VAE's mu of the split's
-        (reconstructed) latents against its labels (ref: :3433-3826)."""
+        (reconstructed) latents against its labels (ref: :3433-3826). In
+        points mode the split has no VAE inputs and nothing is scored, where
+        ``msd_tpu`` hands its latents to the point encoder, which cannot
+        take them (msd_tpu/train/stage2.py:1231)."""
         from msd_tpu_torch.metrics import sap as sap_metric
-        from msd_tpu_torch.train.stage2_eval import cached_mu  # stage2_eval imports this module
+        from msd_tpu_torch.train.stage2_eval import _eval_inputs, cached_mu  # stage2_eval imports this module
 
-        mu = np.asarray(cached_mu(self, teacher_latents))
+        inputs = _eval_inputs(self, dataset, teacher_latents)
+        if inputs is None:
+            return {}
+        mu = np.asarray(cached_mu(self, inputs))
         results = {}
         label_matrix = self.metric_label_matrix(dataset)
         if label_matrix is not None:

@@ -32,11 +32,17 @@ def _valid_mask(labels_np):
 
 
 def _eval_inputs(trainer, dataset=None, eval_latents=None):
-    """The VAE input array of a split: the train latents (or
-    ``eval_latents``) for the train set, else the split's latents."""
+    """The VAE input array of a split: in points mode its surface clouds
+    (none for the val and test splits, which load without them, as
+    ``msd_tpu``'s), else the train latents (or ``eval_latents``) for the
+    train set and the split's latents for the others
+    (msd_tpu/train/stage2_eval.py:26-35)."""
+    points = trainer.vae_input_mode == "points"
     if dataset is None or dataset is trainer.dataset:
+        if points:
+            return trainer.dataset.surface_points
         return eval_latents if eval_latents is not None else trainer.teacher_latents
-    return eval_latents
+    return dataset.surface_points if points else eval_latents
 
 
 def cached_mu(trainer, inputs):
@@ -84,23 +90,30 @@ def run_eval(trainer, epoch: int, split_label: str, dataset=None, eval_latents=N
     """Per-split VAE + SDF losses (ref: :1684-1847): the plain VAE
     objective (recon + KL, whatever the training objective) plus the
     SDF-consistency loss on the split's sample points through the decoder
-    (float32), averaged per batch. Returns the eval metrics or None."""
+    (float32), averaged per batch. Returns the eval metrics or None. In
+    points mode the VAE encodes the split's clouds and reconstructs its
+    teacher latents; without them (msd_tpu/train/stage2_eval.py:107-116)
+    the VAE terms are 0 and recon and KL NaN."""
     from msd_tpu_torch.data.sdf_samples import sample_sdf_batch
     from msd_tpu_torch.losses import vae as vl
     from msd_tpu_torch.losses.sdf import deep_sdf_loss
     from msd_tpu_torch.models.residual_mlp_vae import expand_latent_to_points
 
     ds = dataset if dataset is not None else trainer.dataset
-    teacher = _eval_inputs(trainer, dataset, eval_latents)
-    if ds is None or teacher is None:
+    inputs = _eval_inputs(trainer, dataset, eval_latents)
+    if ds is None or inputs is None:
         return None
+    teacher = inputs
+    if trainer.vae_input_mode == "points":
+        teacher = eval_latents if dataset is not None and dataset is not trainer.dataset else trainer.teacher_latents
     scene_indices = np.arange(ds.num_scenes) if scene_indices is None else np.asarray(scene_indices)
     if len(scene_indices) == 0:
         return None
     dev = trainer.device
     P, clamp = trainer.num_samp_per_scene, trainer.clamp_dist
     pos, pc, neg, nc = ds.device_arrays(dev)
-    teacher_dev = torch.as_tensor(np.asarray(teacher, np.float32), device=dev)
+    inputs_dev = torch.as_tensor(np.asarray(inputs, np.float32), device=dev)
+    teacher_dev = torch.as_tensor(np.asarray(teacher, np.float32), device=dev) if teacher is not None else None
     B = min(trainer.scene_per_batch, len(scene_indices))
     rows = []
     dec = trainer.sdf_decoder
@@ -111,10 +124,14 @@ def run_eval(trainer, epoch: int, split_label: str, dataset=None, eval_latents=N
             tag = f"{trainer.seed}/{split_label}/{epoch}/{bi}".encode()
             gen = torch.Generator(device=dev).manual_seed(int(hashlib.sha256(tag).hexdigest()[:15], 16))
             batch = sample_sdf_batch(pos, pc, neg, nc, sel, P, gen)
-            out = trainer.vae(teacher_dev[sel], generator=gen)
-            vae_total, recon, kl = vl.vae_loss(out["z_hat"], teacher_dev[sel], out["mu"], out["logvar"],
-                                               recon_weight=trainer.vae_recon_weight, kl_weight=kl_weight,
-                                               recon_loss=trainer.recon_loss_type)
+            out = trainer.vae(inputs_dev[sel], generator=gen)
+            if teacher_dev is not None:
+                vae_total, recon, kl = vl.vae_loss(out["z_hat"], teacher_dev[sel], out["mu"], out["logvar"],
+                                                   recon_weight=trainer.vae_recon_weight, kl_weight=kl_weight,
+                                                   recon_loss=trainer.recon_loss_type)
+            else:
+                vae_total = torch.zeros((), device=dev)
+                recon = kl = torch.full((), float("nan"), device=dev)
             lat_pts, xyz_flat = expand_latent_to_points(out["z_hat"], batch[:3].permute(1, 2, 0))
             pred = dec(torch.cat([lat_pts, xyz_flat], dim=1)).clamp(-clamp, clamp)
             gt = batch[3].reshape(-1, 1).clamp(-clamp, clamp)

@@ -629,6 +629,81 @@ def test_stage2_trainer_takes_k2d_once_per_step(dev, train_data, tmp_path):
     assert not any(p.grad is not None for p in tr.sdf_decoder.parameters())
 
 
+def test_stage2_points_mode_takes_k2d_once_per_step(dev, train_data, tmp_path):
+    """Stage 2 with PointNet++ on the ellipsoids' surface clouds (their
+    meshes from write_dataset): K2 d once per step in bf16, finite metrics,
+    the BatchNorm statistics moved by training and fixed by the latent
+    export, which gives equal bits twice."""
+    from chip_smoke import write_labels
+    from msd_tpu_torch.ops import fused_train as ft
+    from msd_tpu_torch.train.stage2 import Stage2Trainer
+
+    with open(os.path.join(ROOT, "examples", "ADNI", "MLP_VAE_SDF_disentangle_all_true_label_age", "specs.json")) as f:
+        specs = json.load(f)
+    for key in ("TestSplit", "PretrainedLatentPath", "PretrainedSDFDecoderPath", "EvalGTMeshDir"):
+        specs.pop(key)
+    with open(train_data["TrainSplit"]) as f:
+        write_labels(train_data["DataSource"], json.load(f), seed=1)
+    specs.update(DataSource=train_data["DataSource"], TrainSplit=train_data["TrainSplit"],
+                 DataSourceMesh=os.path.join(os.path.dirname(train_data["DataSource"]), "Meshes"),
+                 EncoderType="pointnet2", SurfacePointCount=1024, NetworkSpecs=TRAIN_SPECS["NetworkSpecs"],
+                 CodeLength=16, VAEInputDim=16, SamplesPerScene=256, ScenesPerBatch=2,
+                 TrainLatentHoldoutFraction=0.0, EvalTrainFrequency=0, EvalTestFrequency=0)
+    teacher = (0.1 * np.random.default_rng(0).standard_normal((4, 16))).astype(np.float32)
+    tr = Stage2Trainer(str(tmp_path / "s2p"), specs=specs, teacher_latents=teacher, device="cuda")
+    assert tr.vae_input_mode == "points" and tr.fused_ok and tr.k2_dtype == torch.bfloat16
+    stats = {k: v.clone() for k, v in tr.vae.state_dict().items() if "running_mean" in k and "fc_z" not in k}
+    launches = ft.LAUNCHES
+    m = tr.train_epoch(1)
+    assert ft.LAUNCHES == launches + 2  # 4 scenes, 2 per batch
+    assert all(np.isfinite(v) for v in m.values())
+    moved = {k: v.clone() for k, v in tr.vae.state_dict().items() if k in stats}
+    assert all(not torch.equal(stats[k], v) for k, v in moved.items())
+    a, b = tr.compute_vae_latents(), tr.compute_vae_latents()
+    assert np.array_equal(a, b) and np.isfinite(a).all()
+    assert all(torch.equal(v, tr.vae.state_dict()[k]) for k, v in moved.items())
+
+
+def _point_cloud(b, n, seed=0):
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((b, n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return torch.tensor(d * rng.uniform(0.35, 0.7, (b, 1, 3)), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("enc", ["resnet_pointnet", "pointnet_encoder", "pointnet2"])
+def test_point_encoder_on_card_matches_cpu(enc, train, dev):
+    """The same encoder on the card and on the CPU, 4 clouds of 1024
+    points: (mu, logvar) and, in training mode, the BatchNorm statistics,
+    to 1e-4 of the largest entry (PointNet++ in training mode 1e-3: its
+    float32 outputs sit 2.7e-5 from a float64 run on the CPU,
+    tests/test_torch_pointnet.py). FPS picks the same points on both."""
+    import copy
+
+    from msd_tpu_torch.models import pointnet2
+    from msd_tpu_torch.models.pointnet_vae import ENCODERS
+
+    cpu = ENCODERS[enc][0](latent_size=16, kl_div_loss=True, generator=torch.Generator().manual_seed(3)).train(train)
+    card = copy.deepcopy(cpu).to(dev)
+    x = _point_cloud(4, 1024)
+    kw = {}
+    if enc == "pointnet2":
+        starts = (torch.tensor([5, 900, 17, 333]), torch.tensor([0, 511, 100, 7]))
+        kw = {"fps_start": starts}
+        np.testing.assert_array_equal(pointnet2.farthest_point_sample(x.to(dev), 512, starts[0].to(dev)).cpu(),
+                                      pointnet2.farthest_point_sample(x, 512, starts[0]))
+    with torch.no_grad():
+        ref = cpu(x, **kw)
+        out = card(x.to(dev), **{k: tuple(t.to(dev) for t in v) for k, v in kw.items()})
+    rtol = 1e-3 if enc == "pointnet2" and train else 1e-4
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.cpu().numpy(), r.numpy(), rtol=rtol, atol=rtol * float(r.abs().max()))
+    for (k, a), (_, b) in zip(card.state_dict().items(), cpu.state_dict().items()):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=rtol, atol=rtol * float(b.abs().max()),
+                                   err_msg=k)
+
+
 # K2's two GEMM kernels on their own, each against a float32 torch product
 # of the same bf16 operands on the card (TF32 off), at the main path's
 # shapes: the flagship's padded widths 512 and 256 over a 65536-point chunk

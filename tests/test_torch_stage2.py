@@ -23,6 +23,8 @@ from msd_tpu_torch.models.deepsdf import params_from_jax
 from msd_tpu_torch.models.residual_mlp_vae import vae_params_from_jax
 from msd_tpu_torch.train.stage2 import Stage2Trainer
 from msd_tpu_torch.utils import checkpoint as ckpt
+from conftest import make_sphere_mesh
+from msd_tpu_torch.data.mesh_io import save_obj
 from test_stage2_trainer import _setup
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -231,11 +233,32 @@ def test_holdout_latents_and_schedules_match_jax(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """A point encoder builds (EncoderType "pointnet" is ResnetPointnet) and
+    its mode refuses what msd_tpu cannot do or the port does not: a
+    checkpoint ("cannot checkpoint"), ``group=`` (per-rank BatchNorm
+    statistics), and, as msd_tpu (tests/test_stage2_points_mode.py:77), a
+    run without meshes to sample clouds from."""
     exp = experiment(tmp_path)
     with open(os.path.join(exp, "specs.json")) as f:
         specs = json.load(f)
-    with pytest.raises(NotImplementedError, match="point encoders"):
+    with pytest.raises(RuntimeError, match="data_source_mesh"):
         Stage2Trainer(exp, specs=dict(specs, EncoderType="pointnet"), device="cpu")
+    mesh_dir = tmp_path / "meshes"
+    mesh_dir.mkdir()
+    for i in range(16):
+        save_obj(str(mesh_dir / f"sphere_{i}.obj"), *make_sphere_mesh(8, 16, radius=0.3 + 0.02 * i))
+    points = dict(specs, EncoderType="pointnet", DataSourceMesh=str(mesh_dir), SurfacePointCount=64)
+    port = Stage2Trainer(exp, specs=points, device="cpu")
+    assert port.vae_input_mode == "points" and type(port.vae.encoder).__name__ == "ResnetPointnet"
+    assert port.dataset.surface_points.shape == (16, 64, 3)
+    with pytest.raises(NotImplementedError, match="cannot checkpoint"):
+        port.save_checkpoint("latest")
+
+    class Group:
+        device, is_main, world_size = "cpu", True, 2
+
+    with pytest.raises(NotImplementedError, match="BatchNorm statistics"):
+        Stage2Trainer(exp, specs=points, device="cpu", group=Group())
 
 
 def test_checkpoints_cross_both_ways(tmp_path):
