@@ -151,6 +151,24 @@ non-zero and prints no result. Phases, one JSON line each:
    against one process. NCCL with one GPU per rank where there are enough
    GPUs, else gloo with every rank on cuda:0: a correctness drive of the
    multi-rank path, not a scaling figure.
+16. preprocess: the port's data preparation as a user runs it, no kernel
+   of its own. Four seeded ellipsoid masks (NIfTI, 64 x 96 x 64 voxels at
+   1 mm, long along y as a hippocampus is) go through
+   ``python -m msd_tpu_torch.utils.batch_process_to_ply``, ``ply_to_obj``
+   and ``create_split_json_files`` (2/1/1); one mesh loses a cap, so
+   "auto" renders it. ``python -m msd_tpu_torch.run_all_preprocessing``
+   runs at its defaults (500000 samples, 200000 vote points; SDF, --test,
+   --surface; the vote's tiled route on the card), then
+   ``preprocess_data --test`` into a second data directory (run_all's test
+   pass skips files that exist). One ``preprocess_mesh`` line per mesh and
+   mode: seconds by part (quality and repair, render, host sampling, the
+   vote), pos/neg counts, rejected fraction, the vote's device ms (CUDA
+   events), idle share between its chunks and peak device memory. Then
+   every output checked, the tiled route against the host route on one
+   full-size mesh (``VOTE_AGREEMENT``: keep, sign and |sdf| within 1e-5,
+   each on 99.9% of the queries), the tiled vote under torch.profiler
+   beside the materialized design's bytes bound, and the port's
+   SdfSamples loader drawing 4 x 16384 points from the written files.
 
 Each phase's line carries the wall seconds since the previous line
 (``since_last_s``). Then the ``kernels`` line, the
@@ -2279,6 +2297,160 @@ def mesh_pair(decoder, latent):
     return r
 
 
+# Preprocessing (data preparation): four seeded hippocampus-like masks on a
+# grid of 64 x 96 x 64 voxels at 1 mm, the CLIs at their defaults.
+MASK_GRID = (64, 96, 64)
+PREPROCESS_SHAPES = 4
+
+
+def write_masks(mask_dir, n, seed):
+    """``n`` seeded ellipsoid masks (uint8 NIfTI, 1 mm voxels) on
+    ``MASK_GRID``, long along y as a hippocampus is."""
+    from msd_tpu_torch.data.nifti import save_nifti
+
+    os.makedirs(mask_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    x, y, z = np.meshgrid(*(np.arange(s) - (s - 1) / 2 for s in MASK_GRID), indexing="ij")
+    for i in range(n):
+        axes = rng.uniform([12.0, 30.0, 10.0], [18.0, 40.0, 16.0])
+        c = rng.uniform(-3.0, 3.0, 3)
+        mask = ((x - c[0]) / axes[0]) ** 2 + ((y - c[1]) / axes[1]) ** 2 + ((z - c[2]) / axes[2]) ** 2 < 1
+        save_nifti(os.path.join(mask_dir, f"hippo_{i:03d}.nii.gz"), mask.astype(np.uint8), zooms=(1.0, 1.0, 1.0))
+
+
+def cut_cap(path, share=0.12):
+    """Remove the faces of an OBJ mesh whose centroid lies in the top
+    ``share`` of its y extent, so the mesh is open; returns faces removed."""
+    from msd_tpu_torch.data.mesh_io import load_mesh, save_obj
+
+    v, f = load_mesh(path)
+    cy = v[f].mean(axis=1)[:, 1]
+    top = v[:, 1].max() - share * np.ptp(v[:, 1])
+    save_obj(path, v, f[cy <= top])
+    return int((cy > top).sum())
+
+
+def run_module(argv, timeout):
+    """``python -m <argv>`` from the checkout; returns its stderr (raises
+    with its output when it fails)."""
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    r = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"{argv[0]} exited {r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
+    return r.stderr
+
+
+def preprocess_stats(stderr):
+    """The ``preprocess_stats`` records a preprocess_data run logged."""
+    return [json.loads(ln.split("preprocess_stats ", 1)[1]) for ln in stderr.splitlines()
+            if "preprocess_stats " in ln]
+
+
+def preprocess(root, seed, device="cuda"):
+    """The port's data-preparation path as a user runs it: NIfTI masks ->
+    PLY (batch_process_to_ply) -> OBJ (ply_to_obj) -> splits
+    (create_split_json_files) -> run_all_preprocessing at its defaults
+    (500000 samples, 200000 vote points; SDF, --test and --surface passes,
+    the vote's tiled route on the card), one mesh with a cap cut off so
+    "auto" renders it. Then preprocess_data --test into a second data
+    directory (run_all's --test pass finds the SdfSamples written and
+    skips, as the reference's does), the outputs checked, the tiled route
+    against the host route on one full-size mesh (VOTE_AGREEMENT; CUDA
+    events, torch.profiler), and the SdfSamples loader drawing one batch
+    over the four shapes. Returns the phase summary and every mesh's
+    record. ``device="cpu"`` rehearses it on the CPU (the host route; patch
+    ``profile_steps`` and shrink ``draw_queries`` for the full-size check)."""
+    import torch
+
+    from msd_tpu_torch.data.mesh_io import load_mesh
+    from msd_tpu_torch.data.sdf_samples import SdfDataset, sample_sdf_batch
+    from msd_tpu_torch.preprocess import mesh_to_sdf as tm
+
+    t0 = time.time()
+    masks, ply, meshes, splits = (os.path.join(root, d) for d in ("masks", "ply", "meshes", "splits"))
+    write_masks(masks, PREPROCESS_SHAPES, seed)
+    run_module(["msd_tpu_torch.utils.batch_process_to_ply", "-i", masks, "-o", ply, "-g", "hippo"], 600)
+    run_module(["msd_tpu_torch.utils.ply_to_obj", "-i", os.path.join(ply, "hippo_ply", "minimal"),
+                "-o", meshes], 300)
+    names = sorted(os.path.splitext(n)[0] for n in os.listdir(meshes))
+    if len(names) != PREPROCESS_SHAPES:
+        raise AssertionError(f"preprocess: {len(names)} meshes from {PREPROCESS_SHAPES} masks")
+    cut = cut_cap(os.path.join(meshes, names[-1] + ".obj"))
+    run_module(["msd_tpu_torch.utils.create_split_json_files", "-m", meshes, "-o", splits, "-p", "hippo",
+                "--fractions", "0.5", "0.25", "0.25", "--seed", str(seed)], 300)
+    t_tools = time.time() - t0
+    data, data_test = os.path.join(root, "data"), os.path.join(root, "data_test")
+    t1 = time.time()
+    records = preprocess_stats(run_module(
+        ["msd_tpu_torch.run_all_preprocessing", "-d", data, "-s", meshes, "--splits_dir", splits, "--debug",
+         "--device", device], 1500))
+    t_run_all = time.time() - t1
+    all_split = os.path.join(root, "all_split.json")
+    with open(all_split, "w") as f:
+        json.dump([n + ".obj" for n in names], f)
+    records += preprocess_stats(run_module(
+        ["msd_tpu_torch.preprocess_data", "-d", data_test, "-s", meshes, "--split", all_split, "--test",
+         "--device", device], 900))
+
+    # every expected output (a mesh that fails is logged and skipped)
+    expected = [os.path.join(data, ".datasources.json"), os.path.join(data_test, ".datasources.json")]
+    for n in names:
+        expected += [os.path.join(data, "SdfSamples", "meshes", n + ".npz"),
+                     os.path.join(data, "SurfaceSamples", "meshes", n + ".ply"),
+                     os.path.join(data, "NormalizationParameters", "meshes", n + ".npz"),
+                     os.path.join(data_test, "SdfSamples", "meshes", n + ".npz")]
+    missing = [os.path.relpath(p, root) for p in expected if not os.path.isfile(p)]
+    if missing:
+        raise AssertionError(f"preprocess: missing outputs {missing}")
+    modes = sorted((r["mesh"], r["mode"]) for r in records)
+    if modes != sorted((n, m) for n in names for m in ("sdf", "surface", "test")):
+        raise AssertionError(f"preprocess: records {modes}")
+    route = "tiled" if device == "cuda" else "host"
+    for r in records:
+        if r["mode"] != "surface" and r["vote"]["route"] != route:
+            raise AssertionError(f"preprocess: {r['mesh']} {r['mode']} voted on the {r['vote']['route']} route")
+        want = "render" if r["mesh"] == names[-1] else "watertight"
+        if r["mode"] != "surface" and r["visibility"] != want:
+            raise AssertionError(f"preprocess: {r['mesh']} took {r['visibility']}, not {want}")
+
+    # the tiled route against the host route on one full-size mesh
+    dev = torch.device(device)
+    v, f = load_mesh(os.path.join(meshes, names[0] + ".obj"))
+    q, s, n, stdv, _, _ = tm.draw_queries(v, f, seed=0)
+    sdf_c, keep_c, st_c = tm._vote(q, s, n, 11, stdv, 8192, dev, True)
+    sdf_h, keep_h, st_h = tm._vote(q, s, n, 11, stdv, 8192, "cpu", None)
+    agree = tm.vote_agreement(sdf_c, keep_c, sdf_h, keep_h)
+    if not agree["ok"]:
+        raise AssertionError(f"preprocess: tiled and host votes disagree: {agree} (limits {tm.VOTE_AGREEMENT})")
+    prof = profile_steps(lambda: tm._vote(q, s, n, 11, stdv, 8192, dev, True), 1)
+    # the materialized design writes and reads every float32 squared distance once
+    nbytes = 2 * 4 * len(q) * len(s)
+    vote = {"mesh": names[0], "queries": len(q), "surface_points": len(s),
+            "tiled": {k: st_c.get(k) for k in ("seconds", "device_ms", "chunk_ms", "idle_share", "peak_bytes",
+                                               "chunks")},
+            "host_seconds": st_h["seconds"], "agreement": agree, "limits": tm.VOTE_AGREEMENT,
+            "distance_bytes": nbytes, "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "profiler": {k: prof.get(k) for k in ("device_ms_per_step", "device_ops_per_step", "wall_ms_per_step",
+                                                  "device_idle_share", "top_other")}}
+
+    # the port's SdfSamples loader: one batch over the four shapes at the flagship's 16384 points per scene
+    ds = SdfDataset.from_split(os.path.join(data, "SdfSamples", "meshes"), [n + ".obj" for n in names], 16384)
+    pos, pc, neg, nc = ds.device_arrays(dev)
+    batch = sample_sdf_batch(pos, pc, neg, nc, torch.arange(len(names), device=dev), 16384,
+                             torch.Generator(device=dev).manual_seed(seed))
+    if tuple(batch.shape) != (4, len(names), 16384) or not bool(torch.isfinite(batch).all()):
+        raise AssertionError(f"preprocess: bad SdfSamples batch {tuple(batch.shape)}")
+    summary = {"meshes": names, "faces": {r["mesh"]: r["faces"] for r in records if r["mode"] == "sdf"},
+               "cap_cut_from": names[-1], "cap_faces_removed": cut, "tools_seconds": t_tools,
+               "run_all_seconds": t_run_all, "seconds": time.time() - t0, "vote_check": vote,
+               "outputs_checked": len(expected), "sdf_batch": list(batch.shape),
+               "batch_neg_share": float((batch[3] < 0).float().mean())}
+    return summary, records
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2357,6 +2529,11 @@ def main(argv=None):
         phase("training_iso", **training_iso)
         dp_summary, k2e_launches = dp(root, specs, args.seed)
         phase("dp", **dp_summary)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
+        prep_summary, prep_records = preprocess(root, args.seed)
+    for r in prep_records:
+        phase("preprocess_mesh", **r)
+    phase("preprocess", **prep_summary)
 
     bf16 = k1["bfloat16"]
 

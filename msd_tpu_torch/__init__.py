@@ -9,7 +9,9 @@ whose SDF queries go through the hand-written CUDA kernel in
 (``eval_chamfer.evaluate``). It trains Stage 1 (``train/stage1.py``, the
 ``train_deep_sdf`` CLI), with the loss and every gradient of a step
 computed by the hand-written CUDA kernels in ``csrc/fused_train.cu`` on a
-GPU.
+GPU. It prepares training data (``preprocess_data``,
+``run_all_preprocessing``, ``utils/*``: NIfTI masks to SdfSamples, the kNN
+sign vote on the card).
 """
 
 __version__ = "0.1.0"

@@ -62,3 +62,21 @@ def sample_mesh_surface(
         return pts.astype(np.float32), n.astype(np.float32), face_idx
     return (pts.astype(np.float32),)
 
+
+
+def bounding_cube_normalization(
+    verts: np.ndarray, buffer: float = 1.03, mode: str = "sphere"
+) -> Tuple[np.ndarray, float]:
+    """(offset, scale) such that (v + offset) * scale fits the unit sphere.
+
+    Mirrors the reference's ComputeNormalizationParameters: offset = -center
+    (midpoint of the bounding box), scale = 1 / (max distance from center *
+    buffer) (ref: src/Utils.cpp:109-168).
+    """
+    vmin = verts.min(axis=0)
+    vmax = verts.max(axis=0)
+    center = (vmin + vmax) / 2.0
+    offset = -center
+    d = np.linalg.norm(verts + offset, axis=1).max()
+    scale = 1.0 / (d * buffer)
+    return offset.astype(np.float64), float(scale)

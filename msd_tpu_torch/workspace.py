@@ -131,3 +131,37 @@ def get_reconstructed_mesh_filename(experiment_directory, epoch, dataset, class_
         class_name,
         instance_name + ".ply",
     )
+
+
+def get_reconstructed_code_filename(experiment_directory, epoch, dataset, class_name, instance_name):
+    return os.path.join(
+        experiment_directory,
+        reconstructions_subdir,
+        str(epoch),
+        reconstruction_codes_subdir,
+        dataset,
+        class_name,
+        instance_name + ".pth",
+    )
+
+
+def get_data_source_map_filename(data_dir):
+    return os.path.join(data_dir, data_source_map_filename)
+
+
+def get_normalization_params_filename(data_dir, dataset_name, class_name, instance_name):
+    return os.path.join(
+        data_dir, normalization_param_subdir, dataset_name, class_name, instance_name + ".npz"
+    )
+
+
+def get_surface_samples_filename(data_dir, dataset_name, class_name, instance_name):
+    return os.path.join(
+        data_dir, surface_samples_subdir, dataset_name, class_name, instance_name + ".ply"
+    )
+
+
+def get_sdf_samples_filename(data_dir, dataset_name, class_name, instance_name):
+    return os.path.join(
+        data_dir, sdf_samples_subdir, dataset_name, class_name, instance_name + ".npz"
+    )

@@ -1139,3 +1139,56 @@ def test_last_kernel_without_rank1_rows(name, dev):
     for a, b in zip(full, part):
         if a is not None and b is not None:
             assert torch.equal(a.nan_to_num().view(torch.int8), b.nan_to_num().view(torch.int8))
+
+
+def _ellipsoid_mesh(n=48, axes=(0.45, 0.7, 0.35)):
+    """A watertight ellipsoid from the port's marching tetrahedra."""
+    from msd_tpu_torch.ops.marching_cubes import marching_tetrahedra
+
+    x, y, z = np.meshgrid(*[np.linspace(-1, 1, n)] * 3, indexing="ij")
+    field = np.sqrt((x / axes[0]) ** 2 + (y / axes[1]) ** 2 + (z / axes[2]) ** 2) - 1.0
+    return marching_tetrahedra(field.astype(np.float32), spacing=(2 / (n - 1),) * 3)
+
+
+def test_knn_tiled_route_on_card_matches_host(dev):
+    """The vote's tiled route on the card against the host cKDTree route at
+    65536 queries x 20000 surface points, within VOTE_AGREEMENT."""
+    from msd_tpu_torch.preprocess import mesh_to_sdf as tm
+
+    v, f = _ellipsoid_mesh()
+    q, s, n, stdv, _, _ = tm.draw_queries(v, f, num_samples=65536, surface_vote_points=20000, seed=3)
+    sdf_c, keep_c, st = tm._vote(q, s, n, 11, stdv, 8192, "cuda", None)
+    sdf_h, keep_h, st_h = tm._vote(q, s, n, 11, stdv, 8192, "cpu", None)
+    assert (st["route"], st_h["route"]) == ("tiled", "host")
+    assert st["chunks"] == 8 and st["device_ms"] > 0 and 0 <= st["idle_share"] < 1 and st["peak_bytes"] > 0
+    agree = tm.vote_agreement(sdf_c, keep_c, sdf_h, keep_h)
+    assert agree["ok"], agree
+    assert keep_c.mean() > 0.9
+
+
+def test_preprocess_mesh_on_card_matches_cpu(dev):
+    """preprocess_mesh with the vote on the card against device="cpu": the
+    same queries (host draws), so the same rows where both keep, within
+    VOTE_AGREEMENT."""
+    from msd_tpu_torch.preprocess import mesh_to_sdf as tm
+
+    v, f = _ellipsoid_mesh()
+    kw = dict(num_samples=65536, surface_vote_points=20000, seed=5)
+    pos_c, neg_c, info_c = tm.preprocess_mesh(v, f, knn_device="cuda", **kw)
+    pos_h, neg_h, info_h = tm.preprocess_mesh(v, f, knn_device="cpu", **kw)
+    assert info_c["vote"]["route"] == "tiled" and info_h["vote"]["route"] == "host"
+    assert info_c["quality"] == info_h["quality"]
+    rows_c, rows_h = np.concatenate([pos_c, neg_c]), np.concatenate([pos_h, neg_h])
+    n = info_c["num_queries"]
+    assert abs(len(rows_c) - len(rows_h)) <= (1 - tm.VOTE_AGREEMENT["keep"]) * n
+
+    def keyed(rows):
+        return {r[:3].tobytes(): r[3] for r in rows}
+
+    kc, kh = keyed(rows_c), keyed(rows_h)
+    both = kc.keys() & kh.keys()
+    assert len(both) >= tm.VOTE_AGREEMENT["keep"] * min(len(kc), len(kh))
+    a = np.array([kc[k] for k in both])
+    b = np.array([kh[k] for k in both])
+    assert np.mean(np.signbit(a) == np.signbit(b)) >= tm.VOTE_AGREEMENT["sign"]
+    assert np.mean(np.abs(np.abs(a) - np.abs(b)) <= tm.VOTE_AGREEMENT["abs_sdf_tol"]) >= tm.VOTE_AGREEMENT["abs_sdf"]
