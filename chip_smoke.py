@@ -169,6 +169,20 @@ non-zero and prints no result. Phases, one JSON line each:
    each on 99.9% of the queries), the tiled vote under torch.profiler
    beside the materialized design's bytes bound, and the port's
    SdfSamples loader drawing 4 x 16384 points from the written files.
+17. serving_ranks: serving over 2 gloo ranks, both on the one card (NCCL,
+   one card per rank, is not measured), at the flagship width with the
+   serving phase's seeded decoder, on 4 seeded ellipsoids (250k + 250k
+   SdfSamples each). ``reconstruct_batch(group=)`` at the CLI's 800 x 8000
+   (2 shapes per rank): each rank's latents bit for bit one process's fit
+   of its 2 shapes, all 4 within 1e-5 of one process's fit of 4; seconds
+   per shape on the ranks and in one process. ``create_mesh`` at N=257
+   through ``PointEvaluator(group=)`` (K1 counted from 0 on each rank):
+   the corner and block SDF values bit for bit one process's, the same
+   mesh, K1 launched on every rank. The reconstruct CLI's ``--batch 4``
+   through ``main(argv, group=)``: the codes and meshes of a one-process
+   run, written by the main rank alone. ``knn_sign_vote`` over devices
+   ["cuda", "cuda"] on one of the preprocess phase's meshes at its
+   defaults: the bytes of the one-device vote; both timed.
 
 Each phase's line carries the wall seconds since the previous line
 (``since_last_s``). Then the ``kernels`` line, the
@@ -180,6 +194,7 @@ drives every phase.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -2451,6 +2466,235 @@ def preprocess(root, seed, device="cuda"):
     return summary, records
 
 
+# Serving over ranks: 2 gloo ranks on the one card (NCCL refuses two ranks
+# on one device), so NCCL serving, one card per rank, is not measured here.
+SERVE_RANKS = 2
+SERVE_RANK_SHAPES = 4
+# one process against the ranks: all 4 latents and the CLI's codes (1e-5),
+# the CLI's mesh vertices (1e-6, as the kernel's own mesh check)
+SERVE_RANK_TOL = {"latents": 1e-5, "verts": 1e-6}
+
+
+def serving_ranks_fit(decoder, specs, shapes, iters, **kw):
+    """``reconstruct_batch`` as the reconstruct CLI fits (8000 samples; 800
+    iterations at its defaults)."""
+    from msd_tpu_torch.train.reconstruct import reconstruct_batch
+
+    return reconstruct_batch(decoder, iters, specs["CodeLength"], shapes, 0.01, 0.1, num_samples=8000, lr=5e-3,
+                             l2reg=True, **kw)
+
+
+def serving_ranks_rank(group, specs, state, paths, iters, N, argv, shuffle_seed):
+    """A rank of the serving_ranks phase (spawned by ``serving_ranks``):
+    ``reconstruct_batch(group=)`` of the shapes at ``paths``, the sparse
+    evaluation and ``create_mesh`` of the first latent through
+    ``PointEvaluator(group=)`` (K1 counted from 0 just before, read just
+    after), then the reconstruct CLI's ``main(argv, group=)``. Returns numpy
+    results, seconds and K1 launches."""
+    import random
+
+    import torch
+
+    from msd_tpu_torch import mesh
+    from msd_tpu_torch import reconstruct as reconstruct_cli
+    from msd_tpu_torch.data.sdf_samples import read_sdf_samples, remove_nans
+    from msd_tpu_torch.models import build_decoder
+    from msd_tpu_torch.ops import fused_mlp
+
+    dev = group.device
+    decoder = build_decoder(specs["NetworkArch"], specs["CodeLength"], specs["NetworkSpecs"])
+    decoder.load_state_dict(state)
+    decoder = decoder.to(dev).eval()
+    shapes = [tuple(remove_nans(a) for a in read_sdf_samples(p)) for p in paths]
+    # warm up the card, the allocator and the gather before the timed fit
+    serving_ranks_fit(decoder, specs, shapes, 2, group=group)
+    _sync(dev)
+    t0 = time.perf_counter()
+    losses, latents = serving_ranks_fit(decoder, specs, shapes, iters, group=group)
+    _sync(dev)
+    t_fit = time.perf_counter() - t0
+    latent = latents[0]
+    fused_mlp.LAUNCHES = 0
+    ev = mesh.PointEvaluator(decoder, group=group)
+    t0 = time.perf_counter()
+    corner, abi, block_vals, stats = mesh._sparse_blocks(latent, N, mesh._pick_block(N, 0.1, 1.3), 1.3, ev)
+    verts, faces = mesh.create_mesh(decoder, latent, None, N=N, return_mesh=True, evaluator=ev)
+    _sync(dev)
+    t_mesh = time.perf_counter() - t0
+    launches, evaluated = fused_mlp.LAUNCHES, ev.n_evaluated
+    random.seed(shuffle_seed + group.rank)  # the main rank's order is every rank's
+    t0 = time.perf_counter()
+    summary = reconstruct_cli.main(argv, group=group)
+    t_cli = time.perf_counter() - t0
+    return {"losses": losses, "latents": latents.cpu().numpy(), "part": group.row_slice(len(paths)),
+            "fit_seconds": t_fit, "corner": corner, "abi": abi, "block_vals": block_vals, "verts": verts,
+            "faces": faces, "mesh_seconds": t_mesh, "k1_launches": launches, "points_evaluated": evaluated,
+            "cli_summary": summary, "cli_seconds": t_cli}
+
+
+def serving_ranks(root, specs, decoder, seed, vote_mesh, device="cuda", iters=800):
+    """Serving over ranks at the flagship width: ``SERVE_RANKS`` gloo ranks
+    on the card fit ``SERVE_RANK_SHAPES`` seeded ellipsoids with
+    ``reconstruct_batch(group=)`` (each rank's latents bit for bit one
+    process's fit of its shapes, all within ``SERVE_RANK_TOL`` of one
+    process fitting all), mesh the first latent at N=257 through
+    ``PointEvaluator(group=)`` (SDF values bit for bit one process's, K1 on
+    every rank, the same mesh) and run the reconstruct CLI's ``--batch 4``
+    through ``main(argv, group=)`` (codes and meshes as a one-process run's,
+    only the main rank writing). Then ``knn_sign_vote`` over two devices
+    (both the card) against one on the mesh ``vote_mesh``, byte for byte.
+    Returns the phase summary and the K1 launches per rank. ``device="cpu"``
+    rehearses it on the CPU (gloo ranks on the CPU, K1's plain version; cut
+    ``iters`` and shrink ``draw_queries`` as for the preprocess phase)."""
+    import random
+
+    import torch
+
+    from msd_tpu_torch import mesh
+    from msd_tpu_torch import reconstruct as reconstruct_cli
+    from msd_tpu_torch.data.mesh_io import load_mesh, load_ply
+    from msd_tpu_torch.data.sdf_samples import read_sdf_samples, remove_nans
+    from msd_tpu_torch.ops import fused_mlp
+    from msd_tpu_torch.parallel import run_ranks
+    from msd_tpu_torch.preprocess import mesh_to_sdf as tm
+    from msd_tpu_torch.utils.checkpoint import save_model
+
+    t_start = time.time()
+    dev = torch.device(device)
+    data = os.path.join(root, "serve_ranks_data")
+    split = write_dataset(data, SERVE_RANK_SHAPES, 250_000, seed + 1)
+    split_path = os.path.join(root, "serve_ranks_split.json")
+    with open(split_path, "w") as f:
+        json.dump(split, f)
+    exps = {}
+    for name in ("ranks", "one"):
+        exps[name] = os.path.join(root, f"serve_ranks_{name}")
+        os.makedirs(exps[name])
+        with open(os.path.join(exps[name], "specs.json"), "w") as f:
+            json.dump(specs, f)
+        save_model(exps[name], "latest.pth", decoder, 1)
+    paths = [os.path.join(data, "SdfSamples", "smoke", "ellipsoid", n + ".npz") for n in split["smoke"]["ellipsoid"]]
+
+    def argv(exp):
+        return ["-e", exp, "-c", "latest", "-d", os.path.join(data, "SdfSamples"), "-s", split_path,
+                "--batch", str(SERVE_RANK_SHAPES), "--iters", str(iters), "--device", device, "--quiet"]
+
+    N = mesh._snap_n(256)
+    state = {k: v.detach().cpu() for k, v in decoder.state_dict().items()}
+    out = run_ranks(serving_ranks_rank, SERVE_RANKS, (specs, state, paths, iters, N, argv(exps["ranks"]), seed),
+                    devices=[f"{device}:0" if device == "cuda" else device] * SERVE_RANKS, timeout=600,
+                    workdir=root)
+    t_ranks = time.time() - t_start
+
+    # one process: all shapes at once, then each rank's shapes alone
+    shapes = [tuple(remove_nans(a) for a in read_sdf_samples(p)) for p in paths]
+    _sync(dev)
+    t0 = time.perf_counter()
+    losses, latents = serving_ranks_fit(decoder, specs, shapes, iters)
+    _sync(dev)
+    t_fit_one = time.perf_counter() - t0
+    latents = latents.cpu().numpy()
+    fit = {"latents_max_abs_diff": float(np.abs(out[0]["latents"] - latents).max()),
+           "losses": losses.tolist(), "rank_losses": out[0]["losses"].tolist()}
+    if not np.allclose(out[0]["latents"], latents, rtol=SERVE_RANK_TOL["latents"], atol=SERVE_RANK_TOL["latents"]):
+        raise AssertionError(f"serving_ranks: ranks' latents against one process {fit}")
+    fit["rank_slices_bit_equal"] = []
+    for r in out:
+        if not np.array_equal(r["latents"], out[0]["latents"]) or not np.array_equal(r["losses"], out[0]["losses"]):
+            raise AssertionError(f"serving_ranks: rank {r['part']} returned other latents than rank 0")
+        part = r["part"]
+        if part.stop == part.start:
+            continue
+        _, own = serving_ranks_fit(decoder, specs, shapes[part], iters, seed=part.start)
+        if not np.array_equal(r["latents"][part], own.cpu().numpy()):
+            raise AssertionError(f"serving_ranks: rank shapes {part} differ from one process fitting them: max "
+                                 f"{float(np.abs(r['latents'][part] - own.cpu().numpy()).max())}")
+        fit["rank_slices_bit_equal"].append([part.start, part.stop])
+
+    # one process meshing the same latent
+    latent = torch.as_tensor(out[0]["latents"][0], device=dev)
+    launches0 = fused_mlp.LAUNCHES
+    ev = mesh.PointEvaluator(decoder)
+    _sync(dev)
+    t0 = time.perf_counter()
+    corner, abi, block_vals, _ = mesh._sparse_blocks(latent, N, mesh._pick_block(N, 0.1, 1.3), 1.3, ev)
+    verts, faces = mesh.create_mesh(decoder, latent, None, N=N, return_mesh=True, evaluator=ev)
+    _sync(dev)
+    t_mesh_one = time.perf_counter() - t0
+    meshing = {"N": N, "active_blocks": int(abi.shape[0]), "points_evaluated_one": ev.n_evaluated,
+               "k1_launches_one": fused_mlp.LAUNCHES - launches0, "verts": int(verts.shape[0]),
+               "faces": int(faces.shape[0]), "mesh_seconds_one": t_mesh_one}
+    # K1 computes every point alone, so a rank's points get one process's
+    # bits; on the CPU (a rehearsal) BLAS may block rows otherwise: 1e-6
+    same = np.array_equal if device == "cuda" else functools.partial(np.allclose, rtol=0, atol=1e-6)
+    for r in out:
+        if not (same(r["corner"], corner) and np.array_equal(r["abi"], abi) and same(r["block_vals"], block_vals)):
+            raise AssertionError(f"serving_ranks: rank SDF values differ from one process's (rank of {r['part']})")
+        if r["faces"].shape != faces.shape or r["verts"].shape != verts.shape or np.abs(r["verts"] - verts).max() > 1e-6:
+            raise AssertionError(f"serving_ranks: rank mesh {r['faces'].shape} against {faces.shape}")
+        if device == "cuda" and r["k1_launches"] <= 0:
+            raise AssertionError(f"serving_ranks: no K1 launch on a rank: {[o['k1_launches'] for o in out]}")
+    meshing.update(k1_launches_per_rank=[r["k1_launches"] for r in out],
+                   points_evaluated_per_rank=[r["points_evaluated"] for r in out],
+                   mesh_seconds_per_rank=[r["mesh_seconds"] for r in out], sdf_values_bit_equal=device == "cuda")
+
+    # the CLI: one process, the same shuffle as the main rank's
+    random.seed(seed)
+    t0 = time.perf_counter()
+    one = reconstruct_cli.main(argv(exps["one"]))
+    t_cli_one = time.perf_counter() - t0
+    if out[0]["cli_summary"] == [] or any(r["cli_summary"] for r in out[1:]):
+        raise AssertionError("serving_ranks: the CLI's main rank must return the summary, the others nothing")
+    if [s["shape"] for s in out[0]["cli_summary"]] != [s["shape"] for s in one]:
+        raise AssertionError("serving_ranks: the CLI over ranks took other shapes or another order")
+    cli = {"shapes": len(one), "codes_max_abs_diff": 0.0, "verts_max_abs_diff": 0.0, "codes_bit_equal": True,
+           "cli_seconds_per_rank": [r["cli_seconds"] for r in out], "cli_seconds_one": t_cli_one,
+           "fit_seconds_per_shape_ranks": out[0]["cli_summary"][0]["t_reconstruct"],
+           "fit_seconds_per_shape_one": one[0]["t_reconstruct"]}
+    base = {k: os.path.join(e, "Reconstructions", "1") for k, e in exps.items()}
+    for s in one:
+        code, ref_code = (torch_load(os.path.join(base[k], "Codes", s["shape"] + ".pth")).numpy()
+                          for k in ("ranks", "one"))
+        (v, f), (rv, rf) = (load_ply(os.path.join(base[k], "Meshes", s["shape"] + ".ply")) for k in ("ranks", "one"))
+        cli["codes_max_abs_diff"] = max(cli["codes_max_abs_diff"], float(np.abs(code - ref_code).max()))
+        cli["codes_bit_equal"] &= bool(np.array_equal(code, ref_code))
+        if not np.allclose(code, ref_code, rtol=SERVE_RANK_TOL["latents"], atol=SERVE_RANK_TOL["latents"]) \
+                or f.shape != rf.shape or v.shape != rv.shape:
+            raise AssertionError(f"serving_ranks: CLI outputs of {s['shape']} differ: {cli}, faces {f.shape} "
+                                 f"against {rf.shape}")
+        cli["verts_max_abs_diff"] = max(cli["verts_max_abs_diff"], float(np.abs(v - rv).max()))
+    if cli["verts_max_abs_diff"] > SERVE_RANK_TOL["verts"]:
+        raise AssertionError(f"serving_ranks: CLI meshes differ: {cli}")
+    written = sorted(os.listdir(os.path.join(base["ranks"], "Meshes")))
+    if written != sorted(s["shape"] + ".ply" for s in one):
+        raise AssertionError(f"serving_ranks: the CLI over ranks wrote {written}")
+
+    # the vote over two devices of this process (both the card) against one
+    v, f = load_mesh(vote_mesh)
+    q, s, n, stdv, _, _ = tm.draw_queries(v, f, seed=0)
+    votes = {}
+    for name, devs in (("one_device", [device]), ("two_devices", [device, device])):
+        _sync(dev)
+        t0 = time.perf_counter()
+        sdf, keep, st = tm._vote(q, s, n, 11, stdv, 8192, device, True, devs)
+        votes[name] = (sdf, keep, {"seconds": time.perf_counter() - t0,
+                                   **{k: st.get(k) for k in ("device_ms", "chunk_ms", "idle_share", "chunks")}})
+    if not (votes["one_device"][0].tobytes() == votes["two_devices"][0].tobytes()
+            and np.array_equal(votes["one_device"][1], votes["two_devices"][1])):
+        raise AssertionError("serving_ranks: the vote over two devices differs from one device's")
+    summary = {
+        "ranks": SERVE_RANKS, "backend": "gloo", "devices": [device] * SERVE_RANKS, "shapes": SERVE_RANK_SHAPES,
+        "fit_seconds_per_shape": {"one_process": t_fit_one / SERVE_RANK_SHAPES,
+                                  "ranks": max(r["fit_seconds"] for r in out) / SERVE_RANK_SHAPES},
+        "fit": fit, "mesh": meshing, "cli": cli,
+        "vote": {"mesh": os.path.basename(vote_mesh), "queries": len(q), "surface_points": len(s),
+                 "bytes_identical": True, **{k: v[2] for k, v in votes.items()}},
+        "ranks_seconds": t_ranks, "seconds": time.time() - t_start,
+        "note": "several ranks share one card: a correctness drive of serving over ranks, not a scaling figure; "
+                "NCCL (one card per rank) not measured"}
+    return summary, [r["k1_launches"] for r in out]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2531,9 +2775,12 @@ def main(argv=None):
         phase("dp", **dp_summary)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
         prep_summary, prep_records = preprocess(root, args.seed)
-    for r in prep_records:
-        phase("preprocess_mesh", **r)
-    phase("preprocess", **prep_summary)
+        for r in prep_records:
+            phase("preprocess_mesh", **r)
+        phase("preprocess", **prep_summary)
+        ranks_summary, k1_ranks = serving_ranks(root, specs, decoder, args.seed,
+                                                os.path.join(root, "meshes", prep_summary["meshes"][0] + ".obj"))
+        phase("serving_ranks", **ranks_summary)
 
     bf16 = k1["bfloat16"]
 
@@ -2546,7 +2793,7 @@ def main(argv=None):
     print(json.dumps({"kernels": [{
         "name": "fused_mlp", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "msd_tpu/ops/fused_mlp.py:211", "launches": launches, "launches_stage2": k1_stage2,
-        "launches_stage2_points": k1_points,
+        "launches_stage2_points": k1_points, "launches_serving_ranks": k1_ranks,
         "max_abs_err": worst(bf16), "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes the whole decoder",

@@ -58,10 +58,20 @@ class PointEvaluator:
 
     ``dtype`` is the kernel's operand type: bfloat16 by default on a GPU,
     float32 on the CPU (where ``msd_tpu`` evaluates in float32 too).
-    ``n_evaluated`` counts the points evaluated so far."""
+    ``n_evaluated`` counts the points this process evaluated so far.
 
-    def __init__(self, decoder, dtype: Optional[torch.dtype] = None, max_batch: int = 2**18):
+    ``group`` (a ``DataParallelGroup``; counterpart of ``msd_tpu``'s
+    ``mesh=``): ``eval_points`` splits the points into one contiguous slice
+    per rank (``group.row_slice``), each rank evaluates its slice (K1 on
+    the card, the plain version on the CPU) and every rank gathers every
+    value, so ``eval_blocks`` and ``eval_grid_dense`` / ``eval_grid_sparse``
+    / ``create_mesh`` handed this evaluator run over the group. Every rank
+    must call them in lockstep, with the same latent and points.
+    ``create_mesh`` writes its ``.ply`` on the main rank only."""
+
+    def __init__(self, decoder, dtype: Optional[torch.dtype] = None, max_batch: int = 2**18, group=None):
         self.decoder = decoder
+        self.group = group
         self.device = next(decoder.parameters()).device
         if dtype is None:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
@@ -85,6 +95,8 @@ class PointEvaluator:
         """pts [n, 3] (array or tensor) -> sdf [n] float32 on the device."""
         pts = torch.as_tensor(pts, dtype=torch.float32, device=self.device).reshape(-1, 3)
         latent = torch.as_tensor(latent, dtype=torch.float32, device=self.device).reshape(-1)
+        if self.group is not None:
+            pts = pts[self.group.row_slice(pts.shape[0])]
         kernel = self.spec is not None and self.device.type == "cuda"
         chunk = KERNEL_CHUNK if kernel else self.max_batch
         outs = []
@@ -95,7 +107,8 @@ class PointEvaluator:
             else:
                 outs.append(decode_sdf(self.decoder, latent, part)[:, 0])
         self.n_evaluated += pts.shape[0]
-        return torch.cat(outs) if outs else pts.new_zeros(0)
+        vals = torch.cat(outs) if outs else pts.new_zeros(0)
+        return vals if self.group is None else self.group.all_gather_rows(vals)
 
     def eval_blocks(self, latent, abi: np.ndarray, b: int, N: int, scale: int = 1) -> np.ndarray:
         """SDF at every stride-``scale`` lattice point of the given blocks
@@ -300,7 +313,7 @@ def create_mesh(
             pts = pts - offset
         verts = pts.astype(np.float32)
 
-    if filename:
+    if filename and (evaluator.group is None or evaluator.group.is_main):
         os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
         save_ply(filename + ".ply", verts, faces)
     if return_mesh:

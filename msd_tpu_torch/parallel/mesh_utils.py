@@ -3,9 +3,11 @@
 ``msd_tpu`` shards a batch over a 1-D device mesh and lets XLA insert the
 gradient psum. The port runs one process per rank instead: a
 ``torch.distributed`` process group, each rank on its own device (NCCL, one
-GPU per rank) or several ranks on one device or on the CPU (gloo). The
-only collective is ``all_reduce``, which gloo carries for CUDA tensors
-too, so either backend works.
+GPU per rank) or several ranks on one device or on the CPU (gloo).
+Training sums gradients with ``all_reduce_``, which gloo carries for CUDA
+tensors too; serving gathers each rank's rows with ``all_gather_rows``
+(``shard_map``'s ``out_specs=P("data")``), staged through host memory
+under gloo and gathered on the card under NCCL.
 
 ``run_ranks`` starts ``world_size`` processes (spawn), gives each a
 ``DataParallelGroup`` and returns what each rank's function returned. The
@@ -47,8 +49,15 @@ class DataParallelGroup:
         """This rank's share of ``n`` scenes (``n`` a multiple of the world size)."""
         if n % self.world_size:
             raise ValueError(f"{n} scenes do not split over {self.world_size} ranks")
-        per = n // self.world_size
-        return slice(self.rank * per, (self.rank + 1) * per)
+        return self.row_slice(n)
+
+    def row_slice(self, n: int) -> slice:
+        """This rank's contiguous share of ``n`` rows as ``P("data")``
+        shards them: ``ceil(n / world_size)`` rows each, the last ranks
+        short or empty (the padding rows ``msd_tpu`` adds for SPMD are left
+        out)."""
+        per = -(-n // self.world_size)
+        return slice(min(self.rank * per, n), min((self.rank + 1) * per, n))
 
     def all_reduce_(self, tensors) -> None:
         """Sum ``tensors`` over the ranks in place, in one collective (they
@@ -65,6 +74,40 @@ class DataParallelGroup:
             n = t.numel()
             t.detach().copy_(flat[offset:offset + n].view(t.shape))
             offset += n
+
+    def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (rows of any count, the same trailing shape
+        and dtype on every rank) stacked in rank order, on every rank, on
+        ``t``'s device. Rows are padded to the longest rank's count for the
+        collective and trimmed after it."""
+        if self.world_size == 1:
+            return t
+        import torch.distributed as dist
+
+        # gloo gathers host tensors; NCCL gathers on the card
+        host = t.device.type == "cuda" and dist.get_backend(self.process_group) == "gloo"
+        x = t.detach().cpu() if host else t.detach()
+        counts = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
+        all_counts = [torch.empty_like(counts) for _ in range(self.world_size)]
+        dist.all_gather(all_counts, counts, group=self.process_group)
+        all_counts = [int(c) for c in all_counts]
+        most = max(all_counts)
+        padded = x.new_zeros((most, *x.shape[1:]))
+        padded[:x.shape[0]] = x
+        parts = [torch.empty_like(padded) for _ in range(self.world_size)]
+        dist.all_gather(parts, padded, group=self.process_group)
+        out = torch.cat([p[:n] for p, n in zip(parts, all_counts)])
+        return out.to(t.device) if host else out
+
+    def broadcast_object(self, obj):
+        """The main rank's ``obj`` (any picklable value), on every rank."""
+        if self.world_size == 1:
+            return obj
+        import torch.distributed as dist
+
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=self.process_group)
+        return box[0]
 
 
 def init_group(init_method: str, world_size: int, rank: int, backend: str = "gloo",
@@ -89,6 +132,19 @@ def init_group(init_method: str, world_size: int, rank: int, backend: str = "glo
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method, world_size=world_size, rank=rank)
     return DataParallelGroup(dist.group.WORLD, rank, world_size, device)
+
+
+def init_group_from_env(device="cuda") -> DataParallelGroup:
+    """Join the group ``torchrun`` describes (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``, ``init_method="env://"``):
+    NCCL on ``cuda:<LOCAL_RANK>`` when ``device`` is a CUDA device (raises
+    without one), gloo on the CPU when it is the CPU."""
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_group_from_env: no CUDA device; pass device='cpu' for gloo on the CPU")
+        return init_group("env://", world, rank, "nccl", f"cuda:{int(os.environ.get('LOCAL_RANK', rank))}")
+    return init_group("env://", world, rank, "gloo", "cpu")
 
 
 def _rank_main(rank, fn, world_size, init_method, backend, devices, out_dir, args):

@@ -208,53 +208,74 @@ def _knn_chunk(q, s, n, s_sq, k):
     return num_pos, nearest, plane
 
 
-def _knn_tiled(queries, surf_pts, surf_norms, k, q_chunk, dev):
-    """Tiled vote on ``dev``: every query chunk of ``q_chunk`` rows is sent
-    to the device and voted against all surface points there. One chunk
-    holds a [q_chunk, S] float32 distance matrix (8192 x 200000: 6.55 GB).
+def _knn_tiled(queries, surf_pts, surf_norms, k, q_chunk, devs):
+    """Tiled vote on the devices ``devs``: the surface points go to every
+    device, and each round hands each device in turn the next query chunk
+    of ``q_chunk`` rows, voted against all surface points there. The
+    chunks are those of one device (chunk ``i`` of a round on ``devs[i]``),
+    each through the same per-device program, so the result is the
+    single-device vote's, byte for byte (``msd_tpu``'s query-sharded vote,
+    ``step = q_chunk * n_dev``). A round's chunks are all launched before
+    any result is read back, so CUDA devices vote at once. One chunk holds
+    a [q_chunk, S] float32 distance matrix (8192 x 200000: 6.55 GB).
 
-    Returns (num_pos, nearest, plane, stats). On a CUDA device ``stats``
+    Returns (num_pos, nearest, plane, stats). On CUDA devices ``stats``
     holds the route's device milliseconds (CUDA events from the surface
-    upload to the last chunk), the chunks' summed compute milliseconds,
-    the idle share between them, and the peak device memory (the CUDA
-    allocator's peak statistic is reset at the start)."""
-    cuda = dev.type == "cuda"
+    upload to the last chunk, the longest device's), the chunks' summed
+    compute milliseconds, the idle share between them (over every
+    device's span), and the peak device memory (the CUDA allocator's peak
+    statistic is reset at the start; the largest device's)."""
+    cuda = devs[0].type == "cuda"
+    own = list(dict.fromkeys(devs))  # each device once
+    starts, spans = {}, []
     if cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        spans = []
-    s = torch.from_numpy(np.ascontiguousarray(surf_pts, np.float32)).to(dev)
-    n = torch.from_numpy(np.ascontiguousarray(surf_norms, np.float32)).to(dev)
-    s_sq = (s * s).sum(1)
+        for dev in own:
+            torch.cuda.reset_peak_memory_stats(dev)
+            starts[dev] = torch.cuda.Event(enable_timing=True)
+            starts[dev].record(torch.cuda.current_stream(dev))
+    surface = {}
+    for dev in own:
+        s = torch.from_numpy(np.ascontiguousarray(surf_pts, np.float32)).to(dev)
+        surface[dev] = (s, torch.from_numpy(np.ascontiguousarray(surf_norms, np.float32)).to(dev), (s * s).sum(1))
     q_host = torch.from_numpy(np.ascontiguousarray(queries, np.float32))
     q = q_host.shape[0]
     num_pos = np.empty(q, np.int32)
     nearest = np.empty(q, np.float32)
     plane = np.empty(q, np.float32)
-    for lo in range(0, q, q_chunk):
-        hi = min(lo + q_chunk, q)
-        qc = q_host[lo:hi].to(dev)
-        if cuda:
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-        npos, nd, pd = _knn_chunk(qc, s, n, s_sq, k)
-        if cuda:
-            b.record()
-            spans.append((a, b))
-        num_pos[lo:hi] = npos.cpu().numpy()
-        nearest[lo:hi] = nd.cpu().numpy()
-        plane[lo:hi] = pd.cpu().numpy()
-    stats = {"route": "tiled", "device": str(dev), "chunks": len(range(0, q, q_chunk))}
+    for first in range(0, q, q_chunk * len(devs)):
+        launched = []
+        for i, dev in enumerate(devs):
+            lo = first + i * q_chunk
+            if lo >= q:
+                break
+            hi = min(lo + q_chunk, q)
+            qc = q_host[lo:hi].to(dev)
+            if cuda:
+                stream = torch.cuda.current_stream(dev)
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record(stream)
+            launched.append((lo, hi, _knn_chunk(qc, *surface[dev], k)))
+            if cuda:
+                b.record(stream)
+                spans.append((a, b))
+        for lo, hi, (npos, nd, pd) in launched:
+            num_pos[lo:hi] = npos.cpu().numpy()
+            nearest[lo:hi] = nd.cpu().numpy()
+            plane[lo:hi] = pd.cpu().numpy()
+    stats = {"route": "tiled", "device": str(devs[0]) if len(devs) == 1 else [str(d) for d in devs],
+             "chunks": len(range(0, q, q_chunk))}
     if cuda:
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        end.synchronize()
-        device_ms = start.elapsed_time(end)
+        device_ms = []
+        for dev in own:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(dev))
+            end.synchronize()
+            device_ms.append(starts[dev].elapsed_time(end))
         busy_ms = sum(a.elapsed_time(b) for a, b in spans)
-        stats.update(device_ms=device_ms, chunk_ms=busy_ms,
-                     idle_share=1.0 - busy_ms / device_ms if device_ms > 0 else 0.0,
-                     peak_bytes=torch.cuda.max_memory_allocated(dev))
+        span_ms = sum(device_ms)
+        stats.update(device_ms=max(device_ms), chunk_ms=busy_ms,
+                     idle_share=1.0 - busy_ms / span_ms if span_ms > 0 else 0.0,
+                     peak_bytes=max(torch.cuda.max_memory_allocated(dev) for dev in own))
     return num_pos, nearest, plane, stats
 
 
@@ -290,18 +311,21 @@ def _knn_host(queries, surf_pts, surf_norms, k, q_chunk=65536):
     return num_pos, nearest, plane
 
 
-def _vote(queries, surf_pts, surf_norms, num_votes, stdv, q_chunk, device, force_device):
+def _vote(queries, surf_pts, surf_norms, num_votes, stdv, q_chunk, device, force_device, devices=None):
     """``knn_sign_vote`` with the route's statistics: (sdf, keep, stats).
     ``stats["seconds"]`` is the host clock around the route; the tiled
-    route on a CUDA device adds its CUDA-event figures (``_knn_tiled``)."""
-    dev = torch.device(device)
-    tiled = dev.type == "cuda" if force_device is None else bool(force_device)
+    route on CUDA devices adds its CUDA-event figures (``_knn_tiled``)."""
+    devs = [torch.device(d) for d in ([device] if devices is None else devices)]
+    if not devs or len({d.type for d in devs}) != 1:
+        raise ValueError(f"knn_sign_vote: devices must be CUDA devices or the CPU, not both or none: {devices}")
+    tiled = devs[0].type == "cuda" if force_device is None else bool(force_device)
     t0 = time.perf_counter()
     if tiled:
-        if dev.type == "cuda":
-            dev = resolve_device(dev)  # raises without a GPU; TF32 off
+        if devs[0].type == "cuda":
+            devs = [resolve_device(d) for d in devs]  # raises without a GPU; TF32 off
+            devs = [torch.device("cuda", torch.cuda.current_device()) if d.index is None else d for d in devs]
         num_pos, nearest, plane, stats = _knn_tiled(
-            queries, surf_pts, surf_norms, num_votes, q_chunk, dev
+            queries, surf_pts, surf_norms, num_votes, q_chunk, devs
         )
     else:
         # Host KD-tree route (the reference's own design: nanoflann,
@@ -326,6 +350,7 @@ def knn_sign_vote(
     s_tile: int = 8192,
     device="cuda",
     force_device: bool | None = None,
+    devices=None,
 ):
     """Signed distances with all-or-nothing vote rejection.
 
@@ -340,8 +365,16 @@ def knn_sign_vote(
     without a GPU, and no error there moves the vote to the host.
     ``s_tile`` is accepted for ``msd_tpu``'s signature; the tiled route
     votes each query chunk against every surface point at once.
+
+    ``devices``: a list of devices of this process (all CUDA, or all the
+    CPU; a device may appear more than once) to shard the tiled route's
+    query chunks over, as ``msd_tpu`` shards its vote over ``devices``
+    (``_knn_tiled``): the surface points go to every device, each round
+    hands each device one ``q_chunk`` of queries, and the result is the
+    single-device vote's, byte for byte. It takes the place of ``device``;
+    None keeps ``device``.
     """
-    sdf, keep, _ = _vote(queries, surf_pts, surf_norms, num_votes, stdv, q_chunk, device, force_device)
+    sdf, keep, _ = _vote(queries, surf_pts, surf_norms, num_votes, stdv, q_chunk, device, force_device, devices)
     return sdf, keep
 
 
@@ -464,6 +497,7 @@ def preprocess_mesh(
     visibility: str = "auto",
     knn_device="cuda",
     knn_force_device: bool | None = None,
+    knn_devices=None,
 ) -> Tuple[np.ndarray, np.ndarray, dict]:
     """Full mesh -> {pos, neg} sample generation
     (ref: src/PreprocessMesh.cpp:282-565).
@@ -492,15 +526,16 @@ def preprocess_mesh(
         shells), else "watertight". The rasterizer's build raises if it
         fails.
 
-    ``knn_device`` and ``knn_force_device`` pick the vote's route
-    (``knn_sign_vote``'s ``device`` and ``force_device``).
+    ``knn_device``, ``knn_force_device`` and ``knn_devices`` pick the
+    vote's route (``knn_sign_vote``'s ``device``, ``force_device`` and
+    ``devices``).
     """
     queries, vote_pts, vote_norms, stdv, quality, seconds = draw_queries(
         verts, faces, num_samples, variance, test, surface_vote_points, seed, center, repair, visibility,
     )
     t_sampled = time.perf_counter()
     sdf, keep, vote = _vote(
-        queries, vote_pts, vote_norms, num_votes, stdv, 8192, knn_device, knn_force_device,
+        queries, vote_pts, vote_norms, num_votes, stdv, 8192, knn_device, knn_force_device, knn_devices,
     )
     t_vote = time.perf_counter()
     xyz = queries[keep]

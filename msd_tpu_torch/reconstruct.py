@@ -8,6 +8,16 @@ latent (``train/reconstruct.py``), meshes it with ``create_mesh`` and
 writes ``Reconstructions/<epoch>/Meshes/<id>.ply`` and
 ``Reconstructions/<epoch>/Codes/<id>.pth`` (the latent as a [1, 1, L]
 tensor).
+
+``--batch N`` fits N shapes at once. Over ranks (``main(argv, group=)``,
+or ``torchrun --nproc_per_node=<cards> -m msd_tpu_torch.reconstruct
+--batch N ...``, which joins the group ``torchrun`` describes: NCCL, one
+card per rank) each rank fits its slice of every batch
+(``reconstruct_batch(group=)``), as ``msd_tpu`` shards the batched fit
+over every visible device. The meshing after the fit runs on the main
+rank alone, with no group: it writes every file and returns the summary;
+the other ranks write nothing and return an empty list. The one-at-a-time
+branch takes no group.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from msd_tpu_torch.data.splits import get_instance_filenames
 from msd_tpu_torch.device import resolve_device
 from msd_tpu_torch.models import build_decoder
 from msd_tpu_torch.ops import fused_mlp
+from msd_tpu_torch.parallel import init_group_from_env
 from msd_tpu_torch.train.reconstruct import reconstruct, reconstruct_batch
 from msd_tpu_torch.utils import add_common_args, configure_logging
 from msd_tpu_torch.utils import checkpoint as ckpt
@@ -54,12 +65,35 @@ def _parser():
     return p
 
 
-def main(argv=None):
+def main(argv=None, group=None):
     """Run the CLI; returns one summary dict per reconstructed shape
-    (losses, phase times, points evaluated, mesh size, K1 launches)."""
+    (losses, phase times, points evaluated, mesh size, K1 launches).
+
+    ``group``: a ``DataParallelGroup`` to fit ``--batch`` over (each rank
+    on ``group.device``; see the module's docstring). Without one, a
+    process that ``torchrun`` started with ``WORLD_SIZE`` above 1 joins
+    the group from the environment, on ``--device``, and leaves it at the
+    end."""
     args = _parser().parse_args(argv)
     configure_logging(args)
-    device = resolve_device(args.device)
+    own_group = group is None and int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if own_group:
+        group = init_group_from_env(resolve_device(args.device))
+    try:
+        return _run(args, group)
+    finally:
+        if own_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, group):
+    if group is not None and args.batch_size <= 1:
+        raise ValueError("reconstruct: a group fits --batch N (N > 1) only; the one-at-a-time branch "
+                         "runs in one process, as msd_tpu shards only --batch")
+    device = resolve_device(args.device if group is None else group.device)
+    main_rank = group is None or group.is_main
 
     specs = ws.load_experiment_specifications(args.experiment_directory)
     latent_size = specs["CodeLength"]
@@ -79,8 +113,9 @@ def main(argv=None):
     reconstruction_dir = os.path.join(args.experiment_directory, ws.reconstructions_subdir, dirname)
     meshes_dir = os.path.join(reconstruction_dir, ws.reconstruction_meshes_subdir)
     codes_dir = os.path.join(reconstruction_dir, ws.reconstruction_codes_subdir)
-    os.makedirs(meshes_dir, exist_ok=True)
-    os.makedirs(codes_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(meshes_dir, exist_ok=True)
+        os.makedirs(codes_dir, exist_ok=True)
 
     work = []
     for npz in npz_filenames:
@@ -91,6 +126,8 @@ def main(argv=None):
         if args.skip and os.path.isfile(mesh_filename + ".ply") and os.path.isfile(latent_filename):
             continue
         work.append((npz, mesh_filename, latent_filename))
+    if group is not None:  # every rank fits the main rank's shapes, in its order
+        work = group.broadcast_object(work)
 
     summary = []
 
@@ -119,17 +156,19 @@ def main(argv=None):
     fit_kw = dict(num_samples=8000, lr=5e-3, l2reg=True, return_loss_hist=True)
     if args.batch_size > 1:
         for start_i in range(0, len(work), args.batch_size):
-            group = work[start_i : start_i + args.batch_size]
+            batch = work[start_i : start_i + args.batch_size]
             shapes = []
-            for npz, _, _ in group:
+            for npz, _, _ in batch:
                 pos, neg = read_sdf_samples(npz)
                 shapes.append((remove_nans(pos), remove_nans(neg)))
             start = time.time()
             hists, latents = reconstruct_batch(
-                decoder, int(args.iterations), latent_size, shapes, 0.01, 0.1, **fit_kw
+                decoder, int(args.iterations), latent_size, shapes, 0.01, 0.1, group=group, **fit_kw
             )
-            t_fit = (time.time() - start) / len(group)
-            for (npz, mesh_filename, latent_filename), hist, latent in zip(group, hists, latents):
+            t_fit = (time.time() - start) / len(batch)
+            if not main_rank:
+                continue
+            for (npz, mesh_filename, latent_filename), hist, latent in zip(batch, hists, latents):
                 save_outputs(npz, hist, t_fit, latent, mesh_filename, latent_filename)
     else:
         for npz, mesh_filename, latent_filename in work:

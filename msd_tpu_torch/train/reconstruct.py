@@ -39,12 +39,34 @@ class ReconstructConfig(NamedTuple):
     dist_type: str = "zscore_l2"
 
 
+class _ShapeRows(torch.autograd.Function):
+    """(latent [S, 1, L], xyz [S, n, 3]) -> decoder inputs [S, n, L + 3].
+    The backward sums each shape's n row gradients by a reduction of its
+    own, so a shape's latent gradient has the same bits whatever other
+    shapes share the batch: one reduction over [S, n, L] splits its rows
+    by S's size on the card, and Adam's normalised steps carry a one-ulp
+    difference through the fit (0.06 apart after 800 iterations on the
+    H100). Serving over ranks relies on it (``reconstruct_batch(group=)``
+    gives one process's latents)."""
+
+    @staticmethod
+    def forward(ctx, latent, xyz):
+        S, n, _ = xyz.shape
+        ctx.latent_size = latent.shape[2]
+        return torch.cat([latent.expand(S, n, latent.shape[2]), xyz], dim=2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows = grad[..., : ctx.latent_size]
+        return torch.stack([rows[i].sum(0, keepdim=True) for i in range(rows.shape[0])]), None
+
+
 def reconstruct_loss(decoder, cfg: ReconstructConfig, latent, batch, dist_mean, dist_std):
     """latent [S, 1, L], batch [S, n, 4] -> per-shape loss [S]."""
     S, n = batch.shape[:2]
     c = cfg.clamp_dist
     sdf_gt = batch[..., 3:4].clamp(-c, c)
-    inputs = torch.cat([latent.expand(S, n, cfg.latent_size), batch[..., :3]], dim=2)
+    inputs = _ShapeRows.apply(latent, batch[..., :3])
     pred = decoder(inputs.reshape(S * n, -1)).reshape(S, n, 1).clamp(-c, c)
     loss = (pred - sdf_gt).abs().mean(dim=(1, 2))
     # latent regularisation (ref: reconstruct.py:106-116)
@@ -119,6 +141,7 @@ def reconstruct_batch(
     dist_type="zscore_l2",
     seed=0,
     return_loss_hist=False,
+    group=None,
 ):
     """Fit latents for ``len(test_sdfs)`` shapes at once.
 
@@ -126,11 +149,16 @@ def reconstruct_batch(
     initial latent and every batch from its own generator seeded
     ``seed + i``, so it fits exactly as ``reconstruct(..., seed=seed+i)``
     would. Returns (final losses [S] or loss history [S, iters] as numpy,
-    latents [S, L] on the decoder's device)."""
-    dev = next(decoder.parameters()).device
-    S = len(test_sdfs)
-    if S == 0:
-        return np.zeros(0, np.float32), torch.zeros(0, latent_size, device=dev)
+    latents [S, L] on the decoder's device).
+
+    ``group`` (a ``DataParallelGroup``; counterpart of ``msd_tpu``'s
+    ``mesh=``): each rank fits its contiguous slice of the shapes
+    (``group.row_slice``), shape i still from the generator seeded
+    ``seed + i``, so its latents are bit for bit what one process gives
+    fitting that slice with ``seed + start``. No collective runs during the
+    fit; at the end every rank gathers every shape's losses and latents and
+    returns what one process returns, in shape order. Every rank calls it
+    with the same arguments."""
     cfg = ReconstructConfig(
         num_iterations=int(num_iterations),
         latent_size=int(latent_size),
@@ -144,8 +172,26 @@ def reconstruct_batch(
         dist_weight=float(dist_weight) if dist_weight else 0.0,
         dist_type=str(dist_type),
     )
+    dev = next(decoder.parameters()).device
+    part = slice(0, len(test_sdfs)) if group is None else group.row_slice(len(test_sdfs))
+    if part.stop > part.start:
+        hist, latents = _fit_batch(decoder, cfg, test_sdfs, part, stat, dist_mean, dist_std, int(seed), dev)
+    else:
+        hist = torch.zeros(0, cfg.num_iterations, device=dev)
+        latents = torch.zeros(0, cfg.latent_size, device=dev)
+    if group is not None:
+        hist, latents = group.all_gather_rows(hist), group.all_gather_rows(latents)
+    hist = hist.cpu().numpy()
+    return (hist if return_loss_hist else hist[:, -1]), latents
+
+
+def _fit_batch(decoder, cfg: ReconstructConfig, test_sdfs, part: slice, stat, dist_mean, dist_std, seed, dev):
+    """``reconstruct_batch``'s fit of the shapes ``test_sdfs[part]`` on one
+    device: (loss history [S, iters], latents [S, L]) on ``dev``."""
+    latent_size = cfg.latent_size
     pos, neg = [], []
-    for si, (p, n) in enumerate(test_sdfs):
+    for si in range(part.start, part.stop):
+        p, n = test_sdfs[si]
         if p.shape[0] == 0 or n.shape[0] == 0:
             raise ValueError(
                 f"reconstruct shape {si} needs both sample signs: "
@@ -153,7 +199,8 @@ def reconstruct_batch(
             )
         pos.append(torch.as_tensor(np.asarray(p, np.float32), device=dev))
         neg.append(torch.as_tensor(np.asarray(n, np.float32), device=dev))
-    gens = [torch.Generator(device=dev).manual_seed(int(seed) + i) for i in range(S)]
+    gens = [torch.Generator(device=dev).manual_seed(seed + i) for i in range(part.start, part.stop)]
+    S = len(gens)
 
     def normal(g):
         return torch.randn(1, latent_size, generator=g, device=dev)
@@ -185,8 +232,7 @@ def reconstruct_batch(
         for it in range(cfg.num_iterations):
             batch = torch.stack([draw(i) for i in range(S)])
             latent, m, v, hist[it] = reconstruct_step(decoder, cfg, latent, m, v, it, batch, dm, ds)
-    hist = hist.t().cpu().numpy()
-    return (hist if return_loss_hist else hist[:, -1]), latent[:, 0, :]
+    return hist.t().contiguous(), latent[:, 0, :]
 
 
 def reconstruct(
