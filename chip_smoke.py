@@ -7,7 +7,8 @@ Needs one NVIDIA GPU and the repository around it; without either it exits
 non-zero and prints no result. Phases, one JSON line each:
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: nvcc builds every kernel source of the port, in parallel.
+2. build: nvcc builds every kernel source of the port, in parallel, and g++
+   the host library (the render pass's rasterizer and the mesher) beside them.
 3. k1: the fused SDF-query kernel (csrc/fused_mlp.cu) against its plain
    PyTorch version at the flagship decoder's full width
    (examples/ADNI/minimal_eikonal/specs.json), in bf16 (the wgmma route)
@@ -29,6 +30,13 @@ non-zero and prints no result. Phases, one JSON line each:
    one reconstructed latent is meshed twice more at N=257, through the
    kernel and through the plain version on the card: active blocks of each
    and the symmetric Chamfer between the two meshes (``MESH_TOL``).
+4b. mesher_ab: the same latent's sparse block values at N=257 meshed
+   through the C++ host mesher (msd_tpu_torch/native/marching_tets.cpp,
+   create_mesh's route) and the numpy route: equal vertex and face counts,
+   vertex sets within ``MESHER_TOL``, each timed; then create_mesh's
+   seconds per shape (median of 3, PLY written) split into K1 (CUDA
+   events), the device-to-host copy of the SDF values (bytes, ms), the
+   host's block selection, the mesher and the PLY write.
 5. k2: the Stage-1 fused loss-and-gradient kernels (csrc/fused_train.cu),
    variants b (eikonal) and a, at the flagship width in bf16: against float32
    autograd and their plain PyTorch version on 4 seeded scenes x 16384
@@ -112,6 +120,18 @@ non-zero and prints no result. Phases, one JSON line each:
    once per step, pointnet_encoder's BatchNorm means moved by training and
    fixed by compute_vae_latents.
 
+10c. stage2_points_ranks: the stage2_points experiment (PointNet++, 32
+   scenes x 2048 surface points, K2 d) on 2 gloo ranks on the card, each
+   encoding its 16 scenes with BatchNorm over both ranks' rows and running
+   K2 d on them, for 4 steps on given scene ids, labels, weights and
+   generator seeds, against one process taking the same steps: the first
+   step's losses, VAE gradients, parameters and BatchNorm statistics
+   within ``POINTS_RANKS_TOL``, both ranks' parameters and statistics
+   equal bit for bit after the last, K2 d once per step on each rank, the
+   device operations of the first step's FPS on each rank's scenes and on
+   one process's (profiler), the step's ms on each rank and in one
+   process.
+
 11. k2ce: K2 variants c (EikonalNumPoints 4096 of 16384 points per scene)
    and e (per-scene 0/1 weights; eikonal on, one pad scene) against float32
    autograd and their plain version on 4 seeded scenes x 16384 points, then
@@ -194,6 +214,7 @@ drives every phase.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import functools
 import json
 import math
@@ -1647,6 +1668,176 @@ def stage2_points(root, seed, device="cuda", changes=None):
     }, k2_train + k2_others, k1_eval
 
 
+POINTS_RANKS = 2
+POINTS_RANKS_STEPS = 4
+# Points-mode Stage 2 on the ranks against one process on the card, after
+# the first step: loss terms, BatchNorm statistics and parameters to 1e-3
+# (parameters where their gradient is above 1e-2 of the largest, the rest
+# moved by at most lr in both), as tests/test_torch_stage2_points_ranks.py
+# holds PointNet++ on the CPU; gradients to 2e-2 of the largest: each
+# float32 run sits within 1e-2 of a float64 run (PN2_TRAIN_RTOL
+# "grad_float64", tests/test_torch_pointnet.py), so two float32 runs that
+# sum SA1's BatchNorm rows in other orders may sit 2e-2 apart (9.7e-3
+# measured on the H100, 4.5e-3 on the CPU test's 4 scenes). The later
+# steps' losses are printed, not held: from the second step the two runs'
+# float32 roundings have moved parameters of near-zero gradient by up to lr
+# in opposite directions, and the batch-statistic losses (SNNL's median
+# temperature, its saturation at -log 1e-6) carry that far; one process at
+# 1 and at 8 CPU threads differs by 5-8% in the total by the fifth step of
+# a 4-scene rehearsal.
+POINTS_RANKS_TOL = {"values": 1e-3, "grads": 2e-2, "big": 1e-2}
+
+
+def points_ranks_steps(trainer, inputs):
+    """``inputs``' steps (each scene ids, labels, weights and a generator
+    seed; the step draws its point batch, noise and FPS starts from that
+    generator) on a points-mode trainer. Returns each step's metrics and
+    milliseconds (host clock around synchronised steps), the first step's
+    VAE gradients, the parameters before and after it, its BatchNorm
+    statistics, the final parameters and statistics (on the CPU), and the
+    device operations of the first step's two FPS calls on this rank's
+    scenes (profiler; None off the card) and their count."""
+    import torch
+
+    from msd_tpu_torch.models import pointnet2
+
+    dev = trainer.device
+
+    def state():
+        return ({n: p.detach().cpu().clone() for n, p in trainer.vae.named_parameters()},
+                {n: b.detach().cpu().clone() for n, b in trainer.vae.named_buffers() if "running_" in n})
+
+    before = state()[0]
+    out = {"aux": [], "step_ms": []}
+    for s, (idx, labels, weights, seed) in enumerate(inputs):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        _sync(dev)
+        t = time.perf_counter()
+        aux = trainer.step(torch.as_tensor(idx, device=dev), labels, *weights, generator=gen)
+        _sync(dev)
+        out["step_ms"].append((time.perf_counter() - t) * 1e3)
+        out["aux"].append({k: float(v) for k, v in aux.items()})
+        if s == 0:
+            out["grads"] = {n: p.grad.detach().cpu().clone() for n, p in trainer.vae.named_parameters()
+                            if p.grad is not None}
+            out["params_1"], out["stats_1"] = state()
+    out["before"] = before
+    out["params"], out["stats"] = state()
+
+    # the first step's FPS on this rank's scenes (its launches do not depend on the starts)
+    idx, _, _, seed = inputs[0]
+    clouds = trainer._surface_dev[torch.as_tensor(idx, device=dev)]
+    s1, s2 = trainer.vae.encoder.draw_starts(clouds, torch.Generator(device=dev).manual_seed(seed))
+    rows = trainer.group.scene_slice(len(idx)) if trainer.group is not None else slice(None)
+    clouds, s1, s2 = clouds[rows], s1[rows], s2[rows]
+    sa1, sa2 = pointnet2.PointNet2Encoder.SA_CONFIG[:2]
+
+    def fps():
+        with torch.no_grad():
+            xyz1 = pointnet2.index_points(clouds, pointnet2.farthest_point_sample(clouds, sa1["npoint"], s1))
+            pointnet2.farthest_point_sample(xyz1, sa2["npoint"], s2)
+
+    out["scenes"] = clouds.shape[0]
+    out["fps_device_ops"] = profile_steps(fps, 1).get("device_ops_per_step") if dev.type == "cuda" else None
+    return out
+
+
+def stage2_points_ranks_rank(group, exp, inputs):
+    """A rank of the points-mode Stage-2 run (spawned by ``stage2_points_ranks``)."""
+    from msd_tpu_torch.ops import fused_train
+    from msd_tpu_torch.train.stage2 import Stage2Trainer
+
+    trainer = Stage2Trainer(exp, group=group)
+    fused_train.reset_launches()
+    out = points_ranks_steps(trainer, inputs)
+    out["k2d_launches"] = fused_train.VARIANT_LAUNCHES["d"]
+    return out
+
+
+def stage2_points_ranks(root, seed, device="cuda"):
+    """Points-mode Stage 2 over ``POINTS_RANKS`` gloo ranks on the card (or
+    the CPU, a rehearsal), on the stage2_points phase's experiment
+    (PointNet++, 2048 surface points, ScenesPerBatch 32, K2 d): each rank
+    encodes its 16 scenes with BatchNorm over both ranks' rows, and K2 d
+    splits 16 + 16. ``POINTS_RANKS_STEPS`` steps on given scene ids, labels,
+    weights and generator seeds, against one process taking the same steps.
+    Returns the phase summary and the K2 d launches per rank."""
+    import torch
+
+    from msd_tpu_torch.parallel import run_ranks
+    from msd_tpu_torch.train.stage1 import step_seed
+    from msd_tpu_torch.train.stage2 import Stage2Trainer
+
+    t_start = time.time()
+    exp = os.path.join(root, "stage2_points_experiment")
+    one = Stage2Trainer(exp, device=device)
+    B = one.scene_per_batch
+    if one.encoder_type != "pointnet2" or B % POINTS_RANKS:
+        raise AssertionError(f"stage2_points_ranks: {one.encoder_type}, {B} scenes per batch")
+    rng = np.random.default_rng(seed)
+    lr_vae, lr_sdf, kl_w, crw = one.epoch_weights(1)
+    inputs = []
+    for s in range(POINTS_RANKS_STEPS):
+        idx = rng.permutation(one.train_indices)[:B]
+        inputs.append((idx, one._batch_labels(idx, rng), (kl_w, crw, lr_vae, lr_sdf), step_seed(seed, s)))
+    devices = ["cuda:0" if device == "cuda" else device] * POINTS_RANKS
+    ranks = run_ranks(stage2_points_ranks_rank, POINTS_RANKS, (exp, inputs), devices=devices, timeout=600,
+                      workdir=root)
+    t_ranks = time.time() - t_start
+    ref = points_ranks_steps(one, inputs)
+
+    tol = POINTS_RANKS_TOL
+    g_max = max(float(g.abs().max()) for g in ref["grads"].values())
+    errs = []
+    for r, out in enumerate(ranks):
+        e = {"rank": r}
+        e["step1_aux_rel"] = max(abs(out["aux"][0][k] - v) / max(abs(v), 1e-12) for k, v in ref["aux"][0].items())
+        e["later_total_rel"] = [abs(a["total"] - b["total"]) / abs(b["total"])
+                                for a, b in zip(out["aux"][1:], ref["aux"][1:])]
+        e["step1_grad_share"] = max(float((out["grads"][n] - g).abs().max()) / g_max for n, g in ref["grads"].items())
+        e["step1_stats_rel"] = max(float((out["stats_1"][n] - v).abs().max() / v.abs().max().clamp(min=1e-12))
+                                   for n, v in ref["stats_1"].items())
+        big_rel, small_moved = 0.0, 0.0
+        for n, v in ref["params_1"].items():
+            g = ref["grads"].get(n, torch.zeros_like(v))
+            big = g.abs() > tol["big"] * g_max
+            if big.any():
+                big_rel = max(big_rel, float((out["params_1"][n][big] - v[big]).abs().max() / v.abs().max()))
+            ulps = 2 * np.spacing(ref["before"][n].abs().numpy())  # Adam moves a parameter by at most lr
+            for moved in (out["params_1"][n] - ref["before"][n], v - ref["before"][n]):
+                small_moved = max(small_moved, float((moved.abs().numpy() - ulps).max()))
+        e["step1_params_rel_big_grad"], e["step1_params_most_moved"] = big_rel, small_moved
+        e["sorted_aux_keys_equal"] = sorted(out["aux"][0]) == sorted(ref["aux"][0])
+        errs.append(e)
+        if not (e["sorted_aux_keys_equal"] and e["step1_aux_rel"] <= tol["values"]
+                and all(math.isfinite(a["total"]) for a in out["aux"]) and e["step1_grad_share"] <= tol["grads"]
+                and e["step1_stats_rel"] <= tol["values"] and big_rel <= tol["values"]
+                and small_moved <= lr_vae):
+            raise AssertionError(f"stage2_points_ranks: rank {r} against one process: {e}")
+    same = all(torch.equal(v, ranks[0][k][n]) for out in ranks[1:] for k in ("params", "stats")
+               for n, v in out[k].items())
+    if not same:
+        raise AssertionError("stage2_points_ranks: the ranks' parameters or statistics differ")
+    card = device == "cuda"
+    launches = [out["k2d_launches"] for out in ranks]
+    if launches != [POINTS_RANKS_STEPS * card] * POINTS_RANKS:
+        raise AssertionError(f"stage2_points_ranks: K2 d launches per rank {launches}")
+    med = lambda ms: float(np.median(ms[1:]))  # noqa: E731
+    return {
+        "ranks": POINTS_RANKS, "backend": "gloo", "devices": devices, "steps": POINTS_RANKS_STEPS,
+        "scenes_per_batch": B, "scenes_per_rank": [out["scenes"] for out in ranks],
+        "k2d_launches_per_rank": launches, "tol": tol, "errors": errs, "ranks_params_and_stats_bit_equal": True,
+        "losses": {"one_process": [a["total"] for a in ref["aux"]],
+                   "ranks": [[a["total"] for a in out["aux"]] for out in ranks]},
+        "step_ms": {"one_process": ref["step_ms"], "ranks": [out["step_ms"] for out in ranks]},
+        "step_ms_median": {"one_process": med(ref["step_ms"]), "ranks": [med(out["step_ms"]) for out in ranks]},
+        "fps_device_ops": {"one_process": ref["fps_device_ops"], "ranks": [out["fps_device_ops"] for out in ranks]},
+        "fps_scenes": {"one_process": ref["scenes"], "ranks": [out["scenes"] for out in ranks]},
+        "ranks_seconds": t_ranks, "seconds": time.time() - t_start,
+        "note": "two ranks share one card: a correctness drive of BatchNorm over ranks and the split batch, "
+                "not a scaling figure; NCCL (one card per rank) not measured"}, launches
+
+
 # K2 c and e: K2 b's limits against the plain version, with the loss sums at
 # the step shape held closer: the clamped L1 to 1e-5 relative (one float32
 # sum of the same per-point values in two orders; 3.3e-7 measured for b),
@@ -2185,7 +2376,8 @@ def dp(root, specs, seed, steps=3, ranks=3):
 def serve(root, specs, decoder, seed):
     """The port's serving path on a temporary experiment; returns
     (per-shape summaries, evaluate results, seconds of evaluate, K1
-    launches, K1 launches by route, the kernel-against-plain mesh check)."""
+    launches, K1 launches by route, the kernel-against-plain mesh check,
+    the host mesher's A/B and its K1 launches)."""
     import torch
 
     from msd_tpu_torch import evaluate as evaluate_cli
@@ -2256,7 +2448,7 @@ def serve(root, specs, decoder, seed):
     if not all(math.isfinite(r[1][0]) for r in results):
         raise AssertionError(f"non-finite Chamfer: {results}")
     code = torch_load(os.path.join(exp_dir, "Reconstructions", "1", "Codes", summary[0]["shape"] + ".pth"))
-    return summary, results, t_eval, launches, routes, mesh_pair(decoder, code)
+    return summary, results, t_eval, launches, routes, mesh_pair(decoder, code), mesher_ab(decoder, code, root)
 
 
 def torch_load(path):
@@ -2310,6 +2502,98 @@ def mesh_pair(decoder, latent):
             and r["verts_rel"] <= MESH_TOL["verts"]):
         raise AssertionError(f"serving: kernel mesh against plain mesh {r}")
     return r
+
+
+MESHER_TOL = {"verts": 1e-5}
+
+
+def mesher_ab(decoder, latent, out_dir, reps=3):
+    """The host mesher's A/B on one latent at N=257: the sparse path's
+    block values meshed through the C++ mesher (``create_mesh``'s route)
+    and through the numpy route, equal counts and vertex sets within
+    ``MESHER_TOL``, each timed; then ``create_mesh`` seconds per shape
+    (median of ``reps``, writing the PLY) split into K1 (CUDA events, the
+    corner lattice's host-to-device copy included), the device-to-host
+    copy of the SDF values (bytes, ms), the host's block selection, the
+    mesher (median of ``reps`` each, in turns) and the PLY write. Returns
+    the summary and K1's launches."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from msd_tpu_torch import mesh
+    from msd_tpu_torch.data.mesh_io import save_ply
+    from msd_tpu_torch.native import load_native
+    from msd_tpu_torch.ops import fused_mlp
+    from msd_tpu_torch.ops.marching_cubes import marching_tetrahedra_blocks
+
+    class SplitEvaluator(mesh.PointEvaluator):
+        """K1 between CUDA events, then the values copied to the host."""
+
+        k1_ms = d2h_ms = 0.0
+        d2h_bytes = 0
+
+        @torch.no_grad()
+        def eval_points(self, latent, pts):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            vals = super().eval_points(latent, pts)
+            b.record()
+            torch.cuda.synchronize()
+            self.k1_ms += a.elapsed_time(b)
+            t = time.perf_counter()
+            host = vals.cpu()
+            self.d2h_ms += (time.perf_counter() - t) * 1e3
+            self.d2h_bytes += host.numel() * host.element_size()
+            return host
+
+    latent = latent.reshape(-1).to(next(decoder.parameters()).device)
+    N = mesh._snap_n(257)
+    b = mesh._pick_block(N, 0.1, 1.3)
+    kw = dict(level=0.0, spacing=(2.0 / (N - 1),) * 3, origin=(-1.0, -1.0, -1.0))
+    fused_mlp.LAUNCHES = 0
+    ev = SplitEvaluator(decoder)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, abi, block_vals, stats = mesh._sparse_blocks(latent, N, b, 1.3, ev)
+    sampling_s = time.perf_counter() - t0
+    load_native()  # built in the build phase; a rehearsal builds it here, untimed
+    routes = {"native": {"seconds": []}, "numpy": {"seconds": []}}
+    for _ in range(reps):  # in turns
+        for name, native in (("native", True), ("numpy", False)):
+            t0 = time.perf_counter()
+            verts, faces = marching_tetrahedra_blocks(block_vals, abi * b, N, use_native=native, **kw)
+            routes[name]["seconds"].append(time.perf_counter() - t0)
+            routes[name].update(verts=int(verts.shape[0]), faces=int(faces.shape[0]), mesh=(verts, faces))
+    for r in routes.values():
+        r["seconds_median"] = float(np.median(r["seconds"]))
+    (v, f), (rv, rf) = routes["native"].pop("mesh"), routes["numpy"].pop("mesh")
+    dist = float(cKDTree(rv).query(v)[0].max()) if len(v) == len(rv) else float("inf")
+    if v.shape != rv.shape or f.shape != rf.shape or dist > MESHER_TOL["verts"]:
+        raise AssertionError(f"mesher A/B: native {v.shape}/{f.shape} against numpy {rv.shape}/{rf.shape}, "
+                             f"vertex sets {dist} apart")
+    t0 = time.perf_counter()
+    save_ply(os.path.join(out_dir, "mesher_ab.ply"), v, f)
+    ply_s = time.perf_counter() - t0
+    create_s = []
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mesh.create_mesh(decoder, latent, os.path.join(out_dir, f"create_mesh_{i}"), N=N) is not True:
+            raise AssertionError("mesher A/B: create_mesh found no surface")
+        create_s.append(time.perf_counter() - t0)
+    k1_s, d2h_s = ev.k1_ms / 1e3, ev.d2h_ms / 1e3
+    split = {"k1_s": k1_s, "d2h_s": d2h_s, "d2h_bytes": ev.d2h_bytes,
+             "d2h_gb_per_s": ev.d2h_bytes / d2h_s / 1e9 if d2h_s > 0 else None,
+             "host_block_selection_s": sampling_s - k1_s - d2h_s, "mesher_s": routes["native"]["seconds_median"],
+             "ply_write_s": ply_s}
+    create_med = float(np.median(create_s))
+    split["sum_s"] = sum(split[k] for k in ("k1_s", "d2h_s", "host_block_selection_s", "mesher_s", "ply_write_s"))
+    split["create_mesh_minus_sum_s"] = create_med - split["sum_s"]
+    return {"N": N, "active_blocks": stats["active_blocks"], "points_evaluated": stats["evaluated"],
+            "routes": routes, "verts_max_dist": dist, "tol": MESHER_TOL,
+            "native_speedup": routes["numpy"]["seconds_median"] / routes["native"]["seconds_median"],
+            "create_mesh_seconds": create_s, "create_mesh_seconds_median": create_med,
+            "create_mesh_split": split, "k1_launches": fused_mlp.LAUNCHES}, fused_mlp.LAUNCHES
 
 
 # Preprocessing (data preparation): four seeded hippocampus-like masks on a
@@ -2704,8 +2988,10 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
+    from msd_tpu_torch import native
     from msd_tpu_torch.device import resolve_device
     from msd_tpu_torch.models import build_decoder
+    from msd_tpu_torch.native import load_native
     from msd_tpu_torch.models.deepsdf import give_surface_
     from msd_tpu_torch.ops import _build
 
@@ -2719,10 +3005,14 @@ def main(argv=None):
           torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.time()
-    _build.build(_build.KERNEL_SOURCES)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc builds
+        host_build = pool.submit(load_native)
+        _build.build(_build.KERNEL_SOURCES)
+        host_build.result()
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in _build.BUILD_LOGS.items()}
-    phase("build", seconds=time.time() - t0, sources=list(_build.KERNEL_SOURCES), ptxas=ptxas)
+    phase("build", seconds=time.time() - t0, sources=list(_build.KERNEL_SOURCES), ptxas=ptxas,
+          host_sources=list(native.SOURCES))
 
     with open(FLAGSHIP) as f:
         specs = json.load(f)
@@ -2738,13 +3028,15 @@ def main(argv=None):
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
         t0 = time.time()
-        summary, results, t_eval, launches, routes, pair = serve(root, specs, decoder, args.seed)
+        summary, results, t_eval, launches, routes, pair, (mesher, k1_mesher) = serve(root, specs, decoder,
+                                                                                        args.seed)
         t_total = time.time() - t0
     for s in summary:
         phase("serving_shape", **s)
     phase("serving", seconds=t_total, evaluate_seconds=t_eval, k1_launches=launches, k1_route_launches=routes,
           chamfer={r[0]: r[1][0] for r in results}, kernel_vs_plain_mesh=pair,
           note="seeded weights, not trained: the Chamfer is no quality figure")
+    phase("mesher_ab", **mesher)
 
     k2 = check_k2(decoder, args.seed, dev)
     k2gemm = check_k2gemm(args.seed, dev)
@@ -2764,6 +3056,8 @@ def main(argv=None):
         phase("stage2", **stage2_summary)
         points_summary, k2d_points, k1_points = stage2_points(root, args.seed)
         phase("stage2_points", **points_summary)
+        points_ranks_summary, k2d_points_ranks = stage2_points_ranks(root, args.seed)
+        phase("stage2_points_ranks", **points_ranks_summary)
         k2ce = check_k2ce(decoder, args.seed, dev)
         training_eik, k2c_launches = train_eik(root, specs, args.seed)
         phase("training_eik4096", **training_eik)
@@ -2793,7 +3087,7 @@ def main(argv=None):
     print(json.dumps({"kernels": [{
         "name": "fused_mlp", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "msd_tpu/ops/fused_mlp.py:211", "launches": launches, "launches_stage2": k1_stage2,
-        "launches_stage2_points": k1_points, "launches_serving_ranks": k1_ranks,
+        "launches_stage2_points": k1_points, "launches_serving_ranks": k1_ranks, "launches_mesher_ab": k1_mesher,
         "max_abs_err": worst(bf16), "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes the whole decoder",
@@ -2827,6 +3121,7 @@ def main(argv=None):
                         "max_rel_frobenius": k2d["vs_plain"]["dlat"]["rel"], "loss_rel": k2d["vs_plain"]["loss_rel"],
                         "launches": k2d_launches, "step_ms": stage2_summary["step_ms_median"],
                         "launches_stage2_points": k2d_points, "points_step_ms": points_summary["step_ms_median"],
+                        "launches_stage2_points_ranks": k2d_points_ranks,
                         "autograd_step_ms": stage2_summary["autograd_step_ms"], "library_ms": None},
         **{f"variant_{v}": {k: k2ce[v][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "design_bytes_ms")}
            | {"max_abs_err": k2ce[v]["vs_plain"]["max_abs_err"],

@@ -11,6 +11,8 @@ import math
 import torch
 from torch import nn
 
+from msd_tpu_torch.parallel.mesh_utils import all_reduce_sum
+
 LAYER_NORM_EPS = 1e-5
 
 
@@ -73,6 +75,19 @@ class WeightNormLinear(nn.Module):
 
 
 
+def global_moments(x, dims, group):
+    """(mean, biased variance, row count) of ``x`` over ``dims`` and every
+    rank of ``group``, in two passes: the sums and the count, then the
+    squared deviations from the global mean. The count travels with the
+    sums in ``x``'s dtype (exact up to 2^24 rows in float32)."""
+    count = x.new_full((1,), x.numel() // x.shape[-1])
+    sums = all_reduce_sum(torch.cat([x.sum(dim=dims), count]), group)
+    n = sums[-1]
+    mean = sums[:-1] / n
+    var = all_reduce_sum(((x - mean) ** 2).sum(dim=dims), group) / n
+    return mean, var, n
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the leading axes of [..., C] with ``msd_tpu``'s
     parameters (``batch_norm_init``, ``msd_tpu/models/pointnet.py:25-33``:
@@ -86,7 +101,16 @@ class BatchNorm(nn.Module):
     ``bn_updates`` that ``batch_norm_apply`` returns: mean and the unbiased
     variance ``var * n / max(n - 1, 1)`` with momentum 0.1, under
     ``no_grad``. The point encoders keep them; ``msd_tpu``'s SIREN decoder
-    drops them, so its BatchNorm leaves the switch off."""
+    drops them, so its BatchNorm leaves the switch off.
+
+    ``group`` (a ``parallel.DataParallelGroup`` of several ranks, each
+    holding its share of the batch's rows) takes the training-mode
+    statistics over every rank's rows, as XLA computes ``msd_tpu``'s over
+    the global batch of its SPMD step: the per-channel sums and the row
+    count are summed over the ranks for the mean, then the sums of squared
+    deviations from that mean for the biased variance, both differentiably
+    (``all_reduce_sum``). The running statistics take the global mean and
+    the unbiased variance over the global count, the same on every rank."""
 
     MOMENTUM = 0.1
 
@@ -99,16 +123,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
-    def forward(self, x):
+    def forward(self, x, group=None):
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean, var = x.mean(dim=dims), x.var(dim=dims, unbiased=False)
-            if self.update_stats:
+            if group is None or group.world_size == 1:
+                mean, var = x.mean(dim=dims), x.var(dim=dims, unbiased=False)
                 n = x.numel() // x.shape[-1]
+                n_less_1 = max(n - 1, 1)
+            else:
+                mean, var, n = global_moments(x, dims, group)
+                n_less_1 = torch.clamp(n - 1, min=1)
+            if self.update_stats:
                 with torch.no_grad():
                     m = self.MOMENTUM
                     self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-                    self.running_var.copy_((1 - m) * self.running_var + m * (var * n / max(n - 1, 1)))
+                    self.running_var.copy_((1 - m) * self.running_var + m * (var * n / n_less_1))
         else:
             mean, var = self.running_mean, self.running_var
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias

@@ -15,6 +15,9 @@ Input [B, N, C]. ``forward`` returns (mu, logvar) with KL on, else z. The
 BatchNorms keep running statistics (``models.common.BatchNorm`` with
 ``update_stats``): a training-mode forward folds its batch into them, as
 ``msd_tpu``'s ``bn_updates`` do once ``update_bn_stats`` applies them.
+``PointNetEncoder.forward(x, group=)`` takes them over the rows of every
+rank of a group (each rank holding its share of the batch); ResNet-PointNet
+has no batch statistics, so its rows need no collective.
 Submodule names follow ``msd_tpu``'s parameter tree, which
 ``params_from_jax`` maps.
 """
@@ -45,8 +48,8 @@ class BNHead(nn.Module):
         self.bn = BatchNorm(hidden, update_stats=True)
         self.l2 = Linear(hidden, out_dim, generator)
 
-    def forward(self, x):
-        return self.l2(torch.relu(self.bn(self.l1(x))))
+    def forward(self, x, group=None):
+        return self.l2(torch.relu(self.bn(self.l1(x), group)))
 
 
 def heads_from_jax(sd: dict, params: dict):
@@ -72,14 +75,15 @@ class PointNetEncoder(nn.Module):
         for head in ("mu", "logvar", "z"):
             setattr(self, f"fc_{head}", BNHead(512, 256, latent_size, generator))
 
-    def forward(self, x):
+    def forward(self, x, group=None):
+        """``group``: the BatchNorms' ranks (``models.common.BatchNorm``)."""
         h = x.to(self.convs[0].weight.dtype)
         for conv, bn in zip(self.convs, self.bns):
-            h = torch.relu(bn(conv(h)))
+            h = torch.relu(bn(conv(h), group))
         pooled = h.mean(dim=1)  # AdaptiveAvgPool1d(1) (ref: :33, :61)
         if self.kl_div_loss:
-            return self.fc_mu(pooled), self.fc_logvar(pooled)
-        return self.fc_z(pooled)
+            return self.fc_mu(pooled, group), self.fc_logvar(pooled, group)
+        return self.fc_z(pooled, group)
 
 
 def pointnet_encoder_from_jax(params) -> dict:

@@ -91,9 +91,9 @@ class SetAbstraction(nn.Module):
         self.convs = nn.ModuleList(Linear(dims[i], dims[i + 1], generator) for i in range(len(widths)))
         self.bns = nn.ModuleList(BatchNorm(w, update_stats=True) for w in widths)
 
-    def forward(self, h):
+    def forward(self, h, group=None):
         for conv, bn in zip(self.convs, self.bns):
-            h = torch.relu(bn(conv(h)))
+            h = torch.relu(bn(conv(h), group))
         return h.max(dim=2).values
 
 
@@ -125,23 +125,25 @@ class PointNet2Encoder(nn.Module):
         kw = dict(generator=generator, device=x.device)
         return (torch.randint(0, n, (b,), **kw), torch.randint(0, self.SA_CONFIG[0]["npoint"], (b,), **kw))
 
-    def forward(self, x, fps_start=None, generator=None):
+    def forward(self, x, fps_start=None, generator=None, group=None):
         """``fps_start``: (start1 [B], start2 [B]), drawn from ``generator``
-        when not given."""
+        when not given. ``group``: the BatchNorms' ranks
+        (``models.common.BatchNorm``); FPS and the ball query run per
+        scene on this rank's clouds."""
         x = x.to(self.sa[0].convs[0].weight.dtype)
         start1, start2 = fps_start if fps_start is not None else self.draw_starts(x, generator)
         xyz = x[:, :, :3]
         points = x[:, :, 3:] if x.shape[2] > 3 else None
         cfg1, cfg2 = self.SA_CONFIG[0], self.SA_CONFIG[1]
         xyz1, grouped = sample_and_group(cfg1["npoint"], cfg1["radius"], cfg1["nsample"], xyz, points, start1)
-        feat1 = self.sa[0](grouped)
+        feat1 = self.sa[0](grouped, group)
         xyz2, grouped = sample_and_group(cfg2["npoint"], cfg2["radius"], cfg2["nsample"], xyz1, feat1, start2)
-        feat2 = self.sa[1](grouped)
+        feat2 = self.sa[1](grouped, group)
         # group all (ref: :70-80): [B, 1, S, 3 + C] -> [B, 1, 1024]
-        global_feat = self.sa[2](torch.cat([xyz2, feat2], dim=-1)[:, None])[:, 0]
+        global_feat = self.sa[2](torch.cat([xyz2, feat2], dim=-1)[:, None], group)[:, 0]
         if self.kl_div_loss:
-            return self.fc_mu(global_feat), self.fc_logvar(global_feat)
-        return self.fc_z(global_feat)
+            return self.fc_mu(global_feat, group), self.fc_logvar(global_feat, group)
+        return self.fc_z(global_feat, group)
 
 
 def pointnet2_from_jax(params) -> dict:

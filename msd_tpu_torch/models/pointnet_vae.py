@@ -10,6 +10,14 @@ z, z_hat}. The reparameterisation noise and PointNet++'s FPS start indices
 are tensors a caller may give (a test hands over ``msd_tpu``'s draws);
 what is not given is drawn from ``generator``. The encoders' BatchNorm
 running statistics are buffers, updated by a training-mode forward.
+
+Over ranks (``forward(..., group=)``, every rank passing the whole batch):
+each rank encodes its contiguous share of the scenes
+(``group.scene_slice``) with BatchNorm over every rank's rows, and mu and
+logvar are gathered back (``all_gather_rows``, differentiable), so z and
+z_hat are the whole batch's on every rank, as in one process. The encoder's
+parameter gradients are then each rank's share and are summed over the
+ranks by the caller; the decoder's are whole on every rank.
 """
 
 from __future__ import annotations
@@ -50,16 +58,32 @@ class PointNetLatentVAE(nn.Module):
         self.decoder = ResidualMLPDecoder(latent_dim, output_dim, decoder_hidden_dims, decoder_blocks,
                                           decoder_activation, decoder_dropout, decoder_layernorm, generator)
 
-    def encode(self, points, fps_start=None, generator=None):
-        """(mu, logvar); logvar is zeros without KL."""
+    def encode(self, points, fps_start=None, generator=None, group=None):
+        """(mu, logvar); logvar is zeros without KL. ``group``: the
+        BatchNorms' ranks, ``points`` this rank's rows."""
         kw = dict(fps_start=fps_start, generator=generator) if isinstance(self.encoder, PointNet2Encoder) else {}
+        if group is not None and not isinstance(self.encoder, ResnetPointnet):
+            kw["group"] = group
         out = self.encoder(points, **kw)
         if self.use_kl:
             return out
         return out, torch.zeros_like(out)
 
-    def forward(self, points, noise=None, fps_start=None, generator=None):
-        mu, logvar = self.encode(points, fps_start, generator)
+    def forward(self, points, noise=None, fps_start=None, generator=None, group=None):
+        """``group``: a ``parallel.DataParallelGroup`` of several ranks to
+        encode over (the module docstring); ``points``, ``noise`` and
+        ``fps_start`` are the whole batch's, the FPS starts drawn for the
+        whole batch, in one process's order, when not given."""
+        if group is not None and group.world_size > 1:
+            rows = group.scene_slice(points.shape[0])
+            if fps_start is None and isinstance(self.encoder, PointNet2Encoder):
+                fps_start = self.encoder.draw_starts(points, generator)
+            if fps_start is not None:
+                fps_start = tuple(s[rows] for s in fps_start)
+            mu, logvar = self.encode(points[rows], fps_start, generator, group)
+            mu, logvar = group.all_gather_rows(torch.cat([mu, logvar], dim=1)).split(mu.shape[1], dim=1)
+        else:
+            mu, logvar = self.encode(points, fps_start, generator)
         if self.use_kl:
             if noise is None:
                 noise = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)

@@ -2,9 +2,13 @@
 
 ``SOURCES`` are compiled into one library with ``msd_tpu``'s flags
 (``-O3 -march=native -std=c++17 -shared -fPIC``), so on one host both
-packages run the same machine code and give the same bits. Today that is
+packages run the same machine code and give the same bits:
 ``raster.cpp``, the software rasterizer of the render visibility pass
-(``msd_tpu_torch/render.py``); the host mesher can join the list later.
+(``msd_tpu_torch/render.py``), and ``marching_tets.cpp``, the host mesher
+of ``ops/marching_cubes.marching_tetrahedra_blocks`` (copies of
+``msd_tpu/native/``'s). The mesher's streaming entry points (``mt_create``,
+``mt_add_blocks``, ``mt_ply_stream_*``, ``mt_finish*``) are compiled in and
+not bound: no caller streams yet.
 
 The library is built at first use into ``msd_tpu_torch/_build/`` (listed
 in ``.gitignore``) under a name keyed on the sources, the flags and the
@@ -26,7 +30,7 @@ import threading
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "_build")
-SOURCES = ("raster.cpp",)
+SOURCES = ("raster.cpp", "marching_tets.cpp")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
@@ -46,6 +50,12 @@ _SIGNATURES = {
         _F, ctypes.c_int64, _I32, ctypes.c_int64, _F, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, _U8, _I64, _I64,
     ]),
+    # as msd_tpu/native/__init__.py:72-86 declares them
+    "mt_blocks": (ctypes.c_int, [
+        _F, _I32, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, _U8,
+        ctypes.POINTER(_F), _I64, ctypes.POINTER(_I32), _I64,
+    ]),
+    "mt_free": (None, [ctypes.c_void_p]),
 }
 
 

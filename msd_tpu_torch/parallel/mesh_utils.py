@@ -9,6 +9,14 @@ tensors too; serving gathers each rank's rows with ``all_gather_rows``
 (``shard_map``'s ``out_specs=P("data")``), staged through host memory
 under gloo and gathered on the card under NCCL.
 
+Points-mode Stage 2 differentiates through both collectives, as XLA does
+inside ``msd_tpu``'s jitted SPMD step: every rank computes the same loss
+from the gathered rows, so ``all_gather_rows``'s backward hands each rank
+its own rows of the incoming gradient, and ``all_reduce_sum``'s backward
+sums the ranks' incoming gradients (each rank's graph holds only its own
+rows' share of the loss's dependence on the sum). Both keep their input's
+dtype.
+
 ``run_ranks`` starts ``world_size`` processes (spawn), gives each a
 ``DataParallelGroup`` and returns what each rank's function returned. The
 rendezvous is a file (``file://``), so no port is opened; a rank that
@@ -79,9 +87,14 @@ class DataParallelGroup:
         """Every rank's ``t`` (rows of any count, the same trailing shape
         and dtype on every rank) stacked in rank order, on every rank, on
         ``t``'s device. Rows are padded to the longest rank's count for the
-        collective and trimmed after it."""
+        collective and trimmed after it. Differentiable: the gradient of
+        ``t`` is this rank's rows of the result's gradient."""
         if self.world_size == 1:
             return t
+        return _AllGatherRows.apply(t, self)
+
+    def _gather_rows(self, t: torch.Tensor):
+        """(the gathered rows, every rank's row count)."""
         import torch.distributed as dist
 
         # gloo gathers host tensors; NCCL gathers on the card
@@ -97,7 +110,7 @@ class DataParallelGroup:
         parts = [torch.empty_like(padded) for _ in range(self.world_size)]
         dist.all_gather(parts, padded, group=self.process_group)
         out = torch.cat([p[:n] for p, n in zip(parts, all_counts)])
-        return out.to(t.device) if host else out
+        return (out.to(t.device) if host else out), all_counts
 
     def broadcast_object(self, obj):
         """The main rank's ``obj`` (any picklable value), on every rank."""
@@ -108,6 +121,47 @@ class DataParallelGroup:
         box = [obj]
         dist.broadcast_object_list(box, src=0, group=self.process_group)
         return box[0]
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        out, counts = group._gather_rows(t)
+        start = sum(counts[:group.rank])
+        ctx.rows = slice(start, start + t.shape[0])
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.rows], None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _sum_over(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad, ctx.group), None
+
+
+def _sum_over(t: torch.Tensor, group: DataParallelGroup) -> torch.Tensor:
+    import torch.distributed as dist
+
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group.process_group)
+    return out
+
+
+def all_reduce_sum(t: torch.Tensor, group: DataParallelGroup | None) -> torch.Tensor:
+    """``t`` summed over ``group``'s ranks, in ``t``'s dtype, on every rank
+    (``t`` itself without a group of several ranks). Differentiable: the
+    gradient of ``t`` is the result's gradient summed over the ranks."""
+    if group is None or group.world_size == 1:
+        return t
+    return _AllReduceSum.apply(t, group)
 
 
 def init_group(init_method: str, world_size: int, rank: int, backend: str = "gloo",

@@ -44,18 +44,27 @@ after Adam (it keeps zero-gradient moments for them); eval mode
 sensitivity loss decodes only. As ``msd_tpu`` cannot, the port does not
 checkpoint a point-encoder VAE: ``save_checkpoint`` and
 ``PretrainedVAEPath`` raise, so ``train()`` stops at its first snapshot.
-``group=`` raises too: per-rank BatchNorm statistics would differ from
-``msd_tpu``'s over the global batch.
 
 Data-parallel (``group=``, a ``parallel.DataParallelGroup``; the
-counterpart of ``Stage2Trainer(mesh=)``, msd_tpu/train/stage2.py:512-553):
-the VAE and every batch-statistic loss run on every rank, on the same
-inputs and noise. The SDF-consistency term through K2 is split over the
-ranks by scenes when ScenesPerBatch is a multiple of the world size, its
-latent gradient and loss summed over them; otherwise, and on the autograd
-path, every rank computes the whole term. Every rank's update is then the
-single-device update. Only rank 0 writes checkpoints, logs and
-TensorBoard and runs the eval blocks; every rank resumes.
+counterpart of ``Stage2Trainer(mesh=)``,
+msd_tpu/train/stage2.py:424-442, :512-553): the VAE (in points mode its
+decoder) and every batch-statistic loss run on every rank, on the same
+inputs and noise. When ScenesPerBatch is a multiple of the world size,
+the batch splits over the ranks by scenes: the SDF-consistency term
+through K2, its latent gradient and loss summed over them, and in points
+mode the point encoder, each rank encoding its scenes' clouds with
+BatchNorm statistics over every rank's rows (as XLA takes ``msd_tpu``'s
+over the global batch) and mu and logvar gathered back; the FPS starts
+and the noise are drawn for the whole batch on every rank, in one
+process's order. The encoder's gradients are then each rank's share and
+are summed over the ranks before clipping and Adam; the decoder's are
+whole on every rank. Otherwise every rank runs the whole batch (the
+point encoder with no collective, as ``msd_tpu`` replicates an
+indivisible batch), and on the autograd path every rank computes the
+whole SDF term. Every rank's update is then the single-device update.
+Eval-mode forwards use the running statistics and take no collective.
+Only rank 0 writes checkpoints, logs and TensorBoard and runs the eval
+blocks; every rank resumes.
 """
 
 from __future__ import annotations
@@ -82,6 +91,7 @@ from msd_tpu_torch.models import build_decoder
 from msd_tpu_torch.models.pointnet_vae import PointNetLatentVAE
 from msd_tpu_torch.models.residual_mlp_vae import ResidualMLPVAE
 from msd_tpu_torch.ops.fused_train import fused_sdf_l1, supports_fused_train
+from msd_tpu_torch.parallel.mesh_utils import all_reduce_sum
 from msd_tpu_torch.train.stage1 import step_seed
 from msd_tpu_torch.utils import checkpoint as ckpt
 from msd_tpu_torch.utils.logging_utils import open_summary_writer
@@ -111,6 +121,15 @@ def load_teacher_latents(path: str) -> np.ndarray:
     else:
         arr = np.asarray(codes)
     return np.asarray(arr, np.float32)
+
+
+def sum_grads_over(group, params):
+    """Sum the parameters' gradients over ``group``'s ranks in place, in
+    their dtype, in one collective."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+    for g, total in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(total.view_as(g))
 
 
 @contextlib.contextmanager
@@ -212,11 +231,6 @@ class Stage2Trainer:
                 decoder_activation=g("VAEActivation", "gelu"), decoder_dropout=g("VAEDropout", 0.0),
                 decoder_layernorm=g("VAELayerNorm", True), use_kl=self.use_kl, generator=gen,
             )
-            if group is not None:
-                raise NotImplementedError(
-                    "Stage 2 with a point encoder over ranks: its BatchNorm statistics would be each rank's, "
-                    "where msd_tpu takes them over the global batch"
-                )
         vae_path = resolve_spec_path(g("PretrainedVAEPath", None), experiment_directory)
         if vae_path and self.vae_input_mode == "points":
             raise NotImplementedError(f"PretrainedVAEPath: {_NO_POINT_CHECKPOINT}")
@@ -565,10 +579,13 @@ class Stage2Trainer:
         if self._teacher_dev is None:
             self._teacher_dev = torch.as_tensor(self.teacher_latents, device=dev)
         teacher = self._teacher_dev[scene_idx]
+        # over ranks, split by scenes where the batch divides (:424-442, :538-541)
+        split = self.group is not None and B % self.group.world_size == 0
         if self.vae_input_mode == "points":  # the clouds stay on the device, as the teacher latents
             if self._surface_dev is None:
                 self._surface_dev = torch.as_tensor(self.dataset.surface_points, dtype=torch.float32, device=dev)
-            out = self.vae(self._surface_dev[scene_idx], noise=noise, fps_start=fps_start, generator=generator)
+            out = self.vae(self._surface_dev[scene_idx], noise=noise, fps_start=fps_start, generator=generator,
+                           group=self.group if split else None)
         else:
             out = self.vae(teacher, noise=noise)
         mu, logvar, z, z_hat = out["mu"], out["logvar"], out["z"], out["z_hat"]
@@ -580,8 +597,6 @@ class Stage2Trainer:
         reg_w = code_reg_weight if self.do_code_regularization else 0.0
         w = self.sdf_loss_weight
         if self.fused_ok and batch_split == 1:
-            # over ranks, split by scenes where the batch divides (:538-541)
-            split = self.group is not None and B % self.group.world_size == 0
             sdf_l = fused_sdf_l1(self.sdf_decoder, z_hat, xyz, gt, self.clamp_dist,
                                  train_net=self.train_sdf_decoder, dtype=self.k2_dtype,
                                  group=self.group if split else None)
@@ -612,6 +627,9 @@ class Stage2Trainer:
             total = vae_total + w * (sdf_l + sdf_reg)
             dz = zd.grad if zd.grad is not None else torch.zeros_like(z_hat)
             torch.autograd.backward([vae_total, z_hat], [torch.ones_like(vae_total), dz])
+        if split and self.vae_input_mode == "points":
+            # each rank's encoder saw its scenes: its gradients are shares
+            sum_grads_over(self.group, self.vae.encoder.parameters())
         aux["sdf"] = sdf_l.detach()
         aux["sdf_reg"] = sdf_reg.detach()
         aux["vae_total"] = vae_total.detach()

@@ -115,9 +115,105 @@ def test_marching_tets_copy_matches():
     blocks = np.stack([sdf[i:i + 5, j:j + 5, k:k + 5] for i in (0, 4, 8) for j in (4, 8) for k in (8,)])
     bases = np.array([[i, j, k] for i in (0, 4, 8) for j in (4, 8) for k in (8,)])
     ref = jax_mc.marching_tetrahedra_blocks(blocks, bases, 20, use_native=False)
-    out = marching_cubes.marching_tetrahedra_blocks(blocks, bases, 20)
+    out = marching_cubes.marching_tetrahedra_blocks(blocks, bases, 20, use_native=False)
     for a, b in zip(ref, out):
         np.testing.assert_array_equal(a, b)
+
+
+def sphere_blocks(n=65, b=4, r=0.6):
+    """The (b + 1)^3 blocks tiling an [n]^3 grid of a sphere's SDF (as
+    tests/test_native_mt.py's ``_sphere_blocks``), and their bases."""
+    x = np.linspace(-1, 1, n)
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    sdf = (np.sqrt(X**2 + Y**2 + Z**2) - r).astype(np.float32)
+    bases = np.array([(i, j, k) for i in range(0, n - 1, b) for j in range(0, n - 1, b) for k in range(0, n - 1, b)])
+    vals = np.stack([sdf[i:i + b + 1, j:j + b + 1, k:k + b + 1] for i, j, k in bases])
+    return vals, bases
+
+
+@pytest.mark.parametrize("level,r", [(0.0, 0.6), (0.05, 0.45)])
+def test_native_mesher_equals_jax_native(level, r):
+    """The port's C++ mesher (its copy of marching_tets.cpp, the same g++
+    flags) gives msd_tpu's native mesher's vertices and faces bit for bit."""
+    n = 65
+    vals, bases = sphere_blocks(n, 4, r)
+    kw = dict(level=level, spacing=(2.0 / (n - 1),) * 3, origin=(-1, -1, -1))
+    ref = jax_mc.marching_tetrahedra_blocks(vals, bases, n, use_native=True, **kw)
+    out = marching_cubes.marching_tetrahedra_blocks(vals, bases, n, **kw)
+    assert out[0].shape[0] > 1000
+    for a, b in zip(ref, out):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_native_mesher_against_numpy_route():
+    """The native route against the numpy route (tests/test_native_mt.py's
+    checks): equal vertex and face counts, the same vertex set within 1e-5,
+    a watertight mesh with every face wound outwards."""
+    n = 65
+    h = 2.0 / (n - 1)
+    vals, bases = sphere_blocks(n, 4)
+    v_np, f_np = marching_cubes.marching_tetrahedra_blocks(vals, bases, n, 0.0, (h,) * 3, (-1, -1, -1),
+                                                           use_native=False)
+    v, f = marching_cubes.marching_tetrahedra_blocks(vals, bases, n, 0.0, (h,) * 3, (-1, -1, -1))
+    assert len(v) == len(v_np) and len(f) == len(f_np)
+    d, _ = cKDTree(v_np).query(v)
+    assert d.max() < 1e-5
+    edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+    _, counts = np.unique(edges, axis=0, return_counts=True)
+    assert (counts == 2).all()
+    normals = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+    assert (np.einsum("ij,ij->i", normals, v[f].mean(axis=1)) > 0).all()
+
+
+def test_wide_blocks_take_the_numpy_route(monkeypatch):
+    """Blocks of b + 1 > 64 samples a side exceed the mesher's uint64 row
+    masks and take the numpy route, as in msd_tpu, without loading the
+    library; b + 1 = 64 still meshes natively."""
+    n = 129
+
+    def no_library():
+        raise AssertionError("the native mesher was loaded")
+
+    vals, bases = sphere_blocks(n, 64)
+    assert vals.shape[1:] == (65, 65, 65)
+    monkeypatch.setattr(marching_cubes, "load_native", no_library)
+    out = marching_cubes.marching_tetrahedra_blocks(vals, bases, n)
+    ref = marching_cubes.marching_tetrahedra_blocks(vals, bases, n, use_native=False)
+    for a, b in zip(ref, out):
+        np.testing.assert_array_equal(a, b)
+    vals, bases = sphere_blocks(n - 2, 63)
+    assert vals.shape[1:] == (64, 64, 64)
+    with pytest.raises(AssertionError, match="native mesher was loaded"):
+        marching_cubes.marching_tetrahedra_blocks(vals, bases, n - 2)
+
+
+def test_native_mesher_failure_raises(monkeypatch):
+    """A nonzero return code of mt_blocks raises (msd_tpu re-meshes in
+    numpy), after freeing the outputs; so does a failed build."""
+    freed = []
+
+    class Library:
+        @staticmethod
+        def mt_blocks(*args):
+            return -1
+
+        @staticmethod
+        def mt_free(p):
+            freed.append(p)
+
+    vals, bases = sphere_blocks(17, 4)
+    monkeypatch.setattr(marching_cubes, "load_native", Library)
+    with pytest.raises(RuntimeError, match="mt_blocks returned -1"):
+        marching_cubes.marching_tetrahedra_blocks(vals, bases, 17)
+    assert len(freed) == 2
+
+    def failed_build():
+        raise RuntimeError("native build failed")
+
+    monkeypatch.setattr(marching_cubes, "load_native", failed_build)
+    with pytest.raises(RuntimeError, match="native build failed"):
+        marching_cubes.marching_tetrahedra_blocks(vals, bases, 17)
 
 
 @pytest.mark.parametrize("binary", [True, False], ids=["binary", "ascii"])

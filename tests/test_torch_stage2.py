@@ -234,10 +234,10 @@ def test_holdout_latents_and_schedules_match_jax(tmp_path):
 
 def test_unported_options_raise(tmp_path):
     """A point encoder builds (EncoderType "pointnet" is ResnetPointnet) and
-    its mode refuses what msd_tpu cannot do or the port does not: a
-    checkpoint ("cannot checkpoint"), ``group=`` (per-rank BatchNorm
-    statistics), and, as msd_tpu (tests/test_stage2_points_mode.py:77), a
-    run without meshes to sample clouds from."""
+    its mode refuses what msd_tpu cannot do: a checkpoint ("cannot
+    checkpoint") and, as msd_tpu (tests/test_stage2_points_mode.py:77), a
+    run without meshes to sample clouds from. With ``group=`` of 2 ranks
+    it builds (tests/test_torch_stage2_points_ranks.py trains it)."""
     exp = experiment(tmp_path)
     with open(os.path.join(exp, "specs.json")) as f:
         specs = json.load(f)
@@ -257,8 +257,9 @@ def test_unported_options_raise(tmp_path):
     class Group:
         device, is_main, world_size = "cpu", True, 2
 
-    with pytest.raises(NotImplementedError, match="BatchNorm statistics"):
-        Stage2Trainer(exp, specs=points, device="cpu", group=Group())
+    group = Group()
+    ranked = Stage2Trainer(exp, specs=points, device="cpu", group=group)
+    assert ranked.group is group and ranked.vae_input_mode == "points" and ranked.is_main
 
 
 def test_checkpoints_cross_both_ways(tmp_path):
