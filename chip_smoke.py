@@ -37,6 +37,22 @@ non-zero and prints no result. Phases, one JSON line each:
    seconds per shape (median of 3, PLY written) split into K1 (CUDA
    events), the device-to-host copy of the SDF values (bytes, ms), the
    host's block selection, the mesher and the PLY write.
+4c. streaming: the streaming create_mesh, the route on the card since this
+   port's create_mesh streams where its evaluator sits on the card, on the
+   same latent at N=257 (single-level refinement on the card) and N=513
+   (two-level refinement), each with the packed, int8 and f16 value
+   codecs: seconds per shape (median of 3 after a warm-up, writing the
+   PLY), every LAST_STREAMING_STATS key (refine route, active and crossing
+   blocks, points evaluated, bytes copied, exact slabs, the host's waits
+   and the mesher's), K1's launches per call (the kernels line's
+   launches_streaming counts these calls only); beside it the
+   non-streaming route's seconds, K1 launches and mesh: every codec's vertex count against it, the int8 and
+   packed meshes with the f16 mesh's faces, no open edge inside the
+   volume; msd_tpu's codec bounds (``STREAM_TOL``: the f16 mesh against
+   the float32 one, int8 and packed against f16) measured, and held on a
+   flagship-width decoder fitted for 400 Adam steps to an ellipsoid's
+   distance field (one run per codec), since they assume a field close to
+   1-Lipschitz.
 5. k2: the Stage-1 fused loss-and-gradient kernels (csrc/fused_train.cu),
    variants b (eikonal) and a, at the flagship width in bf16: against float32
    autograd and their plain PyTorch version on 4 seeded scenes x 16384
@@ -95,7 +111,9 @@ non-zero and prints no result. Phases, one JSON line each:
    batch of 32 per epoch) with one eval epoch (run_eval, SAP, Locatello SAP,
    correlation, the tables, 2 meshes at N=257 through K1 and their Chamfer
    where a mesh has a surface: the 16-step Stage-1 decoder of phase 8 may
-   give a field with none), then ``-c latest`` with NumEpochs 42. Then
+   give a field with none; each mesh's seconds, K1 launches and streaming
+   statistics beside the non-streaming route on the same latent), then
+   ``-c latest`` with NumEpochs 42. Then
    the step's time, K2 d's share and launches per step (and its CUDA
    kernels', chain_kernel's held to the launcher's count), a torch.profiler
    split, and the trainer's step on K2 d against its float32 autograd path
@@ -110,7 +128,8 @@ non-zero and prints no result. Phases, one JSON line each:
    msd_tpu's points-mode tests drive it (tests/test_stage2_points_mode.py),
    since a CLI run stops at its first snapshot: 4 epochs of train_epoch (K2
    d once per step), run_eval on the train split and 2 meshes of z_hat at
-   N=257 (K1), compute_vae_latents twice (equal bits, BatchNorm statistics
+   N=257 (K1; each beside the non-streaming route, as in stage2),
+   compute_vae_latents twice (equal bits, BatchNorm statistics
    fixed), save_checkpoint refused. Then the step's median ms, peak device
    memory, K2 d's launches per step, a torch.profiler split (device ms,
    operations, idle share, the largest other kernels), and FPS, the ball
@@ -215,6 +234,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import functools
 import json
 import math
@@ -1321,6 +1341,71 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
+STREAM_STAT_KEYS = ("refine", "active_blocks", "crossing_blocks", "exact_slabs", "evaluated", "t_refine",
+                    "t_stream", "t_mesher")
+
+
+@contextlib.contextmanager
+def record_meshes():
+    """Within it, every ``mesh.create_mesh`` call (an eval epoch's meshes)
+    is recorded: its latent, N, seconds, K1 launches (the counter's
+    increase, which stays counted where it was) and the
+    ``LAST_STREAMING_STATS`` keys of ``STREAM_STAT_KEYS``. Yields the list;
+    ``compare_meshes`` then runs the non-streaming route on each."""
+    from msd_tpu_torch import mesh
+    from msd_tpu_torch.ops import fused_mlp
+
+    calls, inner = [], mesh.create_mesh
+
+    def create_mesh(decoder, latent_vec, *args, **kw):
+        mesh.LAST_STREAMING_STATS.clear()
+        dev = next(decoder.parameters()).device
+        launches = fused_mlp.LAUNCHES
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = inner(decoder, latent_vec, *args, **kw)
+        _sync(dev)
+        calls.append({"decoder": decoder, "latent": latent_vec.detach().clone(), "N": kw.get("N", 512),
+                      "seconds": time.perf_counter() - t0, "k1_launches": fused_mlp.LAUNCHES - launches,
+                      "surface": out is not False,
+                      "stats": {k: mesh.LAST_STREAMING_STATS.get(k) for k in STREAM_STAT_KEYS}})
+        return out
+
+    mesh.create_mesh = create_mesh
+    try:
+        yield calls
+    finally:
+        mesh.create_mesh = inner
+
+
+def compare_meshes(calls):
+    """Each recorded ``create_mesh`` call beside the non-streaming route
+    (``float32_mesh``, a new evaluator, the decoder in eval mode) on the
+    same latent and N: seconds, K1 launches, surface found."""
+    from msd_tpu_torch import mesh
+    from msd_tpu_torch.ops import fused_mlp
+
+    out = []
+    for c in calls:
+        decoder = c.pop("decoder")
+        dev = next(decoder.parameters()).device
+        was = decoder.training
+        decoder.eval()
+        launches = fused_mlp.LAUNCHES
+        _sync(dev)
+        t0 = time.perf_counter()
+        try:
+            float32_mesh(c.pop("latent"), mesh._snap_n(c["N"]), mesh.PointEvaluator(decoder))
+            surface = True
+        except ValueError:  # no zero crossing, as create_mesh reports it
+            surface = False
+        _sync(dev)
+        decoder.train(was)
+        out.append(dict(c, float32={"seconds": time.perf_counter() - t0, "surface": surface,
+                                    "k1_launches": fused_mlp.LAUNCHES - launches}))
+    return out
+
+
 def stage2(root, seed, device="cuda", changes=None):
     """The port's Stage-2 path on the Stage-1 experiment the training phase
     left under ``root``; returns (phase summary, K2 launches, K1 launches)
@@ -1361,7 +1446,8 @@ def stage2(root, seed, device="cuda", changes=None):
     cli = ["-e", exp, "--device", device, "--quiet"]
     fused_train.LAUNCHES = fused_mlp.LAUNCHES = 0
     t0 = time.time()
-    trainer = train_MLP_VAE_deep_sdf.main(cli)
+    with record_meshes() as eval_meshes:
+        trainer = train_MLP_VAE_deep_sdf.main(cli)
     dev = trainer.device
     _sync(dev)
     t_first = time.time() - t0
@@ -1464,6 +1550,7 @@ def stage2(root, seed, device="cuda", changes=None):
         "setup_seconds": t_setup, "first_run_seconds": t_first, "epoch_seconds": resumed.logs_history["timing"],
         "epoch_losses": resumed.loss_log_epoch, "train_sap": trainer.last_train_sap,
         "eval_meshes_with_surface": f"{len(meshes)} of {specs['EvalMeshTrainSceneNumber']}",
+        "eval_meshes": compare_meshes(eval_meshes),
         "holdout_sap": trainer.last_holdout_sap, "eval_metrics": trainer.last_eval_metrics,
         "k2d_launches": k2_first + k2_resumed, "k1_launches": k1_first + k1_resumed,
         "step_ms_median": step_med, "step_ms": step_ms, "k2d_launches_per_step": launches_per_step,
@@ -1540,10 +1627,12 @@ def stage2_points(root, seed, device="cuda", changes=None):
     kl_w, crw = trainer.epoch_weights(epochs)[2:]
     em = ev.run_eval(trainer, epochs, "eval_train", scene_indices=trainer.train_indices, kl_weight=kl_w,
                      code_reg_weight=crw, writer=recorder)
-    written, _ = ev.generate_eval_meshes(trainer, epochs, "train", trainer.train_indices[:2], writer=recorder,
-                                         return_meshes=True)
+    with record_meshes() as eval_meshes:
+        written, _ = ev.generate_eval_meshes(trainer, epochs, "train", trainer.train_indices[:2], writer=recorder,
+                                             return_meshes=True)
     _sync(dev)
     k1_eval = fused_mlp.LAUNCHES
+    eval_meshes = compare_meshes(eval_meshes)
     if card and k1_eval <= 0:
         raise AssertionError("the eval meshes launched no K1")
     if not all(math.isfinite(v) for v in em.values()):
@@ -1660,7 +1749,8 @@ def stage2_points(root, seed, device="cuda", changes=None):
         "changed": changed, "scenes": S, "train_scenes": len(trainer.train_indices), "surface_points": cloud,
         "setup_seconds": t_setup, "train_seconds": t_train, "steps": epochs * nb,
         "epoch_losses": [m["total"] for m in metrics], "eval_metrics": em,
-        "eval_meshes_with_surface": f"{len(written)} of 2", "k2d_launches": k2_train, "k1_launches_eval": k1_eval,
+        "eval_meshes_with_surface": f"{len(written)} of 2", "eval_meshes": eval_meshes,
+        "k2d_launches": k2_train, "k1_launches_eval": k1_eval,
         "latents_bit_equal": True, "save_checkpoint_refused": refused,
         "step_ms_median": step_med, "step_ms": step_ms, "scenes_per_s": B / (step_med * 1e-3),
         "peak_memory_gb": peak_gb, "k2_kernel_launches_per_step": kernel_launches, "profile": profile,
@@ -2377,7 +2467,7 @@ def serve(root, specs, decoder, seed):
     """The port's serving path on a temporary experiment; returns
     (per-shape summaries, evaluate results, seconds of evaluate, K1
     launches, K1 launches by route, the kernel-against-plain mesh check,
-    the host mesher's A/B and its K1 launches)."""
+    the host mesher's A/B, the streaming phase and its K1 launches)."""
     import torch
 
     from msd_tpu_torch import evaluate as evaluate_cli
@@ -2448,7 +2538,8 @@ def serve(root, specs, decoder, seed):
     if not all(math.isfinite(r[1][0]) for r in results):
         raise AssertionError(f"non-finite Chamfer: {results}")
     code = torch_load(os.path.join(exp_dir, "Reconstructions", "1", "Codes", summary[0]["shape"] + ".pth"))
-    return summary, results, t_eval, launches, routes, mesh_pair(decoder, code), mesher_ab(decoder, code, root)
+    return (summary, results, t_eval, launches, routes, mesh_pair(decoder, code), mesher_ab(decoder, code, root),
+            streaming(decoder, code, root, specs, seed))
 
 
 def torch_load(path):
@@ -2507,16 +2598,31 @@ def mesh_pair(decoder, latent):
 MESHER_TOL = {"verts": 1e-5}
 
 
+def float32_mesh(latent, N, ev, filename=None):
+    """``create_mesh``'s non-streaming route (the route of an evaluator off
+    the card or over a group): ``mesh._create_mesh_sparse``, then the PLY
+    write."""
+    from msd_tpu_torch import mesh
+    from msd_tpu_torch.data.mesh_io import save_ply
+
+    verts, faces = mesh._create_mesh_sparse(latent, N, mesh._pick_block(N, 0.1, 1.3), 1.3, ev)
+    if filename:
+        save_ply(filename + ".ply", verts, faces)
+    return verts, faces
+
+
 def mesher_ab(decoder, latent, out_dir, reps=3):
     """The host mesher's A/B on one latent at N=257: the sparse path's
-    block values meshed through the C++ mesher (``create_mesh``'s route)
-    and through the numpy route, equal counts and vertex sets within
-    ``MESHER_TOL``, each timed; then ``create_mesh`` seconds per shape
-    (median of ``reps``, writing the PLY) split into K1 (CUDA events, the
+    block values meshed through the C++ mesher (the non-streaming
+    ``create_mesh``'s route) and through the numpy route, equal counts and
+    vertex sets within ``MESHER_TOL``, each timed; then ``create_mesh``
+    seconds per shape on that route (``float32_mesh``, a new evaluator each
+    time as ``create_mesh`` makes one; median of ``reps``, writing the PLY)
+    split into K1 (CUDA events, the
     corner lattice's host-to-device copy included), the device-to-host
     copy of the SDF values (bytes, ms), the host's block selection, the
     mesher (median of ``reps`` each, in turns) and the PLY write. Returns
-    the summary and K1's launches."""
+    the summary (with K1's launches)."""
     import torch
     from scipy.spatial import cKDTree
 
@@ -2578,8 +2684,7 @@ def mesher_ab(decoder, latent, out_dir, reps=3):
     for i in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if mesh.create_mesh(decoder, latent, os.path.join(out_dir, f"create_mesh_{i}"), N=N) is not True:
-            raise AssertionError("mesher A/B: create_mesh found no surface")
+        float32_mesh(latent, N, mesh.PointEvaluator(decoder), os.path.join(out_dir, f"create_mesh_{i}"))
         create_s.append(time.perf_counter() - t0)
     k1_s, d2h_s = ev.k1_ms / 1e3, ev.d2h_ms / 1e3
     split = {"k1_s": k1_s, "d2h_s": d2h_s, "d2h_bytes": ev.d2h_bytes,
@@ -2593,7 +2698,174 @@ def mesher_ab(decoder, latent, out_dir, reps=3):
             "routes": routes, "verts_max_dist": dist, "tol": MESHER_TOL,
             "native_speedup": routes["numpy"]["seconds_median"] / routes["native"]["seconds_median"],
             "create_mesh_seconds": create_s, "create_mesh_seconds_median": create_med,
-            "create_mesh_split": split, "k1_launches": fused_mlp.LAUNCHES}, fused_mlp.LAUNCHES
+            "create_mesh_split": split, "k1_launches": fused_mlp.LAUNCHES}
+
+
+# msd_tpu's bounds of a streamed mesh, in voxels h
+# (tests/test_streaming_mesh.py:35-38, :58-62, :86-131): the f16 mesh
+# against the float32 (non-streaming) mesh, the nearest float32 vertex and
+# the vertex count (max(3, 0.1%)); the int8 and packed meshes against the
+# f16 mesh, whose faces they share (the codecs keep every float16 sign),
+# the float32 decoder's value at each vertex against its value at the f16 vertex.
+STREAM_TOL = {"f16": 0.05, "int8": 0.08, "packed": 0.06, "verts_rel": 1e-3, "verts_abs": 3}
+STREAM_CODECS = ("packed", "int8", "f16")
+
+
+def open_edges(verts, faces):
+    """(edges without two faces that have an end inside the volume, edges
+    without two faces on the volume's faces)."""
+    edges = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]]), axis=1).astype(np.int64)
+    keys, counts = np.unique(edges[:, 0] * len(verts) + edges[:, 1], return_counts=True)
+    inside = (np.abs(verts) < 1 - 1e-6).all(axis=1)
+    inner = inside[keys // len(verts)] | inside[keys % len(verts)]
+    return int(((counts != 2) & inner).sum()), int(((counts != 2) & ~inner).sum())
+
+
+ELLIPSOID_AXES = (0.55, 0.4, 0.45)
+
+
+def ellipsoid_decoder(specs, seed, dev, steps=400, lr=5e-4):
+    """A decoder of ``specs`` (seeded) fitted for ``steps`` Adam steps of
+    4096 uniform points to an ellipsoid's distance field, for a field close
+    to 1-Lipschitz; returns (decoder, latent)."""
+    import torch
+
+    from msd_tpu_torch.models import build_decoder
+    from msd_tpu_torch.models.deepsdf import decode_sdf
+
+    g = torch.Generator().manual_seed(seed + 15)
+    decoder = build_decoder(specs["NetworkArch"], specs["CodeLength"], specs["NetworkSpecs"], generator=g).to(dev)
+    latent = (0.01 * torch.randn(specs["CodeLength"], generator=g)).to(dev)
+    axes = torch.tensor(ELLIPSOID_AXES, device=dev)
+    opt = torch.optim.Adam(decoder.parameters(), lr=lr)
+    decoder.train()
+    for _ in range(steps):
+        x = (torch.rand(4096, 3, generator=g) * 2 - 1).to(dev)
+        target = (torch.linalg.norm(x / axes, dim=1) - 1) * axes.min()
+        loss = (decode_sdf(decoder, latent, x)[:, 0] - target).abs().mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    return decoder.eval(), latent, loss.item()
+
+
+def sdf_float32(decoder, latent, pts, chunk=2**20):
+    """The decoder's float32 values at ``pts`` (numpy [n, 3]), by its plain
+    forward (no kernel: K1's bfloat16 rounding would hide a codec's share)."""
+    import torch
+
+    from msd_tpu_torch.models.deepsdf import decode_sdf
+
+    dev = next(decoder.parameters()).device
+    with torch.no_grad():
+        return np.concatenate([decode_sdf(decoder, latent, torch.from_numpy(pts[i:i + chunk]).to(dev))[:, 0].cpu().numpy()
+                               for i in range(0, len(pts), chunk)])
+
+
+def stream_field(decoder, latent, out_dir, reps, hold_bounds):
+    """``streaming``'s runs on one field; returns (summary, K1 launches of
+    every streamed ``create_mesh`` call, warm-ups included; the float32
+    route's are in the summary only)."""
+    from scipy.spatial import cKDTree
+
+    from msd_tpu_torch import mesh
+    from msd_tpu_torch.ops import fused_mlp
+
+    dev = next(decoder.parameters()).device
+    latent = latent.reshape(-1).to(dev)
+    ev = mesh.PointEvaluator(decoder)
+    out, stream_launches = {}, 0
+
+    def timed(name, run):
+        seconds, launches = [], []
+        for i in range(reps + 1):  # a warm-up run first
+            fused_mlp.LAUNCHES = 0
+            _sync(dev)
+            t0 = time.perf_counter()
+            run(os.path.join(out_dir, f"{name}_{i}"))
+            seconds.append(time.perf_counter() - t0)
+            launches.append(fused_mlp.LAUNCHES)
+        if dev.type == "cuda" and min(launches) <= 0:
+            raise AssertionError(f"streaming: {name} launched K1 no time: {launches}")
+        r = {"seconds_warmup": seconds[0], "k1_launches": launches}
+        if reps:
+            r.update(seconds=seconds[1:], seconds_median=float(np.median(seconds[1:])))
+        return r
+
+    def streamed(N, codec):
+        def run(filename):
+            if mesh.create_mesh(decoder, latent, filename, N=N, evaluator=ev, value_codec=codec) is not True:
+                raise AssertionError(f"streaming: N={N} {codec} found no surface")
+        return run
+
+    for N in (257, 513):
+        h = 2.0 / (N - 1)
+        r = {"float32": timed(f"float32_{N}", lambda filename: float32_mesh(latent, N, ev, filename))}
+        pv, pf = float32_mesh(latent, N, ev)
+        r["float32"].update(verts=int(pv.shape[0]), faces=int(pf.shape[0]), open_edges=open_edges(pv, pf))
+        tree = cKDTree(pv)
+        f16_mesh = None
+        for codec in ("f16", "packed", "int8"):
+            mesh.LAST_STREAMING_STATS.clear()
+            c = timed(f"stream_{N}_{codec}", streamed(N, codec))
+            c["stats"] = dict(mesh.LAST_STREAMING_STATS)
+            if c["stats"].get("value_codec") != codec:
+                raise AssertionError(f"streaming: N={N} {codec} did not stream: {c['stats']}")
+            fused_mlp.LAUNCHES = 0
+            v, f = mesh.create_mesh(decoder, latent, N=N, return_mesh=True, evaluator=ev, value_codec=codec)
+            c["k1_launches"].append(fused_mlp.LAUNCHES)
+            stream_launches += sum(c["k1_launches"])
+            c.update(verts=int(v.shape[0]), faces=int(f.shape[0]), faces_equal_float32=bool(np.array_equal(f, pf)),
+                     open_edges=open_edges(v, f), nearest_float32_vertex_h=float(tree.query(v)[0].max() / h))
+            ok = c["open_edges"][0] <= r["float32"]["open_edges"][0]
+            ok &= abs(len(v) - len(pv)) <= max(STREAM_TOL["verts_abs"], STREAM_TOL["verts_rel"] * len(pv))
+            if codec == "f16":
+                ok &= c["nearest_float32_vertex_h"] < STREAM_TOL["f16"] or not hold_bounds
+                f16_mesh = v, f, sdf_float32(decoder, latent, v)
+            else:
+                c["faces_equal_f16"] = bool(np.array_equal(f, f16_mesh[1]))
+                c["residual_change_h"] = float(np.abs(sdf_float32(decoder, latent, v) - f16_mesh[2]).max() / h)
+                ok &= c["faces_equal_f16"] and (c["residual_change_h"] < STREAM_TOL[codec] or not hold_bounds)
+            if not ok:
+                raise AssertionError(f"streaming: N={N} {codec} against the float32 mesh: {c}")
+            r[codec] = c
+        if reps:
+            r["speedup_packed"] = r["float32"]["seconds_median"] / r["packed"]["seconds_median"]
+        out[f"N{N}"] = r
+    return out, stream_launches
+
+
+def streaming(decoder, latent, out_dir, specs, seed, reps=3):
+    """The streaming ``create_mesh`` (the route on the card) at N=257 (one
+    refinement level) and N=513 (two levels), each with the packed, int8
+    and f16 codecs, on the serving phase's first fitted latent: seconds per
+    shape (median of ``reps`` after a warm-up, writing the PLY),
+    ``LAST_STREAMING_STATS`` of the last timed run and K1's launches of
+    every call (warm-up, timed runs, then one returning the mesh; the count
+    set to 0 just before each call and read just after; none fails).
+    Beside it, in the same run, the non-streaming route's seconds per shape
+    (``float32_mesh``) and its mesh: the streamed meshes within
+    ``STREAM_TOL``: every codec's vertex count against that mesh's, the int8
+    and packed meshes with the f16 mesh's faces, and no open edge inside
+    the volume that the float32 mesh does not have too; the f16 mesh's
+    nearest float32 vertex and the int8 and packed residuals against the
+    f16 mesh are measured here and held on a flagship-width decoder fitted
+    to an ellipsoid's distance field (``ellipsoid_decoder``, one run per
+    codec). msd_tpu's bounds assume a field close to 1-Lipschitz (codes
+    saturate at 3 h and 2.5 h); the seeded decoder's field is far from
+    one, and values that underflow float16 flip a sign now and then.
+    Returns the summary and K1's launches in the streamed calls."""
+    dev = next(decoder.parameters()).device
+    out = {"tol": STREAM_TOL}
+    t0 = time.time()
+    out["serving_latent"], launches = stream_field(decoder, latent, out_dir, reps, hold_bounds=False)
+    out["serving_latent"]["seconds"] = time.time() - t0
+    t0 = time.time()
+    fitted, fitted_latent, loss = ellipsoid_decoder(specs, seed, dev)
+    fit_s = time.time() - t0
+    out["ellipsoid"], more = stream_field(fitted, fitted_latent, out_dir, 0, hold_bounds=True)
+    out["ellipsoid"].update(fit_seconds=fit_s, fit_l1=loss, axes=ELLIPSOID_AXES, seconds=time.time() - t0)
+    return out, launches + more
 
 
 # Preprocessing (data preparation): four seeded hippocampus-like masks on a
@@ -2902,7 +3174,8 @@ def serving_ranks(root, specs, decoder, seed, vote_mesh, device="cuda", iters=80
     _sync(dev)
     t0 = time.perf_counter()
     corner, abi, block_vals, _ = mesh._sparse_blocks(latent, N, mesh._pick_block(N, 0.1, 1.3), 1.3, ev)
-    verts, faces = mesh.create_mesh(decoder, latent, None, N=N, return_mesh=True, evaluator=ev)
+    # the ranks' route: create_mesh does not stream over a group
+    verts, faces = float32_mesh(latent, N, ev)
     _sync(dev)
     t_mesh_one = time.perf_counter() - t0
     meshing = {"N": N, "active_blocks": int(abi.shape[0]), "points_evaluated_one": ev.n_evaluated,
@@ -3028,8 +3301,8 @@ def main(argv=None):
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
         t0 = time.time()
-        summary, results, t_eval, launches, routes, pair, (mesher, k1_mesher) = serve(root, specs, decoder,
-                                                                                        args.seed)
+        summary, results, t_eval, launches, routes, pair, mesher, (stream, k1_stream) = serve(
+            root, specs, decoder, args.seed)
         t_total = time.time() - t0
     for s in summary:
         phase("serving_shape", **s)
@@ -3037,6 +3310,7 @@ def main(argv=None):
           chamfer={r[0]: r[1][0] for r in results}, kernel_vs_plain_mesh=pair,
           note="seeded weights, not trained: the Chamfer is no quality figure")
     phase("mesher_ab", **mesher)
+    phase("streaming", **stream)
 
     k2 = check_k2(decoder, args.seed, dev)
     k2gemm = check_k2gemm(args.seed, dev)
@@ -3087,7 +3361,8 @@ def main(argv=None):
     print(json.dumps({"kernels": [{
         "name": "fused_mlp", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "msd_tpu/ops/fused_mlp.py:211", "launches": launches, "launches_stage2": k1_stage2,
-        "launches_stage2_points": k1_points, "launches_serving_ranks": k1_ranks, "launches_mesher_ab": k1_mesher,
+        "launches_stage2_points": k1_points, "launches_serving_ranks": k1_ranks,
+        "launches_streaming": k1_stream,
         "max_abs_err": worst(bf16), "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes the whole decoder",

@@ -4,11 +4,14 @@
 (``-O3 -march=native -std=c++17 -shared -fPIC``), so on one host both
 packages run the same machine code and give the same bits:
 ``raster.cpp``, the software rasterizer of the render visibility pass
-(``msd_tpu_torch/render.py``), and ``marching_tets.cpp``, the host mesher
-of ``ops/marching_cubes.marching_tetrahedra_blocks`` (copies of
-``msd_tpu/native/``'s). The mesher's streaming entry points (``mt_create``,
-``mt_add_blocks``, ``mt_ply_stream_*``, ``mt_finish*``) are compiled in and
-not bound: no caller streams yet.
+(``msd_tpu_torch/render.py``), ``marching_tets.cpp``, the host mesher of
+``ops/marching_cubes.marching_tetrahedra_blocks`` and, through its
+streaming entry points (``mt_create``, ``mt_add_blocks``,
+``mt_ply_stream_*``, ``mt_finish*``, ``mt_destroy``), of the streaming
+``create_mesh`` (``mesh._create_mesh_streaming_impl``), and ``codec.cpp``,
+the decoder of the "packed" value codec (``msd_decode_packed``, used by
+``mesh._decode_packed_host``); all three are copies of
+``msd_tpu/native/``'s.
 
 The library is built at first use into ``msd_tpu_torch/_build/`` (listed
 in ``.gitignore``) under a name keyed on the sources, the flags and the
@@ -30,7 +33,7 @@ import threading
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "_build")
-SOURCES = ("raster.cpp", "marching_tets.cpp")
+SOURCES = ("raster.cpp", "marching_tets.cpp", "codec.cpp")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
@@ -50,12 +53,26 @@ _SIGNATURES = {
         _F, ctypes.c_int64, _I32, ctypes.c_int64, _F, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, _U8, _I64, _I64,
     ]),
-    # as msd_tpu/native/__init__.py:72-86 declares them
+    # as msd_tpu/native/__init__.py:72-129 declares them
     "mt_blocks": (ctypes.c_int, [
         _F, _I32, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, _U8,
         ctypes.POINTER(_F), _I64, ctypes.POINTER(_I32), _I64,
     ]),
     "mt_free": (None, [ctypes.c_void_p]),
+    "mt_create": (ctypes.c_void_p, [ctypes.c_int64, _U8, ctypes.c_int64]),
+    "mt_add_blocks": (None, [ctypes.c_void_p, _F, _I32, ctypes.c_int64, ctypes.c_int32]),
+    "mt_finish": (ctypes.c_int, [ctypes.c_void_p, ctypes.POINTER(_F), _I64, ctypes.POINTER(_I32), _I64]),
+    "mt_finish_view": (ctypes.c_int, [ctypes.c_void_p, ctypes.POINTER(_F), _I64, ctypes.POINTER(_I32), _I64]),
+    "mt_destroy": (None, [ctypes.c_void_p]),
+    "mt_ply_stream_begin": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_float, ctypes.c_float,
+    ]),
+    "mt_ply_stream_finish": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_char_p]),
+    # bitmaps [K, 16], mags [n_mags], K, n_mags, pts, q, out [K, pts]
+    "msd_decode_packed": (ctypes.c_int64, [
+        _U8, _U8, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_float, _F,
+    ]),
+    "msd_codec_simd": (ctypes.c_int32, []),
 }
 
 

@@ -101,6 +101,8 @@ def _run(args, group):
     saved_model_epoch = ckpt.load_model(args.experiment_directory, args.checkpoint, decoder)
     decoder = decoder.to(device).eval()
     evaluator = mesh.PointEvaluator(decoder)
+    if mesh._streams(evaluator):
+        evaluator.warm_stream(mesh._snap_n(args.mesh_resolution))
 
     with open(args.split_filename) as f:
         split = json.load(f)
@@ -150,6 +152,7 @@ def _run(args, group):
             "n_evaluated": evaluator.n_evaluated - evaluated0, "n_grid": n**3,
             "verts": int(res[0].shape[0]) if res else 0, "faces": int(res[1].shape[0]) if res else 0,
             "k1_launches": fused_mlp.LAUNCHES - launches0,
+            "streaming": dict(mesh.LAST_STREAMING_STATS) if mesh._streams(evaluator) else None,
         })
         logging.info("%s", json.dumps(summary[-1]))
 

@@ -243,6 +243,83 @@ def test_create_mesh_on_gpu_launches_kernel(dev):
     assert abs(gpu[0].shape[0] - cpu[0].shape[0]) <= 0.001 * cpu[0].shape[0]
 
 
+def _ellipsoid_decoder(dev, steps=300):
+    """The flagship-shape decoder fitted to an ellipsoid's distance field
+    (as tests/test_torch_streaming_mesh.py's fixture), so its surface is
+    closed; returns (decoder, latent)."""
+    from msd_tpu_torch.models.deepsdf import decode_sdf
+
+    dec = DeepSDFDecoder(LATENT, generator=torch.Generator().manual_seed(21), **CONFIGS["flagship_shape"]).to(dev)
+    latent = torch.tensor(0.05 * np.random.default_rng(22).standard_normal(LATENT), dtype=torch.float32, device=dev)
+    axes = torch.tensor([0.55, 0.4, 0.45], device=dev)
+    g = torch.Generator().manual_seed(0)
+    opt = torch.optim.Adam(dec.parameters(), lr=2e-3)
+    for _ in range(steps):
+        x = (torch.rand(4096, 3, generator=g) * 2 - 1).to(dev)
+        target = (torch.linalg.norm(x / axes, dim=1) - 1) * axes.min()
+        loss = (decode_sdf(dec, latent, x)[:, 0] - target).abs().mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    return dec.eval(), latent
+
+
+@pytest.mark.parametrize("codec", ["f16", "int8", "packed"])
+def test_stream_encoder_on_card_equals_cpu(codec, dev):
+    """The slab encoder (crossing filter, compaction, value codec) on the
+    card gives the CPU encoder's bytes."""
+    rng = np.random.default_rng(3)
+    n = 3000
+    vals = rng.uniform(0.001, 0.2, (n, 125)) * rng.choice([-1.0, 1.0], (n, 1))
+    cross = rng.random(n) < 0.4
+    grid = np.stack(np.meshgrid(*[np.arange(5) - 2.0] * 3, indexing="ij"), -1).reshape(125, 3)
+    vals[cross] = (grid @ rng.normal(size=(3, int(cross.sum())))).T * 0.02
+    vals[rng.random((n, 125)) < 0.02] = 0.0
+    vals[rng.random((n, 125)) < 0.01] *= 40.0
+    vals = torch.tensor(vals.astype(np.float16))
+    q = mesh.PointEvaluator._codec_q(codec, 2.0 / 256)
+    ev = mesh.PointEvaluator(_decoder(CONFIGS["flagship_shape"], dev))
+    for cap, use_u16 in ((4096, True), (700, True), (4096, False)):
+        ref = ev._encode_compact_body(vals, 2600, cap, codec, q, use_u16)
+        out = ev._encode_compact_body(vals.to(dev), 2600, cap, codec, q, use_u16)
+        for a, b in zip(out, ref):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a.cpu(), b), (codec, cap, use_u16)
+
+
+@pytest.mark.parametrize("codec", ["f16", "int8", "packed"])
+def test_streamed_mesh_on_card_against_float32_mesh(codec, dev):
+    """create_mesh streams on the card (K1 launched, the device refinement
+    at N=129) and gives the faces of the float32 sparse route on the same
+    evaluator, within msd_tpu's codec bounds
+    (tests/test_torch_streaming_mesh.py); both watertight."""
+    from scipy.spatial import cKDTree
+
+    from msd_tpu_torch.models.deepsdf import decode_sdf
+
+    dec, latent = _ellipsoid_decoder(dev)
+    ev = mesh.PointEvaluator(dec)
+    h = 2.0 / 128
+    # the float32 sparse route (create_mesh's off the card)
+    pv, pf = mesh._create_mesh_sparse(latent, 129, 4, 1.3, ev)
+    launches = fused_mlp.LAUNCHES
+    mesh.LAST_STREAMING_STATS.clear()
+    v, f = mesh.create_mesh(dec, latent, N=129, return_mesh=True, evaluator=ev, value_codec=codec)
+    stats = mesh.LAST_STREAMING_STATS
+    assert fused_mlp.LAUNCHES > launches and stats["value_codec"] == codec and stats["crossing_blocks"] > 0
+    assert stats["exact_slabs"] == 0 and stats["refine"] == "device"
+    edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+    assert (np.unique(edges, axis=0, return_counts=True)[1] == 2).all()
+    np.testing.assert_array_equal(f, pf)
+    if codec == "f16":
+        assert cKDTree(pv).query(v)[0].max() < 0.05 * h
+        return
+    with torch.no_grad():
+        at = lambda x: decode_sdf(dec, latent, torch.from_numpy(x).to(dev))[:, 0].cpu().numpy()  # noqa: E731
+        resid = np.abs(at(v) - at(pv)).max()
+    assert resid < {"int8": 0.08, "packed": 0.06}[codec] * h, resid / h
+
+
 # K2: the Stage-1 fused loss and gradients. Small decoders of
 # tests/test_torch_fused_train.py and the flagship width. Tolerances of the
 # bf16 kernel against its bf16 plain version (two summation orders, which
