@@ -52,7 +52,11 @@ non-zero and prints no result. Phases, one JSON line each:
    the float32 one, int8 and packed against f16) measured, and held on a
    flagship-width decoder fitted for 400 Adam steps to an ellipsoid's
    distance field (one run per codec), since they assume a field close to
-   1-Lipschitz.
+   1-Lipschitz. Then the corner dedup's A/B on the serving latent
+   (``dedup_ab``): MSD_STREAM_DEDUP off against on, interleaved, at N=513
+   (the default dedups there, and only there) and N=257 (forced): seconds
+   per shape, dedup slabs and retries, points evaluated and K1 launches per
+   arm, every dedup mesh equal to the plain mesh bit for bit.
 5. k2: the Stage-1 fused loss-and-gradient kernels (csrc/fused_train.cu),
    variants b (eikonal) and a, at the flagship width in bf16: against float32
    autograd and their plain PyTorch version on 4 seeded scenes x 16384
@@ -2835,6 +2839,67 @@ def stream_field(decoder, latent, out_dir, reps, hold_bounds):
     return out, stream_launches
 
 
+DEDUP_STATS = ("active_blocks", "dedup", "dedup_slabs", "dedup_retries", "exact_slabs", "evaluated", "t_stream",
+               "t_mesher", "t_crossing", "t_refine", "crossing_blocks")
+
+
+def dedup_ab(decoder, latent, out_dir, reps=3, sizes=(513, 257)):
+    """The corner dedup against the plain stream on one field, in one run:
+    MSD_STREAM_DEDUP off and on, interleaved, at N=513 (two levels, where
+    "auto" dedups from 16384 blocks) and N=257 (one level, "on" forced),
+    packed codec, the PLY written. Per arm: seconds per shape (median of
+    ``reps`` after a warm-up), the last run's ``LAST_STREAMING_STATS`` and
+    K1's launches of every call (the count set to 0 just before each call
+    and read just after). Every dedup mesh must equal the plain mesh bit
+    for bit, vertices and faces, and each arm must take its route. Returns
+    (summary, K1 launches of every call)."""
+    from msd_tpu_torch import mesh
+    from msd_tpu_torch.ops import fused_mlp
+
+    dev = next(decoder.parameters()).device
+    latent = latent.reshape(-1).to(dev)
+    ev = mesh.PointEvaluator(decoder)
+    out, launches_all = {}, 0
+    saved = os.environ.get("MSD_STREAM_DEDUP")
+    try:
+        for N in sizes:
+            arms = {arm: {"seconds": [], "k1_launches": []} for arm in ("off", "on")}
+            ref = None
+            for i in range(reps + 1):  # a warm-up round first
+                for arm, r in arms.items():
+                    os.environ["MSD_STREAM_DEDUP"] = arm
+                    fused_mlp.LAUNCHES = 0
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    got = mesh.create_mesh(decoder, latent, os.path.join(out_dir, f"dedup_{N}_{arm}_{i}"), N=N,
+                                           evaluator=ev, value_codec="packed", return_mesh=True)
+                    _sync(dev)
+                    r["seconds"].append(time.perf_counter() - t0)
+                    r["k1_launches"].append(fused_mlp.LAUNCHES)
+                    r["stats"] = {k: mesh.LAST_STREAMING_STATS.get(k) for k in DEDUP_STATS}
+                    launched = dev.type != "cuda" or min(r["k1_launches"]) > 0
+                    if got is False or r["stats"]["dedup"] != (arm == "on") or not launched:
+                        raise AssertionError(f"dedup_ab: N={N} {arm} did not take its route: {r}")
+                    if ref is None:
+                        ref = got
+                    elif not (np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])):
+                        raise AssertionError(f"dedup_ab: N={N} {arm} run {i}: the mesh differs from the plain mesh "
+                                             f"({got[0].shape} {got[1].shape} against {ref[0].shape} {ref[1].shape})")
+            for r in arms.values():
+                launches_all += sum(r["k1_launches"])
+                r["seconds_warmup"] = r["seconds"].pop(0)
+                r["seconds_median"] = float(np.median(r["seconds"]))
+            out[f"N{N}"] = {**arms, "meshes_equal": True, "verts": int(ref[0].shape[0]), "faces": int(ref[1].shape[0]),
+                            "on_over_off": arms["on"]["seconds_median"] / arms["off"]["seconds_median"],
+                            "evaluated_on_over_off": arms["on"]["stats"]["evaluated"] / arms["off"]["stats"]["evaluated"]}
+    finally:
+        if saved is None:
+            os.environ.pop("MSD_STREAM_DEDUP", None)
+        else:
+            os.environ["MSD_STREAM_DEDUP"] = saved
+    return out, launches_all
+
+
 def streaming(decoder, latent, out_dir, specs, seed, reps=3):
     """The streaming ``create_mesh`` (the route on the card) at N=257 (one
     refinement level) and N=513 (two levels), each with the packed, int8
@@ -2854,12 +2919,21 @@ def streaming(decoder, latent, out_dir, specs, seed, reps=3):
     codec). msd_tpu's bounds assume a field close to 1-Lipschitz (codes
     saturate at 3 h and 2.5 h); the seeded decoder's field is far from
     one, and values that underflow float16 flip a sign now and then.
-    Returns the summary and K1's launches in the streamed calls."""
+    Then ``dedup_ab`` on the serving latent. Returns the summary and K1's
+    launches in the streamed calls."""
     dev = next(decoder.parameters()).device
     out = {"tol": STREAM_TOL}
     t0 = time.time()
     out["serving_latent"], launches = stream_field(decoder, latent, out_dir, reps, hold_bounds=False)
     out["serving_latent"]["seconds"] = time.time() - t0
+    # the default environment dedups the two-level class (N=513) only
+    default_dedup = {N: out["serving_latent"][f"N{N}"]["packed"]["stats"]["dedup"] for N in (257, 513)}
+    if default_dedup != {257: False, 513: True}:
+        raise AssertionError(f"streaming: default corner dedup {default_dedup}, expected at N=513 only")
+    t0 = time.time()
+    out["dedup_ab"], dedup_launches = dedup_ab(decoder, latent, out_dir, reps)
+    out["dedup_ab"]["seconds"] = time.time() - t0
+    launches += dedup_launches
     t0 = time.time()
     fitted, fitted_latent, loss = ellipsoid_decoder(specs, seed, dev)
     fit_s = time.time() - t0

@@ -19,12 +19,16 @@ Counterpart of ``msd_tpu/mesh.py`` (ref: deep_sdf/mesh.py:21-165):
   encoded with a value codec ("packed", "int8" or "f16";
   ``_encode_compact_body``), copied to pinned host memory on a side stream
   and decoded on a host thread, while one worker thread feeds the C++
-  mesher, which writes the PLY as it meshes. Not ported yet: ``msd_tpu``'s
-  corner dedup (``MSD_STREAM_DEDUP``) and hybrid two-level dispatch
-  (``MSD_STREAM_HYBRID``), and streaming over a ``group``. Not ported at
-  all: its optimistic single-level refinement (``refine1_optimistic``,
+  mesher, which writes the PLY as it meshes. With ``msd_tpu``'s corner
+  dedup (``MSD_STREAM_DEDUP``; by default on the card for two-level active
+  sets of 16384 blocks or more, so at N=513) a slab evaluates each block's
+  64 low corners and only the face corners its neighbours in the slab do
+  not hold (``_slab_dedup``), which gives the plain slab's values bit for
+  bit. Not ported yet: streaming over a ``group``. Not ported at all:
+  ``msd_tpu``'s optimistic single-level refinement (``refine1_optimistic``,
   ``MSD_STREAM_OPT``), which was slower on the card than the device route
-  (PERF.md, PR 15).
+  (PERF.md), and its hybrid two-level dispatch
+  (``MSD_STREAM_HYBRID``).
 * Marching tetrahedra + PLY write on the host.
 """
 
@@ -57,6 +61,36 @@ SPARSE_BLOCK = 4
 # scratch, so chunks are large (``fused_eval`` splits a wide decoder's
 # launches by the scratch they need).
 KERNEL_CHUNK = 2**24
+# CPU batches are padded to whole multiples of this many rows: the CPU's
+# GEMMs and vectorised loops take a batch's leftover rows (past its last
+# whole vector or tile, also per thread) down other code paths that can
+# round them differently, so without the padding a point's float32 value
+# depends on its place in the batch (the corner dedup needs it not to)
+CPU_ROW_ALIGN = 64
+
+
+def _dedup_tables():
+    """Static index tables of the corner dedup (msd_tpu/mesh.py:710-736):
+    the 7 positive neighbour shifts; per shift, the owner-local low
+    offsets that cover a block's top corners of that class (16 for a face,
+    4 for an edge, 1 for the corner), their places in the owner's 64 low
+    corners and in this block's 125 corners; and the 64 low offsets with
+    their places among the 125."""
+    b, n1 = SPARSE_BLOCK, SPARSE_BLOCK + 1
+    shifts = [(1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (1, 0, 1), (0, 1, 1), (1, 1, 1)]
+    lowrange = np.arange(b)
+    own_offs, own_pos, pos125 = [], [], []
+    for sh in shifts:
+        axes = [np.array([0]) if d else lowrange for d in sh]
+        offs = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
+        own_offs.append(offs.astype(np.int32))
+        own_pos.append(offs[:, 0] * b * b + offs[:, 1] * b + offs[:, 2])
+        top = offs + np.asarray(sh) * b
+        pos125.append(top[:, 0] * n1 * n1 + top[:, 1] * n1 + top[:, 2])
+    low_offs = np.stack(np.meshgrid(lowrange, lowrange, lowrange, indexing="ij"), axis=-1).reshape(-1, 3)
+    lowpos125 = low_offs[:, 0] * n1 * n1 + low_offs[:, 1] * n1 + low_offs[:, 2]
+    return dict(shifts=np.asarray(shifts, np.int32), own_offs=own_offs, own_pos=own_pos, pos125=pos125,
+                low_offs=low_offs.astype(np.int32), lowpos125=lowpos125)
 
 
 def _packed_needed_mask(sign: np.ndarray) -> np.ndarray:
@@ -141,6 +175,13 @@ def _refine_class(N: int, safety: float, clamp_dist: float):
     nb4 = (N - 1) // b
     two_level = (N - 1) % (4 * b) == 0 and (4 * b) * h * s3 * safety < clamp_dist and nb4 % 4 == 0
     return h, nb4, two_level
+
+
+def _lattice_points(fine: torch.Tensor, h: float) -> torch.Tensor:
+    """int32 lattice indices [..., 3] -> [n, 3] float32 points in [-1, 1].
+    Every block program makes its points through this one expression, so
+    equal indices give bit-equal points."""
+    return fine.reshape(-1, 3).float() * h - 1.0
 
 
 def _grid(n: int, device) -> torch.Tensor:
@@ -256,6 +297,7 @@ class PointEvaluator:
         self.n_evaluated = 0
         self._copy_stream = None
         self._decode_pool_obj = None
+        self._dedup_consts_obj = None
         # Only the configs the TPU kernel refuses too take the plain decoder;
         # any other refusal (an operand type that is not ported) raises.
         try:
@@ -280,10 +322,13 @@ class PointEvaluator:
         outs = []
         for start in range(0, pts.shape[0], chunk):
             part = pts[start : start + chunk]
+            n = part.shape[0]
+            if not kernel and n % CPU_ROW_ALIGN:
+                part = torch.cat([part, part.new_zeros(-n % CPU_ROW_ALIGN, 3)])
             if self.spec is not None:
-                outs.append(fused_eval(self.spec, latent, part))
+                outs.append(fused_eval(self.spec, latent, part)[:n])
             else:
-                outs.append(decode_sdf(self.decoder, latent, part)[:, 0])
+                outs.append(decode_sdf(self.decoder, latent, part)[:n, 0])
         self.n_evaluated += pts.shape[0]
         vals = torch.cat(outs) if outs else pts.new_zeros(0)
         return vals if self.group is None else self.group.all_gather_rows(vals)
@@ -292,7 +337,7 @@ class PointEvaluator:
         """[A * (b+1)^3, 3] coordinates of the stride-``scale`` lattices of
         blocks ``abi`` [A, 3], made on the device."""
         fine = (abi.to(torch.int32) * (b * scale))[:, None, :] + _grid(b + 1, abi.device)[None] * scale
-        return fine.reshape(-1, 3).float() * h - 1.0
+        return _lattice_points(fine, h)
 
     def _blocks_f16(self, latent, abi: torch.Tensor, h: float, scale: int = 1) -> torch.Tensor:
         """[A, 125] values of blocks ``abi`` rounded to float16, as
@@ -349,16 +394,19 @@ class PointEvaluator:
             return n_pad
         return -(-int(n_pad * self.compact_cap_ratio) // 2048) * 2048
 
-    def _encode_compact_body(self, vals: torch.Tensor, valid_n, cap: int, codec: str, q, use_u16: bool):
+    def _encode_compact_body(self, vals: torch.Tensor, valid_n, cap: int, codec: str, q, use_u16: bool,
+                             extra: Optional[torch.Tensor] = None):
         """Crossing filter, on-device compaction and value codec of one slab
         (msd_tpu/mesh.py:488-622). ``vals`` [n, 125] float16; rows at and
         past ``valid_n`` are padding. Returns
         (header, *value buffers):
 
-        * header: u16 ``[count, Km_lo, Km_hi, 0, idx...]`` while ``use_u16``,
-          else int32 ``[count(, Km), idx...]``; ``count`` is the crossing
-          count (above ``cap``: overflow), ``Km`` the magnitude count
-          ("packed"), ``idx`` the crossing rows' slab positions.
+        * header: u16 ``[count, Km_lo, Km_hi, extra, idx...]`` while
+          ``use_u16``, else int32 ``[count(, Km), idx...]``; ``count`` is
+          the crossing count (above ``cap``: overflow), ``Km`` the
+          magnitude count ("packed"), ``extra`` a device scalar or 0 (the
+          dedup slab's orphan overflow flag), ``idx`` the crossing rows'
+          slab positions.
         * "packed": sign bitmaps [cap, 16] u8 and the magnitudes
           [cap * packed_mag_bytes_per_block] u8 of every needed corner (a
           corner whose 3^3 window holds both signs), row-major;
@@ -369,6 +417,7 @@ class PointEvaluator:
         rows = torch.arange(n_blocks, device=dev)
         count, dest = _compact_dest(_crossing(vals) & (rows < valid_n), cap)
         idx = _scatter_rows(rows.to(torch.int32), dest, cap)
+        slot3 = torch.zeros_like(count) if extra is None else extra.to(count.dtype)
         # a device operand, so the card divides (a host scalar may become a
         # product with its reciprocal)
         q_t = _scalar(q, dev)
@@ -389,7 +438,7 @@ class PointEvaluator:
             mdest = torch.where(small, row_off[:, None] + within - 1, capM).clamp_(max=capM).reshape(-1)
             mags = _scatter_rows(mag_rows.reshape(-1), mdest, capM)
             if use_u16:
-                head = torch.stack([count, mag_count & 0xFFFF, mag_count >> 16, torch.zeros_like(count)])
+                head = torch.stack([count, mag_count & 0xFFFF, mag_count >> 16, slot3])
                 header = torch.cat([head.to(torch.int32), idx]).to(torch.uint16)
             else:
                 header = torch.cat([torch.stack([count, mag_count]).to(torch.int32), idx])
@@ -402,7 +451,8 @@ class PointEvaluator:
         else:
             raise ValueError(f"unknown value codec {codec!r}")
         if use_u16:
-            header = torch.cat([torch.stack([count] + [torch.zeros_like(count)] * 3).to(torch.int32), idx])
+            header = torch.cat([torch.stack([count, torch.zeros_like(count), torch.zeros_like(count), slot3])
+                                .to(torch.int32), idx])
             header = header.to(torch.uint16)
         else:
             header = torch.cat([count.reshape(1).to(torch.int32), idx])
@@ -413,6 +463,123 @@ class PointEvaluator:
         float16, filtered, compacted and encoded (``_encode_compact_body``)."""
         vals = self._blocks_f16(latent, abi_slab, h)
         return self._encode_compact_body(vals, valid_n, cap, codec, q, use_u16=abi_slab.shape[0] <= 60000)
+
+    # ------------------------------------------------------------------
+    # Corner dedup (msd_tpu/mesh.py:643-803): a slab evaluates each block's
+    # 64 low corners, and of the 61 on its +x/+y/+z faces only those whose
+    # owner (the neighbour block holding them as low corners) is not in the
+    # slab.
+
+    # owner map edge: block coordinates in [0, MAP_N) per axis, so every N
+    # up to 513 (msd_tpu/mesh.py:643)
+    MAP_N = 128
+
+    def _dedup_consts(self):
+        """``_dedup_tables`` on the evaluator's device, made once."""
+        if self._dedup_consts_obj is None:
+            def dev(a):
+                return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+            self._dedup_consts_obj = {k: [dev(a) for a in v] if isinstance(v, list) else dev(v)
+                                      for k, v in _dedup_tables().items()}
+        return self._dedup_consts_obj
+
+    def _block_map(self, abi_dev: torch.Tensor, count: int) -> torch.Tensor:
+        """Dense owner-row map (msd_tpu/mesh.py:648): [MAP_N^3 + 1] int32,
+        entry x*MAP_N^2 + y*MAP_N + z the row of block (x, y, z) in the
+        active set ``abi_dev``, -1 elsewhere; the last entry, -1, answers
+        every lookup outside the map. Rows at and past ``count`` and
+        coordinates outside the map are dropped."""
+        M = self.MAP_N
+        rows = torch.arange(abi_dev.shape[0], device=abi_dev.device)
+        keep = (rows < count) & ((abi_dev >= 0) & (abi_dev < M)).all(1)
+        lin = torch.where(keep, self._map_index(abi_dev), M**3)
+        m = torch.full((M**3 + 1,), -1, dtype=torch.int32, device=abi_dev.device)
+        m[lin] = rows.to(torch.int32)  # every dropped row writes the last entry
+        m[M**3] = -1
+        return m
+
+    def _map_index(self, blocks: torch.Tensor) -> torch.Tensor:
+        M = self.MAP_N
+        b = blocks.to(torch.int64)
+        return (b[:, 0] * M + b[:, 1]) * M + b[:, 2]
+
+    @staticmethod
+    def _dedup_shift_caps(n_pad: int, rho: float) -> int:
+        """Orphan rows per neighbour shift (msd_tpu/mesh.py:666):
+        ceil(rho * n_pad) rounded up to 1024."""
+        return -(-int(n_pad * rho) // 1024) * 1024
+
+    def _dedup_plan(self, abi_slab: torch.Tensor, map_dev: torch.Tensor, start: int, valid_n: int, capS: int):
+        """Per neighbour shift: each row's owner row within the slab
+        (``n_pad``, the zero row, where the owner is absent), the compacted
+        orphan rows (valid rows whose owner is absent, in row order, the
+        first ``capS``; unused slots hold 0) and the orphan count, which
+        may exceed ``capS``. Owners outside the slab's valid rows count as
+        absent. Returns (locals [7][n_pad], orphans [7][capS], counts [7])."""
+        M = self.MAP_N
+        n_pad = abi_slab.shape[0]
+        rows = torch.arange(n_pad, device=abi_slab.device)
+        valid = rows < valid_n
+        locals_, orphans, counts = [], [], []
+        for sh in self._dedup_consts()["shifts"]:
+            owner = abi_slab + sh[None, :]
+            inb = ((owner >= 0) & (owner < M)).all(1)
+            orow = map_dev[torch.where(inb, self._map_index(owner), M**3)]
+            in_slab = (orow >= start) & (orow < start + valid_n)
+            locals_.append(torch.where(in_slab, orow.to(torch.int64) - start, n_pad))
+            count, dest = _compact_dest(~in_slab & valid, capS)
+            orphans.append(_scatter_rows(rows, dest, capS))
+            counts.append(count)
+        return locals_, orphans, torch.stack(counts)
+
+    def _dedup_values(self, latent, abi_dev: torch.Tensor, map_dev: torch.Tensor, start: int, valid_n: int,
+                      h: float, rho_m: int):
+        """The corner-deduplicated values of rows [start, start + n_pad) of
+        the device active set (msd_tpu/mesh.py:673-803), n_pad the valid
+        rows rounded up to ``A_CHUNK``. One batch through K1: the 64 low
+        corners of every block, then each shift's orphan corner groups
+        (``capS`` rows of 16, 4 or 1 corners). The [n_pad, 125] rows are
+        put back together from the low corners, 7 row gathers from the
+        owners' low corners and 7 orphan scatters (real orphan slots only).
+        A corner's lattice indices equal the plain slab's (owner * 4 + low
+        offset == base * 4 + top offset) and become points through the same
+        expression (``_lattice_points``), so each valid row is the plain
+        slab's bit for bit. Returns (values float16 [n_pad, 125], flag int32
+        scalar: 1 where a shift's orphans overflowed ``capS``, and the rows
+        missing them must be evaluated again)."""
+        n_pad = self.A_CHUNK * -(-valid_n // self.A_CHUNK)
+        b = SPARSE_BLOCK
+        t = self._dedup_consts()
+        capS = self._dedup_shift_caps(n_pad, rho_m / 1000.0)
+        abi_slab = abi_dev[start:start + n_pad].to(torch.int32)
+        locals_, orphans, counts = self._dedup_plan(abi_slab, map_dev, start, valid_n, capS)
+        parts = [(abi_slab * b)[:, None, :] + t["low_offs"][None]]
+        for sh, orows, offs in zip(t["shifts"], orphans, t["own_offs"]):
+            parts.append(((abi_slab[orows] + sh[None, :]) * b)[:, None, :] + offs[None])
+        vals_flat = self.eval_points(latent, _lattice_points(torch.cat([p.reshape(-1, 3) for p in parts]), h))
+        low_n = n_pad * b**3
+        low = vals_flat[:low_n].reshape(n_pad, b**3)
+        low_ext = torch.cat([low, low.new_zeros(1, b**3)])
+        # row n_pad takes the unused orphan slots' writes
+        vals125 = vals_flat.new_zeros(n_pad + 1, (b + 1) ** 3)
+        vals125[:n_pad, t["lowpos125"]] = low
+        slot = torch.arange(capS, device=vals_flat.device)
+        off = low_n
+        for si, (loc, orows, pos) in enumerate(zip(locals_, orphans, t["pos125"])):
+            sz = pos.shape[0]
+            vals125[:n_pad, pos] = low_ext[loc[:, None], t["own_pos"][si][None, :]]
+            dest = torch.where(slot < counts[si], orows, n_pad)
+            vals125[dest[:, None], pos[None, :]] = vals_flat[off:off + capS * sz].reshape(capS, sz)
+            off += capS * sz
+        return vals125[:n_pad].half(), (counts > capS).any().to(torch.int32)
+
+    def _slab_dedup(self, latent, abi_dev: torch.Tensor, map_dev: torch.Tensor, start: int, valid_n: int,
+                    h: float, q, cap: int, codec: str, rho_m: int):
+        """One dedup slab: ``_dedup_values``, then ``_encode_compact_body``
+        with a u16 header whose slot 3 holds the orphan overflow flag."""
+        vals, flag = self._dedup_values(latent, abi_dev, map_dev, start, valid_n, h, rho_m)
+        return self._encode_compact_body(vals, valid_n, cap, codec, q, use_u16=True, extra=flag)
 
     def _fetch_async(self, t: torch.Tensor):
         """Start copying ``t`` to the host; returns a resolver giving the numpy
@@ -532,25 +699,31 @@ class PointEvaluator:
         return resolver().astype(np.int64), evaluated
 
     def stream_crossing_values(self, latent, abi, N: int, codec: str = "int8", stats: Optional[dict] = None,
-                               abi_dev=None, abi_resolver=None, num_blocks: Optional[int] = None):
+                               abi_dev=None, abi_resolver=None, num_blocks: Optional[int] = None,
+                               two_level: bool = False):
         """Slab-pipelined evaluation of the active set
-        (msd_tpu/mesh.py:878-1304, without its dedup, hybrid and optimistic
+        (msd_tpu/mesh.py:878-1304, without its hybrid and optimistic
         branches).
 
         Every slab is enqueued before any header is read: its blocks
         through K1, the crossing rows compacted and encoded on the device
-        (``_slab``). Headers, then value rows, are copied to pinned host
+        (``_slab``, or ``_slab_dedup`` where the corner dedup is on; see
+        ``_dedup_on``). Headers, then value rows, are copied to pinned host
         memory on a side stream and decoded on host threads. With
         ``abi_dev`` (and ``num_blocks``) the slab coordinates are sliced
         from the device active set and its host copy (``abi_resolver``) is
-        read only for the mesher's bases. A slab whose crossing or
+        read only for the mesher's bases. A dedup slab whose orphans
+        overflowed runs again at once through ``_slab``, before any later
+        header is read (``dedup_retries``); a slab whose crossing or
         magnitude count exceeds its cap re-runs exactly (``exact_slabs``).
+        ``two_level``: the active set is the two-level refinement's.
 
         Yields decoded (values float32 [n, 125], abi rows [n, 3]); returns
         (max_blocks upper bound, iterator). ``stats`` gathers
         ``crossing_blocks``, ``t_mask`` (seconds waiting for headers),
         ``t_fetch`` (for value rows), ``bytes_fetched``,
-        ``evaluated_stream`` and ``exact_slabs``."""
+        ``evaluated_stream``, ``exact_slabs``, ``dedup``, ``dedup_slabs``
+        and ``dedup_retries``."""
         A = abi.shape[0] if abi is not None else int(num_blocks)
         latent = torch.as_tensor(latent, dtype=torch.float32, device=self.device).reshape(-1)
         h = 2.0 / (N - 1)
@@ -594,40 +767,70 @@ class PointEvaluator:
                 return code.to(torch.int8).cpu().numpy().astype(np.float32) * q, abi_h[mask]
             return rows.cpu().numpy(), abi_h[mask]
 
-        def dispatch_slab(lo, hi):
+        rho_m = stream_knobs.orphan_shift_cap_milli()
+        dedup = self._dedup_on(abi_dev, N, A, two_level)
+        stats.update(dedup=dedup, dedup_slabs=0, dedup_retries=0)
+        # the owner map, once per call
+        map_dev = self._block_map(abi_dev, A) if dedup else None
+
+        def dispatch_slab(lo, hi, use_dedup):
             n = hi - lo
             n_pad = -(-n // C) * C
             cap = self._slab_cap(n_pad)
-            if abi_dev is not None and lo + n_pad <= abi_dev.shape[0]:
-                abi_slab = abi_dev[lo:lo + n_pad]
+            dev_ok = abi_dev is not None and lo + n_pad <= abi_dev.shape[0]
+            if dev_ok and use_dedup and n_pad <= 60000:
+                out = self._slab_dedup(latent, abi_dev, map_dev, lo, n, h, q, cap, codec, rho_m)
+                # 64 low corners, and 3 x 16 + 3 x 4 + 1 = 61 per orphan slot
+                add("evaluated_stream", n_pad * SPARSE_BLOCK**3 + self._dedup_shift_caps(n_pad, rho_m / 1000.0) * 61)
+                add("dedup_slabs", 1)
             else:
-                buf = torch.zeros((n_pad, 3), dtype=torch.int32, pin_memory=self.device.type == "cuda")
-                buf[:n] = torch.from_numpy(get_abi()[lo:hi])
-                abi_slab = buf.to(self.device, non_blocking=True)
-            out = self._slab(latent, abi_slab, n, h, q, cap, codec)
-            add("evaluated_stream", n_pad * pts_per)
+                if dev_ok:
+                    abi_slab = abi_dev[lo:lo + n_pad]
+                else:
+                    buf = torch.zeros((n_pad, 3), dtype=torch.int32, pin_memory=self.device.type == "cuda")
+                    buf[:n] = torch.from_numpy(get_abi()[lo:hi])
+                    abi_slab = buf.to(self.device, non_blocking=True)
+                out = self._slab(latent, abi_slab, n, h, q, cap, codec)
+                add("evaluated_stream", n_pad * pts_per)
             return cap, self._fetch_async(out[0]), out[1:]
 
         def parse_header(icn):
-            """-> (K, Km, idx0)."""
+            """-> (K, Km, flag, idx0); the flag is header slot 3 of a u16
+            header (a dedup slab's orphan overflow)."""
             K = int(icn[0])
             if icn.dtype == np.uint16:
                 Km = int(icn[1]) | (int(icn[2]) << 16) if codec == "packed" else 0
-                return K, Km, 4
+                return K, Km, int(icn[3]), 4
             Km = int(icn[1]) if codec == "packed" else 0
-            return K, Km, 2 if codec == "packed" else 1
+            return K, Km, 0, 2 if codec == "packed" else 1
+
+        def read_header(header_res):
+            t0 = time.time()
+            icn = header_res()
+            add("t_mask", time.time() - t0)
+            return icn
 
         def it():
             stats.setdefault("exact_slabs", 0)
-            pend = [(lo, hi, *dispatch_slab(lo, hi)) for lo, hi in slabs]
-            # read every header and start every value copy before any rows
-            # are consumed
-            jobs = []
+            pend = [(lo, hi, *dispatch_slab(lo, hi, dedup)) for lo, hi in slabs]
+            # first pass (msd_tpu/mesh.py:1232-1250): read each header and
+            # run every orphan-flagged slab again at once without dedup, so
+            # the retries queue on the card behind each other
+            resolved = []
             for lo, hi, cap, header_res, devs in pend:
-                t0 = time.time()
-                icn = header_res()
-                add("t_mask", time.time() - t0)
-                K, Km, idx0 = parse_header(icn)
+                icn = read_header(header_res)
+                if parse_header(icn)[2]:
+                    logging.debug("dedup orphan overflow in slab [%d, %d); plain slab again", lo, hi)
+                    add("dedup_retries", 1)
+                    cap, header_res, devs = dispatch_slab(lo, hi, False)
+                    icn = None
+                resolved.append((lo, hi, cap, icn, header_res, devs))
+            # then every value copy starts before any rows are consumed
+            jobs = []
+            for lo, hi, cap, icn, header_res, devs in resolved:
+                if icn is None:
+                    icn = read_header(header_res)
+                K, Km, _, idx0 = parse_header(icn)
                 overflow = K > cap or (codec == "packed" and Km > cap * self.packed_mag_bytes_per_block)
                 if overflow:
                     logging.debug("slab compaction overflow (K=%d cap=%d); exact fallback", K, cap)
@@ -663,6 +866,23 @@ class PointEvaluator:
                 yield vals, abi_x
 
         return A, it()
+
+    def _dedup_on(self, abi_dev, N: int, A: int, two_level: bool) -> bool:
+        """Whether a stream dedups its slabs (msd_tpu/mesh.py:1040-1060):
+        the active set lies on the device, its block coordinates fit the
+        owner map, and ``stream_knobs.dedup_streaming`` says so. Under
+        "auto" also only for the two-level refinement class: ``msd_tpu``
+        dedups only where ``counts_dev is None or hybrid``
+        (msd_tpu/mesh.py:1053-1056), and by default it refines the
+        single-level class (N=257) on its optimistic route, which sets
+        ``counts_dev``, because single-level shells overflow the orphan caps
+        (:1046-1052). The port has no optimistic route, so the condition is
+        the refinement class. "on" dedups either class, as ``msd_tpu`` does
+        with ``MSD_STREAM_OPT=off``."""
+        return (abi_dev is not None
+                and (two_level or stream_knobs.dedup_forced())
+                and (N - 1) // SPARSE_BLOCK <= self.MAP_N
+                and stream_knobs.dedup_streaming(stream_knobs.host_facts(), A))
 
 
 def eval_grid_dense(decoder, latent, N: int, max_batch: int = 2**18,
@@ -753,11 +973,13 @@ def _sparse_active4(latent, N, evaluator: PointEvaluator, safety, clamp_dist):
     return np.stack(np.nonzero(active), axis=1).astype(np.int64), pts.shape[0]
 
 
-def _sparse_blocks(latent, N, b, safety, evaluator: PointEvaluator):
-    """Two-stage sparse evaluation in float32 (the route ``msd_tpu`` runs
-    without an evaluator, msd_tpu/mesh.py:2286-2292). Returns (corner_sdf
-    [(nb+1)^3 lattice], abi [A, 3] active block indices, block_vals
-    [A, b+1, b+1, b+1], stats)."""
+def _sparse_blocks(latent, N, b, safety, evaluator: PointEvaluator, f16: bool = False):
+    """Two-stage sparse evaluation (msd_tpu/mesh.py:2250). The corner
+    lattice is float32; the block values are float32 too (the route
+    ``msd_tpu`` runs without an evaluator, msd_tpu/mesh.py:2286-2292), or,
+    with ``f16``, rounded to float16 by ``eval_blocks`` (its route with an
+    evaluator, :2284-2285). Returns (corner_sdf [(nb+1)^3 lattice], abi
+    [A, 3] active block indices, block_vals [A, b+1, b+1, b+1], stats)."""
     nb = (N - 1) // b
     h = 2.0 / (N - 1)
     diag = b * h * math.sqrt(3.0) / 2.0 * safety
@@ -770,11 +992,13 @@ def _sparse_blocks(latent, N, b, safety, evaluator: PointEvaluator):
     abi = np.stack(np.nonzero(_active_from_lattice(corner_sdf, diag)), axis=1)  # [A, 3]
 
     # stage 3: evaluate active block interiors
-    if abi.shape[0] > 0:
+    if abi.shape[0] == 0:
+        block_vals = np.zeros((0, b + 1, b + 1, b + 1), np.float32)
+    elif f16:
+        block_vals = evaluator.eval_blocks(latent, abi, b, N)
+    else:
         pts = evaluator._block_points(evaluator._abi_tensor(abi), h, b=b)
         block_vals = evaluator.eval_points(latent, pts).reshape(-1, b + 1, b + 1, b + 1).cpu().numpy()
-    else:
-        block_vals = np.zeros((0, b + 1, b + 1, b + 1), np.float32)
     stats = {
         "block": b,
         "active_blocks": int(abi.shape[0]),
@@ -787,16 +1011,19 @@ def _sparse_blocks(latent, N, b, safety, evaluator: PointEvaluator):
 
 def eval_grid_sparse(decoder, latent, N: int, max_batch: int = 2**18, clamp_dist: float = 0.1,
                      safety: float = 1.3, evaluator: Optional[PointEvaluator] = None) -> Tuple[np.ndarray, dict]:
-    """Sparse block-refined SDF grid in float32. Returns (grid [N,N,N], stats).
+    """Sparse block-refined SDF grid. Returns (grid [N,N,N], stats).
 
-    Inactive blocks are filled with their corner value (sign-correct by the
+    As in ``msd_tpu``, the block values are rounded to float16 when the
+    caller passes an ``evaluator`` and stay float32 otherwise. Inactive
+    blocks are filled with their corner value (sign-correct by the
     Lipschitz argument), which cannot introduce spurious zero crossings."""
+    f16 = evaluator is not None
     evaluator = evaluator or PointEvaluator(decoder, max_batch=max_batch)
     b = _pick_block(N, clamp_dist, safety)
     if b <= 2:
         grid = eval_grid_dense(decoder, latent, N, max_batch, evaluator)
         return grid, {"block": 1, "evaluated": N**3, "total": N**3}
-    corner_sdf, abi, block_vals, stats = _sparse_blocks(latent, N, b, safety, evaluator)
+    corner_sdf, abi, block_vals, stats = _sparse_blocks(latent, N, b, safety, evaluator, f16=f16)
     nb = (N - 1) // b
     grid = np.repeat(np.repeat(np.repeat(corner_sdf[:nb, :nb, :nb], b, 0), b, 1), b, 2)
     grid = np.pad(grid, ((0, 1), (0, 1), (0, 1)), mode="edge")
@@ -855,14 +1082,12 @@ def _resolve_value_codec(value_codec: str) -> str:
 
 def _create_mesh_streaming(latent, N, evaluator, safety, clamp_dist, voxel_size, value_codec="auto",
                            ply_path=None, want_mesh=True):
-    """Refuses the knobs of what is not ported, resolves the codec, then
+    """Refuses ``MSD_STREAM_HYBRID=on``, resolves the codec, then
     ``_create_mesh_streaming_impl``. ``msd_tpu``'s retry wrapper
     (msd_tpu/mesh.py:1835) exists only for its hybrid dispatch, which is not
     ported: no failure here gives way to another route."""
-    for knob in ("MSD_STREAM_DEDUP", "MSD_STREAM_HYBRID"):
-        if os.environ.get(knob) == "on":
-            raise NotImplementedError(f"{knob}=on: msd_tpu's corner dedup and hybrid dispatch are not ported "
-                                      "yet (ROADMAP A.3)")
+    if os.environ.get("MSD_STREAM_HYBRID") == "on":
+        raise NotImplementedError("MSD_STREAM_HYBRID=on: msd_tpu's hybrid two-level dispatch is not ported")
     value_codec = _resolve_value_codec(value_codec)
     return _create_mesh_streaming_impl(latent, N, evaluator, safety, clamp_dist, voxel_size,
                                        value_codec=value_codec, ply_path=ply_path, want_mesh=want_mesh)
@@ -892,9 +1117,11 @@ def _create_mesh_streaming_impl(latent, N, evaluator: PointEvaluator, safety, cl
         A4 = abi4.shape[0]
     t_refine = time.time() - t0
     stream_stats: dict = {}
+    cls = _refine_class(N, safety, clamp_dist)
     max_blocks, value_iter = evaluator.stream_crossing_values(
         latent, abi4, N, codec=value_codec, stats=stream_stats,
         abi_dev=abi4_dev, abi_resolver=abi4_resolver, num_blocks=A4,
+        two_level=cls is not None and cls[2],
     )
     pts_per = (SPARSE_BLOCK + 1) ** 3
     LAST_STREAMING_STATS.update(
@@ -956,6 +1183,9 @@ def _create_mesh_streaming_impl(latent, N, evaluator: PointEvaluator, safety, cl
             t_fetch=round(stream_stats.get("t_fetch", 0.0), 3),
             bytes_fetched=int(stream_stats.get("bytes_fetched", 0)),
             exact_slabs=int(stream_stats.get("exact_slabs", 0)),
+            dedup=bool(stream_stats.get("dedup", False)),
+            dedup_slabs=int(stream_stats.get("dedup_slabs", 0)),
+            dedup_retries=int(stream_stats.get("dedup_retries", 0)),
         )
         logging.debug("[create_mesh] streaming: %d active blocks, %d crossing, %d prefilter evals",
                       A4, crossing, evaluated)
@@ -1004,7 +1234,12 @@ def _create_mesh_sparse(latent, N: int, b: int, safety: float, evaluator: PointE
     """``create_mesh``'s non-streaming sparse route: ``_sparse_blocks`` in
     float32, then the mesher on the active blocks directly, never
     materialising the N^3 grid. Returns (verts, faces); raises
-    ``ValueError`` on an empty surface."""
+    ``ValueError`` on an empty surface.
+
+    Float32 for both of its callers: a CPU evaluator stands where a CPU
+    ``msd_tpu`` builds no evaluator and meshes float32 values
+    (msd_tpu/mesh.py:2376-2377); over a group ``msd_tpu`` streams float16
+    rows, which the port does not do yet (ROADMAP A.2)."""
     _, abi, block_vals, stats = _sparse_blocks(latent, N, b, safety, evaluator)
     logging.debug("[create_mesh] sparse eval stats: %s", stats)
     h = 2.0 / (N - 1)

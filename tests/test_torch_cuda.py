@@ -320,6 +320,28 @@ def test_streamed_mesh_on_card_against_float32_mesh(codec, dev):
     assert resid < {"int8": 0.08, "packed": 0.06}[codec] * h, resid / h
 
 
+@pytest.mark.parametrize("field,N", [("seeded", 129), ("ellipsoid", 257)])
+def test_dedup_rows_on_card_equal_plain_rows(field, N, dev):
+    """The corner dedup's [n, 125] float16 rows through the wgmma K1 equal
+    the plain slab's bit for bit, at flagship width on the device active
+    set of the seeded flagship decoder and of the ellipsoid fit, slabs of
+    2048 blocks (the last one padded), orphan caps that hold every orphan."""
+    dec, latent = _flagship(dev) if field == "seeded" else _ellipsoid_decoder(dev)
+    ev = mesh.PointEvaluator(dec)
+    ev.A_CHUNK = 2048
+    assert ev.spec.route == "wgmma"
+    _, A, _, abi_dev = ev.refine_active4_device(latent, N, 1.3, 0.1, async_fetch=True)
+    map_dev = ev._block_map(abi_dev, A)
+    h = 2.0 / (N - 1)
+    launches = _routes()["wgmma"]
+    for lo in range(0, A, ev.A_CHUNK):
+        n = min(ev.A_CHUNK, A - lo)
+        vals, flag = ev._dedup_values(latent, abi_dev, map_dev, lo, n, h, 1000)
+        plain = ev._blocks_f16(latent, abi_dev[lo:lo + vals.shape[0]], h)
+        assert int(flag) == 0 and torch.equal(vals[:n], plain[:n]), (N, lo)
+    assert A > 2048 and _routes()["wgmma"] >= launches + 2 * -(-A // ev.A_CHUNK)
+
+
 # K2: the Stage-1 fused loss and gradients. Small decoders of
 # tests/test_torch_fused_train.py and the flagship width. Tolerances of the
 # bf16 kernel against its bf16 plain version (two summation orders, which

@@ -57,13 +57,33 @@ def test_eval_grid_dense_matches_jax(pair):
 
 
 def test_eval_grid_sparse_matches_jax(pair):
+    """Neither package handed an evaluator: float32 block values."""
     jdec, params, tdec, latent = pair
     ref, ref_stats = jax_mesh.eval_grid_sparse(jdec, params, jnp.asarray(latent), 129)
+    out, stats = mesh.eval_grid_sparse(tdec, torch.tensor(latent), 129)
+    assert stats == ref_stats and stats["evaluated"] < stats["total"]
+    np.testing.assert_allclose(out, ref, atol=1e-5)
+
+
+def test_eval_grid_sparse_evaluator_rounds_as_jax(pair):
+    """Both packages handed an evaluator: the block values rounded to
+    float16 (msd_tpu/mesh.py:2284-2285), the corner lattice float32. Within
+    1e-5 of msd_tpu's, except where the two float32 fields (1e-5 apart, the
+    test above) round to neighbouring float16 values: there the port's
+    float32 value sits within 1e-5 of the rounding step between them."""
+    jdec, params, tdec, latent = pair
+    ref, ref_stats = jax_mesh.eval_grid_sparse(jdec, params, jnp.asarray(latent), 129,
+                                               evaluator=jax_mesh.PointEvaluator(jdec, params))
     ev = mesh.PointEvaluator(tdec)
     out, stats = mesh.eval_grid_sparse(tdec, torch.tensor(latent), 129, evaluator=ev)
-    assert stats == ref_stats
-    assert stats["evaluated"] < stats["total"] and ev.n_evaluated == stats["evaluated"]
-    np.testing.assert_allclose(out, ref, atol=1e-5)
+    assert stats == ref_stats and ev.n_evaluated == stats["evaluated"]
+    f32, _ = mesh.eval_grid_sparse(tdec, torch.tensor(latent), 129)
+    refined = out != f32
+    assert refined.any() and np.array_equal(out[refined], f32[refined].astype(np.float16).astype(np.float32))
+    apart = np.abs(out - ref) > 1e-5
+    step = np.spacing(np.abs(out[apart]).astype(np.float16)).astype(np.float32)
+    assert apart.mean() < 0.01 and (np.abs(out[apart] - ref[apart]) <= step).all()
+    np.testing.assert_allclose(f32[apart], (out[apart] + ref[apart]) / 2, atol=1e-5)
 
 
 def test_linear_to_coords_order():

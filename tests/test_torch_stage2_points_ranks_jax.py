@@ -25,6 +25,14 @@ from test_torch_stage2_points import ENCODERS, SNNL_TERMS, STEP_TOL, _np, assert
 from test_torch_stage2_points_ranks import loaded_step_rank
 
 WEIGHTS = (0.004, 0.3, 1e-3, 5e-4)
+# cross_cov (sum over j of cov(mu_target, mu_j)^2, terms that nearly
+# cancel) moves by the batch's split alone: msd_tpu's own 2-device step
+# moves it 4.87e-6 from its one-device step, the port's 2 ranks 4.60e-6
+# from its one process, in opposite directions (PointNetEncoder, measured;
+# ResNet-PointNet's does not move).
+# So the 2-rank step is held to msd_tpu's 2-device step at the one-process
+# limit plus that movement on each side: 1e-5 + 2 * 5e-6 (measured 1.29e-5).
+CROSS_COV_SPLIT = 5e-6
 
 
 @pytest.fixture(scope="module")
@@ -75,6 +83,8 @@ def test_points_step_on_2_ranks_matches_jax_mesh(both, enc):
                 np.testing.assert_allclose(ours["aux"][k], (std0 - stdref) ** 2, rtol=1e-5, err_msg=k)
                 continue
             rtol = tol["snnl"] if k in SNNL_TERMS and tol.get("snnl") else tol["values"]
+            if k == "cross_cov" and enc == "pointnet_encoder":
+                rtol = tol["values"] + 2 * CROSS_COV_SPLIT
             np.testing.assert_allclose(ours["aux"][k], v, rtol=rtol, atol=1e-7, err_msg=k)
         port.vae.load_state_dict(ours["state"])
         port.optimizer.count, port.optimizer.mu, port.optimizer.nu = ours["count"], ours["mu"], ours["nu"]

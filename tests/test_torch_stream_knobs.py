@@ -6,6 +6,7 @@ msd_tpu's stream does."""
 import itertools
 
 import pytest
+import torch
 
 from msd_tpu import stream_knobs as jax_knobs
 from msd_tpu_torch import mesh
@@ -13,9 +14,9 @@ from msd_tpu_torch import stream_knobs
 from msd_tpu_torch.native import load_native
 
 
-def both_facts(cores=1, native=False, simd=False):
-    kw = dict(cores=cores, native_decode=native, simd_decode=simd)
-    return stream_knobs.HostFacts(**kw), jax_knobs.HostFacts(cpu_backend=True, **kw)
+def both_facts(cores=1, native=False, simd=False, cpu=True):
+    kw = dict(cores=cores, cpu_backend=cpu, native_decode=native, simd_decode=simd)
+    return stream_knobs.HostFacts(**kw), jax_knobs.HostFacts(**kw)
 
 
 CODEC_CELLS = list(itertools.product((1, 2, 8), (False, True), (False, True)))
@@ -52,7 +53,7 @@ def test_host_facts_real(monkeypatch):
     delegates to the table."""
     lib = load_native()
     f = stream_knobs.host_facts()
-    assert f.cores >= 1 and f.native_decode
+    assert f.cores >= 1 and f.native_decode and f.cpu_backend == (not torch.cuda.is_available())
     assert f.simd_decode == bool(lib.msd_codec_simd())
     monkeypatch.delenv("MSD_VALUE_CODEC", raising=False)
     monkeypatch.setattr(stream_knobs, "host_facts", lambda: both_facts(cores=1)[0])
