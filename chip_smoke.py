@@ -218,14 +218,30 @@ non-zero and prints no result. Phases, one JSON line each:
    SdfSamples each). ``reconstruct_batch(group=)`` at the CLI's 800 x 8000
    (2 shapes per rank): each rank's latents bit for bit one process's fit
    of its 2 shapes, all 4 within 1e-5 of one process's fit of 4; seconds
-   per shape on the ranks and in one process. ``create_mesh`` at N=257
-   through ``PointEvaluator(group=)`` (K1 counted from 0 on each rank):
-   the corner and block SDF values bit for bit one process's, the same
-   mesh, K1 launched on every rank. The reconstruct CLI's ``--batch 4``
-   through ``main(argv, group=)``: the codes and meshes of a one-process
-   run, written by the main rank alone. ``knn_sign_vote`` over devices
-   ["cuda", "cuda"] on one of the preprocess phase's meshes at its
-   defaults: the bytes of the one-device vote; both timed.
+   per shape on the ranks and in one process. Through
+   ``PointEvaluator(group=)`` (K1 counted from 0 on each rank): the sparse
+   evaluation at N=257, its corner and block SDF values bit for bit one
+   process's and K1 launched on every rank; then ``create_mesh``, which
+   streams over the group (the main rank refines, streams and meshes, the
+   others join the host route's lattice), at N=257, at N=513 (corner dedup
+   by default) and at N=257 with the host route forced: every rank's mesh
+   bit for bit the one-process stream's with the same codec, the main
+   rank's stream statistics one process's, the other ranks' K1 launches
+   on the host route only; per rank the seconds, K1 launches, points,
+   route and broadcast bytes, beside the one-process call's seconds. The
+   reconstruct CLI's ``--batch 4`` through ``main(argv, group=)``: the
+   codes and meshes of a one-process run, written by the main rank alone.
+   ``knn_sign_vote`` over devices ["cuda", "cuda"] on one of the
+   preprocess phase's meshes at its defaults: the bytes of the one-device
+   vote; both timed.
+18. tooling: ``python -m msd_tpu_torch.generate_training_meshes`` (in
+   process) on an experiment of the serving decoder and the 4 latents the
+   ranks fitted, two instances with NormalizationParameters: K1 launched,
+   every mesh bit for bit ``create_mesh`` of its latent called directly,
+   then taken to the instance's frame; the workspace loaders' round trip;
+   ``check_experiment_inputs`` on the Stage-2 phase's experiment with no
+   input missing; Hausdorff and EMD of a mesh the serving_ranks CLI
+   reconstructed against its ellipsoid.
 
 Each phase's line carries the wall seconds since the previous line
 (``since_last_s``). Then the ``kernels`` line, the
@@ -1438,6 +1454,9 @@ def stage2(root, seed, device="cuda", changes=None):
     changed = {
         "DataSource": source, "TrainSplit": split_path, "TestSplit": split_path,
         "PretrainedLatentPath": os.path.join(stage1_exp, ws.latent_codes_subdir, "latest.pth"),
+        # the test split is the training split, so its latents are Stage 1's
+        # (read only at EvalTestFrequency, 100 epochs: never in this run)
+        "TestLatentPath": os.path.join(stage1_exp, ws.latent_codes_subdir, "latest.pth"),
         "PretrainedSDFDecoderPath": os.path.join(stage1_exp, ws.model_params_subdir, "latest.pth"),
         "NumEpochs": 40, "SnapshotFrequency": 20, "EvalTrainFrequency": 40,
         "EvalGTMeshDir": os.path.join(data_dir, "SurfaceSamples", "smoke", "ellipsoid"), "EvalGTMeshExt": ".ply",
@@ -2604,8 +2623,7 @@ MESHER_TOL = {"verts": 1e-5}
 
 def float32_mesh(latent, N, ev, filename=None):
     """``create_mesh``'s non-streaming route (the route of an evaluator off
-    the card or over a group): ``mesh._create_mesh_sparse``, then the PLY
-    write."""
+    the card): ``mesh._create_mesh_sparse``, then the PLY write."""
     from msd_tpu_torch import mesh
     from msd_tpu_torch.data.mesh_io import save_ply
 
@@ -3114,13 +3132,70 @@ def serving_ranks_fit(decoder, specs, shapes, iters, **kw):
                              l2reg=True, **kw)
 
 
+# the streamed create_mesh calls over the ranks and in one process: (name,
+# N, the host refinement route forced by a device cap of 2 blocks); the
+# statistics the main rank must share with one process, and its times
+STREAM_RANK_CALLS = (("n257", 257, False), ("n513", 513, False), ("n257_host", 257, True))
+STREAM_RANK_COUNTS = ("refine", "value_codec", "active_blocks", "crossing_blocks", "evaluated", "exact_slabs", "dedup",
+                      "dedup_slabs", "dedup_retries", "num_verts", "num_faces")
+STREAM_RANK_TIMES = ("t_refine", "t_crossing", "t_mesher", "t_stream")
+
+
+def streamed_calls(ev, latent):
+    """``create_mesh`` of ``latent`` through ``ev`` (over its group, if it has
+    one, or in one process) for each of ``STREAM_RANK_CALLS``, after
+    ``warm_stream`` on the main rank: per call the seconds, K1 launches and
+    points of this process, its route and broadcast bytes, the mesh's
+    sizes and a digest of its bytes, and the main rank's stream statistics."""
+    from msd_tpu_torch import mesh
+
+    # on the card create_mesh streams by default; a CPU rehearsal is made to
+    streams, mesh._streams = mesh._streams, lambda evaluator: True
+    try:
+        return {name: _streamed_call(ev, latent, N, host) for name, N, host in STREAM_RANK_CALLS}
+    finally:
+        mesh._streams = streams
+
+
+def _streamed_call(ev, latent, N, host):
+    import hashlib
+
+    from msd_tpu_torch import mesh
+    from msd_tpu_torch.ops import fused_mlp
+
+    main = ev.group is None or ev.group.is_main
+    if main:
+        ev.warm_stream(N)
+    if ev.group is not None:
+        ev.group.any_true(False)  # every rank starts its clock after the main rank's warm-up
+    refine = ev.refine_active4_device
+    if host:
+        ev.refine_active4_device = lambda *a, **kw: refine(*a, **kw, cap4=2)
+    launches, points = fused_mlp.LAUNCHES, ev.n_evaluated
+    _sync(ev.device)
+    t0 = time.perf_counter()
+    try:
+        verts, faces = mesh.create_mesh(ev.decoder, latent, None, N=N, return_mesh=True, evaluator=ev)
+    finally:
+        ev.refine_active4_device = refine
+    _sync(ev.device)
+    stats = dict(mesh.LAST_STREAMING_STATS)
+    return {"seconds": time.perf_counter() - t0, "k1_launches": fused_mlp.LAUNCHES - launches,
+            "points": ev.n_evaluated - points, "route": stats.get("refine"),
+            "broadcast_bytes": stats.get("broadcast_bytes", 0), "verts": int(verts.shape[0]),
+            "faces": int(faces.shape[0]), "digest": hashlib.sha256(verts.tobytes() + faces.tobytes()).hexdigest(),
+            "stats": {k: stats.get(k) for k in STREAM_RANK_COUNTS} if main else None,
+            "times": {k: stats.get(k) for k in STREAM_RANK_TIMES} if main else None}
+
+
 def serving_ranks_rank(group, specs, state, paths, iters, N, argv, shuffle_seed):
     """A rank of the serving_ranks phase (spawned by ``serving_ranks``):
     ``reconstruct_batch(group=)`` of the shapes at ``paths``, the sparse
-    evaluation and ``create_mesh`` of the first latent through
-    ``PointEvaluator(group=)`` (K1 counted from 0 just before, read just
-    after), then the reconstruct CLI's ``main(argv, group=)``. Returns numpy
-    results, seconds and K1 launches."""
+    evaluation of the first latent through ``PointEvaluator(group=)`` and
+    the streamed ``create_mesh`` calls (``streamed_calls``; K1 counted
+    from 0 just before the evaluation, read just after the calls), then the
+    reconstruct CLI's ``main(argv, group=)``. Returns numpy results,
+    seconds and K1 launches."""
     import random
 
     import torch
@@ -3148,18 +3223,19 @@ def serving_ranks_rank(group, specs, state, paths, iters, N, argv, shuffle_seed)
     ev = mesh.PointEvaluator(decoder, group=group)
     t0 = time.perf_counter()
     corner, abi, block_vals, stats = mesh._sparse_blocks(latent, N, mesh._pick_block(N, 0.1, 1.3), 1.3, ev)
-    verts, faces = mesh.create_mesh(decoder, latent, None, N=N, return_mesh=True, evaluator=ev)
     _sync(dev)
-    t_mesh = time.perf_counter() - t0
+    t_sparse = time.perf_counter() - t0
+    sparse_launches, sparse_points = fused_mlp.LAUNCHES, ev.n_evaluated
+    streamed = streamed_calls(ev, latent)
     launches, evaluated = fused_mlp.LAUNCHES, ev.n_evaluated
     random.seed(shuffle_seed + group.rank)  # the main rank's order is every rank's
     t0 = time.perf_counter()
     summary = reconstruct_cli.main(argv, group=group)
     t_cli = time.perf_counter() - t0
     return {"losses": losses, "latents": latents.cpu().numpy(), "part": group.row_slice(len(paths)),
-            "fit_seconds": t_fit, "corner": corner, "abi": abi, "block_vals": block_vals, "verts": verts,
-            "faces": faces, "mesh_seconds": t_mesh, "k1_launches": launches, "points_evaluated": evaluated,
-            "cli_summary": summary, "cli_seconds": t_cli}
+            "fit_seconds": t_fit, "corner": corner, "abi": abi, "block_vals": block_vals, "sparse_seconds": t_sparse,
+            "sparse_k1_launches": sparse_launches, "sparse_points": sparse_points, "streamed": streamed,
+            "k1_launches": launches, "points_evaluated": evaluated, "cli_summary": summary, "cli_seconds": t_cli}
 
 
 def serving_ranks(root, specs, decoder, seed, vote_mesh, device="cuda", iters=800):
@@ -3241,33 +3317,54 @@ def serving_ranks(root, specs, decoder, seed, vote_mesh, device="cuda", iters=80
                                  f"{float(np.abs(r['latents'][part] - own.cpu().numpy()).max())}")
         fit["rank_slices_bit_equal"].append([part.start, part.stop])
 
-    # one process meshing the same latent
+    # one process evaluating and meshing the same latent
     latent = torch.as_tensor(out[0]["latents"][0], device=dev)
     launches0 = fused_mlp.LAUNCHES
     ev = mesh.PointEvaluator(decoder)
     _sync(dev)
     t0 = time.perf_counter()
     corner, abi, block_vals, _ = mesh._sparse_blocks(latent, N, mesh._pick_block(N, 0.1, 1.3), 1.3, ev)
-    # the ranks' route: create_mesh does not stream over a group
-    verts, faces = float32_mesh(latent, N, ev)
     _sync(dev)
-    t_mesh_one = time.perf_counter() - t0
-    meshing = {"N": N, "active_blocks": int(abi.shape[0]), "points_evaluated_one": ev.n_evaluated,
-               "k1_launches_one": fused_mlp.LAUNCHES - launches0, "verts": int(verts.shape[0]),
-               "faces": int(faces.shape[0]), "mesh_seconds_one": t_mesh_one}
+    meshing = {"N": N, "active_blocks": int(abi.shape[0]), "sparse_seconds_one": time.perf_counter() - t0,
+               "sparse_points_one": ev.n_evaluated, "sparse_k1_launches_one": fused_mlp.LAUNCHES - launches0}
+    one = streamed_calls(ev, latent)
     # K1 computes every point alone, so a rank's points get one process's
     # bits; on the CPU (a rehearsal) BLAS may block rows otherwise: 1e-6
     same = np.array_equal if device == "cuda" else functools.partial(np.allclose, rtol=0, atol=1e-6)
     for r in out:
         if not (same(r["corner"], corner) and np.array_equal(r["abi"], abi) and same(r["block_vals"], block_vals)):
             raise AssertionError(f"serving_ranks: rank SDF values differ from one process's (rank of {r['part']})")
-        if r["faces"].shape != faces.shape or r["verts"].shape != verts.shape or np.abs(r["verts"] - verts).max() > 1e-6:
-            raise AssertionError(f"serving_ranks: rank mesh {r['faces'].shape} against {faces.shape}")
-        if device == "cuda" and r["k1_launches"] <= 0:
-            raise AssertionError(f"serving_ranks: no K1 launch on a rank: {[o['k1_launches'] for o in out]}")
+        if device == "cuda" and r["sparse_k1_launches"] <= 0:
+            raise AssertionError(f"serving_ranks: no K1 launch on a rank: {[o['sparse_k1_launches'] for o in out]}")
+    # every rank's streamed mesh is the one-process stream's, bit for bit;
+    # the main rank streamed it with one process's statistics; the other
+    # ranks did device work only on the host route (their lattice share)
+    streamed = {}
+    for name, _, host in STREAM_RANK_CALLS:
+        calls = [r["streamed"][name] for r in out]
+        ref = one[name]
+        if ref["route"] != ("host" if host else "device") or any(c["route"] != ref["route"] for c in calls):
+            raise AssertionError(f"serving_ranks: {name} routes {[c['route'] for c in calls]}, one process "
+                                 f"{ref['route']}")
+        if any(c["digest"] != ref["digest"] for c in calls) or calls[0]["stats"] != ref["stats"]:
+            raise AssertionError(f"serving_ranks: {name} streamed meshes differ from one process's: "
+                                 f"{[(c['verts'], c['faces'], c['stats']) for c in calls]} against "
+                                 f"{(ref['verts'], ref['faces'], ref['stats'])}")
+        if device == "cuda" and (calls[0]["k1_launches"] <= 0
+                                 or any((c["k1_launches"] > 0) != host for c in calls[1:])):
+            raise AssertionError(f"serving_ranks: {name} K1 launches per rank {[c['k1_launches'] for c in calls]}")
+        if sum(c["points"] for c in calls) != ref["points"]:
+            raise AssertionError(f"serving_ranks: {name} points per rank {[c['points'] for c in calls]} against "
+                                 f"{ref['points']} in one process")
+        streamed[name] = {"per_rank": [{k: c[k] for k in ("seconds", "k1_launches", "points", "route",
+                                                           "broadcast_bytes")} for c in calls],
+                          "one_process": {k: ref[k] for k in ("seconds", "k1_launches", "points", "times")},
+                          "main_rank_times": calls[0]["times"],
+                          "verts": ref["verts"], "faces": ref["faces"], "bit_equal": True, "stats": ref["stats"]}
     meshing.update(k1_launches_per_rank=[r["k1_launches"] for r in out],
                    points_evaluated_per_rank=[r["points_evaluated"] for r in out],
-                   mesh_seconds_per_rank=[r["mesh_seconds"] for r in out], sdf_values_bit_equal=device == "cuda")
+                   sparse_seconds_per_rank=[r["sparse_seconds"] for r in out], sdf_values_bit_equal=device == "cuda",
+                   streamed=streamed)
 
     # the CLI: one process, the same shuffle as the main rank's
     random.seed(seed)
@@ -3323,7 +3420,124 @@ def serving_ranks(root, specs, decoder, seed, vote_mesh, device="cuda", iters=80
         "ranks_seconds": t_ranks, "seconds": time.time() - t_start,
         "note": "several ranks share one card: a correctness drive of serving over ranks, not a scaling figure; "
                 "NCCL (one card per rank) not measured"}
-    return summary, [r["k1_launches"] for r in out]
+    return summary, [r["k1_launches"] for r in out], out[0]["latents"]
+
+
+def input_report(exp):
+    """``check_experiment_inputs`` on ``exp`` (in process): its report lines,
+    and those that say an input is missing or not found (a count of
+    missing ids above 0, a missing path or file)."""
+    import io
+    import re
+
+    from msd_tpu_torch import check_experiment_inputs
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check_experiment_inputs.main(["-e", exp])
+    lines = buf.getvalue().splitlines()
+    bad = [ln for ln in lines
+           if "not found" in ln or re.search(r"\bmissing\b(?!=)", ln) or re.search(r"missing(_npz|_labels)?=[1-9]", ln)]
+    return lines, bad
+
+
+# the tooling phase's NormalizationParameters: (offset, scale) of the first
+# two instances; the others are meshed in the decoder's frame
+TOOLING_NORMALIZATION = (((0.1, -0.05, 0.2), 0.8), ((-0.2, 0.1, 0.0), 1.25))
+
+
+def tooling(root, specs, decoder, latents, stage2_inputs, device="cuda"):
+    """The tooling phase, after serving_ranks and on its data: an experiment
+    holding the serving decoder and the 4 latents the ranks fitted, the
+    first two instances with NormalizationParameters, meshed by
+    ``python -m msd_tpu_torch.generate_training_meshes`` (in process, K1
+    counted from 0 just before and read just after; N=257): every mesh bit
+    for bit ``create_mesh`` of its latent called directly, then taken to
+    the instance's frame. The workspace loaders' round trip on that
+    experiment; ``check_experiment_inputs``'s report of the Stage-2 phase's
+    experiment (``stage2_inputs``, made while it existed) with nothing
+    missing; Hausdorff (``compute_metric``) and EMD (2048 seeded surface
+    points a side) of a mesh the serving_ranks CLI reconstructed against
+    its ellipsoid. Returns the phase summary."""
+    import torch
+
+    import msd_tpu_torch.workspace as ws
+    from msd_tpu_torch import generate_training_meshes, mesh
+    from msd_tpu_torch.data.mesh_io import load_mesh, load_ply
+    from msd_tpu_torch.metrics import compute_emd, compute_metric
+    from msd_tpu_torch.ops import fused_mlp
+    from msd_tpu_torch.ops.sampling import sample_mesh_surface
+    from msd_tpu_torch.utils.checkpoint import save_latent_vectors, save_model
+
+    t_start = time.time()
+    data = os.path.join(root, "serve_ranks_data")
+    source = os.path.join(data, "SdfSamples")
+    split_path = os.path.join(root, "serve_ranks_split.json")
+    with open(split_path) as f:
+        names = json.load(f)["smoke"]["ellipsoid"]
+    exp = os.path.join(root, "tooling_experiment")
+    ws.save_experiment_specifications(exp, dict(specs, DataSource=source, TrainSplit=split_path))
+    save_model(exp, "latest.pth", decoder, 1)
+    save_latent_vectors(exp, "latest.pth", torch.from_numpy(np.asarray(latents)), 1)
+    norms = dict(zip(names, TOOLING_NORMALIZATION))
+    for name, (offset, scale) in norms.items():
+        path = ws.get_normalization_params_filename(source, "smoke", "ellipsoid", name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez(path, offset=np.asarray(offset), scale=scale)
+
+    fused_mlp.LAUNCHES = 0
+    t0 = time.time()
+    written = generate_training_meshes.main(["-e", exp, "--device", device, "--quiet"])
+    t_generate = time.time() - t0
+    launches = fused_mlp.LAUNCHES
+    if device == "cuda" and launches <= 0:
+        raise AssertionError("tooling: generate_training_meshes launched no K1")
+    if [w["instance"] for w in written] != names or [w["normalized_back"] for w in written] != [n in norms for n in names]:
+        raise AssertionError(f"tooling: generate_training_meshes wrote {written}")
+    ev = mesh.PointEvaluator(decoder)
+    for w, latent in zip(written, latents):
+        v, f = load_ply(w["path"])
+        dv, df = mesh.create_mesh(decoder, torch.as_tensor(latent, device=ev.device), None, N=257, return_mesh=True,
+                                  evaluator=ev)
+        if w["instance"] in norms:
+            offset, scale = norms[w["instance"]]
+            dv = (dv.astype(np.float64) / scale - np.asarray(offset)).astype(np.float32)
+        if not (np.array_equal(v, dv) and np.array_equal(f, df)):
+            raise AssertionError(f"tooling: {w['path']} is not create_mesh's mesh: {v.shape} {f.shape} against "
+                                 f"{dv.shape} {df.shape}")
+        w["verts"], w["faces"] = int(v.shape[0]), int(f.shape[0])
+
+    dec, epoch = ws.load_decoder(exp, "latest")
+    state = decoder.state_dict()
+    if epoch != 1 or any(not torch.equal(t, state[k].cpu()) for k, t in dec.state_dict().items()):
+        raise AssertionError("tooling: load_decoder did not give the saved decoder back")
+    if not np.array_equal(ws.load_latent_vectors(exp, "latest"), np.asarray(latents)):
+        raise AssertionError("tooling: load_latent_vectors did not give the saved latents back")
+
+    lines, bad = stage2_inputs
+    if bad or not lines:
+        raise AssertionError(f"tooling: check_experiment_inputs on the Stage-2 experiment: {bad or 'no report'}")
+
+    served = os.path.join(root, "serve_ranks_one", "Reconstructions", "1", "Meshes", names[0] + ".ply")
+    gt = os.path.join(data, "Meshes", names[0] + ".obj")
+    t0 = time.time()
+    hausdorff = compute_metric(gt, served, metric="hausdorff")
+    t_hausdorff = time.time() - t0
+    (gv, gf), (sv, sf) = load_mesh(gt), load_mesh(served)
+    a = sample_mesh_surface(gv, gf, 2048, np.random.default_rng(0))[0]
+    b = sample_mesh_surface(sv, sf, 2048, np.random.default_rng(1))[0]
+    t0 = time.time()
+    emd = compute_emd(a, b)
+    t_emd = time.time() - t0
+    if not (math.isfinite(hausdorff) and math.isfinite(emd) and hausdorff > 0 and emd > 0):
+        raise AssertionError(f"tooling: Hausdorff {hausdorff}, EMD {emd}")
+    return {"generate_training_meshes": {"seconds": t_generate, "k1_launches": launches, "meshes": written,
+                                         "bit_equal_to_create_mesh": True},
+            "loaders_round_trip": True, "check_experiment_inputs": {"lines": len(lines), "missing": 0},
+            "metrics": {"mesh": os.path.basename(served), "hausdorff": hausdorff, "hausdorff_seconds": t_hausdorff,
+                        "emd_2048": emd, "emd_seconds": t_emd},
+            "seconds": time.time() - t_start,
+            "note": "seeded weights, not trained: Hausdorff and EMD are no quality figures"}
 
 
 def main(argv=None):
@@ -3404,6 +3618,7 @@ def main(argv=None):
         phase("stage2", **stage2_summary)
         points_summary, k2d_points, k1_points = stage2_points(root, args.seed)
         phase("stage2_points", **points_summary)
+        stage2_inputs = input_report(os.path.join(root, "stage2_experiment"))
         points_ranks_summary, k2d_points_ranks = stage2_points_ranks(root, args.seed)
         phase("stage2_points_ranks", **points_ranks_summary)
         k2ce = check_k2ce(decoder, args.seed, dev)
@@ -3420,9 +3635,10 @@ def main(argv=None):
         for r in prep_records:
             phase("preprocess_mesh", **r)
         phase("preprocess", **prep_summary)
-        ranks_summary, k1_ranks = serving_ranks(root, specs, decoder, args.seed,
-                                                os.path.join(root, "meshes", prep_summary["meshes"][0] + ".obj"))
+        ranks_summary, k1_ranks, rank_latents = serving_ranks(
+            root, specs, decoder, args.seed, os.path.join(root, "meshes", prep_summary["meshes"][0] + ".obj"))
         phase("serving_ranks", **ranks_summary)
+        phase("tooling", **tooling(root, specs, decoder, rank_latents, stage2_inputs))
 
     bf16 = k1["bfloat16"]
 

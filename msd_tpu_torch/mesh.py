@@ -24,7 +24,9 @@ Counterpart of ``msd_tpu/mesh.py`` (ref: deep_sdf/mesh.py:21-165):
   sets of 16384 blocks or more, so at N=513) a slab evaluates each block's
   64 low corners and only the face corners its neighbours in the slab do
   not hold (``_slab_dedup``), which gives the plain slab's values bit for
-  bit. Not ported yet: streaming over a ``group``. Not ported at all:
+  bit. Over a group the main rank streams on its own card and the other
+  ranks join only the host refinement's lattice (``create_mesh``). Not
+  ported:
   ``msd_tpu``'s optimistic single-level refinement (``refine1_optimistic``,
   ``MSD_STREAM_OPT``), which was slower on the card than the device route
   (PERF.md), and its hybrid two-level dispatch
@@ -264,11 +266,15 @@ class PointEvaluator:
     ``mesh=``): ``eval_points`` splits the points into one contiguous slice
     per rank (``group.row_slice``), each rank evaluates its slice (K1 on
     the card, the plain version on the CPU) and every rank gathers every
-    value, so ``eval_blocks`` and ``eval_grid_dense`` / ``eval_grid_sparse``
-    / ``create_mesh`` handed this evaluator run over the group. Every rank
-    must call them in lockstep, with the same latent and points.
-    ``create_mesh`` writes its ``.ply`` on the main rank only, and does not
-    stream over a group.
+    value, as ``msd_tpu``'s ``mesh=`` shards ``eval_points`` alone. Every
+    rank must call ``eval_points`` (so ``eval_grid_dense``,
+    ``eval_grid_sparse`` and ``create_mesh`` handed this evaluator) in
+    lockstep, with the same latent and points. The block, slab and
+    refinement programs (``eval_blocks``, ``crossing_blocks``,
+    ``subblock_active``, the streaming methods) run on the calling rank
+    alone (``_eval_local``). ``create_mesh`` streams over a group on the
+    card, with the main rank streaming, and writes its ``.ply`` on the main
+    rank only.
 
     The streaming methods (``refine_active4_device``,
     ``stream_crossing_values``) keep ``msd_tpu``'s names and caps. Past the
@@ -312,11 +318,30 @@ class PointEvaluator:
 
     @torch.no_grad()
     def eval_points(self, latent, pts) -> torch.Tensor:
-        """pts [n, 3] (array or tensor) -> sdf [n] float32 on the device."""
+        """pts [n, 3] (array or tensor) -> sdf [n] float32 on the device.
+        Under a group each rank evaluates its slice (``_eval_local``) and
+        every rank gathers every value; a rank whose slice raised makes
+        every rank raise before the gather (``DataParallelGroup.any_true``)."""
+        if self.group is None:
+            return self._eval_local(latent, pts)
+        pts = torch.as_tensor(pts, dtype=torch.float32, device=self.device).reshape(-1, 3)
+        vals = err = None
+        try:
+            vals = self._eval_local(latent, pts[self.group.row_slice(pts.shape[0])])
+        except Exception as e:  # raised below, on every rank
+            err = e
+        if self.group.any_true(err is not None):
+            raise err or RuntimeError("eval_points: another rank of the group failed")
+        return self.group.all_gather_rows(vals)
+
+    @torch.no_grad()
+    def _eval_local(self, latent, pts) -> torch.Tensor:
+        """``eval_points`` on this process alone, with no group's slice and
+        gather (``msd_tpu``'s ``_eval_t``): the block, slab, dedup and
+        refinement programs call it, so under a group they run on the
+        calling rank, as ``msd_tpu``'s run on one device."""
         pts = torch.as_tensor(pts, dtype=torch.float32, device=self.device).reshape(-1, 3)
         latent = torch.as_tensor(latent, dtype=torch.float32, device=self.device).reshape(-1)
-        if self.group is not None:
-            pts = pts[self.group.row_slice(pts.shape[0])]
         kernel = self.spec is not None and self.device.type == "cuda"
         chunk = KERNEL_CHUNK if kernel else self.max_batch
         outs = []
@@ -330,8 +355,7 @@ class PointEvaluator:
             else:
                 outs.append(decode_sdf(self.decoder, latent, part)[:n, 0])
         self.n_evaluated += pts.shape[0]
-        vals = torch.cat(outs) if outs else pts.new_zeros(0)
-        return vals if self.group is None else self.group.all_gather_rows(vals)
+        return torch.cat(outs) if outs else pts.new_zeros(0)
 
     def _block_points(self, abi: torch.Tensor, h: float, scale: int = 1, b: int = SPARSE_BLOCK) -> torch.Tensor:
         """[A * (b+1)^3, 3] coordinates of the stride-``scale`` lattices of
@@ -342,7 +366,7 @@ class PointEvaluator:
     def _blocks_f16(self, latent, abi: torch.Tensor, h: float, scale: int = 1) -> torch.Tensor:
         """[A, 125] values of blocks ``abi`` rounded to float16, as
         ``msd_tpu``'s block programs return them."""
-        vals = self.eval_points(latent, self._block_points(abi, h, scale))
+        vals = self._eval_local(latent, self._block_points(abi, h, scale))
         return vals.reshape(abi.shape[0], (SPARSE_BLOCK + 1) ** 3).half()
 
     def _abi_tensor(self, abi) -> torch.Tensor:
@@ -353,7 +377,7 @@ class PointEvaluator:
         (block indices ``abi`` [A, 3]), rounded to float16 as ``msd_tpu``'s
         ``eval_blocks`` rounds them (msd_tpu/mesh.py:1768). Returns
         [A, b+1, b+1, b+1] float32."""
-        vals = self.eval_points(latent, self._block_points(self._abi_tensor(abi), 2.0 / (N - 1), scale, b))
+        vals = self._eval_local(latent, self._block_points(self._abi_tensor(abi), 2.0 / (N - 1), scale, b))
         return vals.half().float().reshape(-1, b + 1, b + 1, b + 1).cpu().numpy()
 
     def crossing_blocks(self, latent, abi: np.ndarray, N: int) -> np.ndarray:
@@ -557,7 +581,7 @@ class PointEvaluator:
         parts = [(abi_slab * b)[:, None, :] + t["low_offs"][None]]
         for sh, orows, offs in zip(t["shifts"], orphans, t["own_offs"]):
             parts.append(((abi_slab[orows] + sh[None, :]) * b)[:, None, :] + offs[None])
-        vals_flat = self.eval_points(latent, _lattice_points(torch.cat([p.reshape(-1, 3) for p in parts]), h))
+        vals_flat = self._eval_local(latent, _lattice_points(torch.cat([p.reshape(-1, 3) for p in parts]), h))
         low_n = n_pad * b**3
         low = vals_flat[:low_n].reshape(n_pad, b**3)
         low_ext = torch.cat([low, low.new_zeros(1, b**3)])
@@ -638,7 +662,7 @@ class PointEvaluator:
         into [cap4, 3] int32 in row order. Returns (count [1] int64, abi4)."""
         n1 = nb4 + 1
         lat = _grid(n1, self.device).float() * float(SPARSE_BLOCK) * h - 1.0
-        v = self.eval_points(latent, lat).reshape(n1, n1, n1)
+        v = self._eval_local(latent, lat).reshape(n1, n1, n1)
         count, dest = _compact_dest(_corner_active(v, diag4).reshape(-1), cap4)
         return count.reshape(1), _scatter_rows(_grid(nb4, self.device), dest, cap4)
 
@@ -651,7 +675,7 @@ class PointEvaluator:
         b = SPARSE_BLOCK
         n1 = nb16 + 1
         lat = _grid(n1, self.device).float() * (4.0 * b) * h - 1.0
-        v16 = self.eval_points(latent, lat).reshape(n1, n1, n1)
+        v16 = self._eval_local(latent, lat).reshape(n1, n1, n1)
         count16, dest16 = _compact_dest(_corner_active(v16, diag16).reshape(-1), cap16)
         abi16 = _scatter_rows(_grid(nb16, self.device), dest16, cap16)
         v4 = self._blocks_f16(latent, abi16, h, scale=b).float().reshape(cap16, b + 1, b + 1, b + 1)
@@ -945,19 +969,30 @@ def _active_from_lattice(lattice: np.ndarray, diag: float) -> np.ndarray:
     return (cmin < diag) | (sign_any & ~sign_all)
 
 
+def _host_lattice(N, safety, clamp_dist):
+    """(corner lattice points, two_level): the one ``eval_points`` call of
+    ``_sparse_active4``, stride 16 where two levels apply, else stride 4.
+    Under a group every rank joins that call (``_follow_stream``)."""
+    b = SPARSE_BLOCK
+    h = 2.0 / (N - 1)
+    nb4 = (N - 1) // b
+    two_level = (N - 1) % (4 * b) == 0 and (4 * b) * h * math.sqrt(3.0) / 2.0 * safety < clamp_dist and nb4 % 4 == 0
+    return corner_lattice(N, 4 * b if two_level else b), two_level
+
+
 def _sparse_active4(latent, N, evaluator: PointEvaluator, safety, clamp_dist):
     """Active stride-4 block indices by hierarchical refinement on the host
     (msd_tpu/mesh.py:2204): a stride-16 prefilter where the resolution
     allows it, with the sub-block criterion on the device
-    (``subblock_active``). Returns (abi4 [A, 3] int64, evaluated)."""
+    (``subblock_active``, on the calling rank alone under a group). Returns
+    (abi4 [A, 3] int64, evaluated)."""
     b = SPARSE_BLOCK
     h = 2.0 / (N - 1)
     s3 = math.sqrt(3.0) / 2.0
     nb4 = (N - 1) // b
-    two_level = (N - 1) % (4 * b) == 0 and (4 * b) * h * s3 * safety < clamp_dist and nb4 % 4 == 0
+    pts, two_level = _host_lattice(N, safety, clamp_dist)
     if two_level:
         nb16 = nb4 // 4
-        pts = corner_lattice(N, 4 * b)
         lat16 = evaluator.eval_points(latent, pts).cpu().numpy().reshape(nb16 + 1, nb16 + 1, nb16 + 1)
         evaluated = pts.shape[0]
         abi16 = np.stack(np.nonzero(_active_from_lattice(lat16, (4 * b) * h * s3 * safety)), axis=1).astype(np.int32)
@@ -967,7 +1002,6 @@ def _sparse_active4(latent, N, evaluator: PointEvaluator, safety, clamp_dist):
         evaluated += abi16.shape[0] * (b + 1) ** 3
         aa, ai, aj, ak = np.nonzero(sub_active)
         return abi16[aa].astype(np.int64) * 4 + np.stack([ai, aj, ak], axis=1), evaluated
-    pts = corner_lattice(N, b)
     lattice = evaluator.eval_points(latent, pts).cpu().numpy().reshape(nb4 + 1, nb4 + 1, nb4 + 1)
     active = _active_from_lattice(lattice, b * h * s3 * safety)
     return np.stack(np.nonzero(active), axis=1).astype(np.int64), pts.shape[0]
@@ -1102,7 +1136,12 @@ def _create_mesh_streaming_impl(latent, N, evaluator: PointEvaluator, safety, cl
     (``mt_add_blocks``; ctypes releases the interpreter lock) while the
     card works. With ``ply_path`` the mesher spills the PLY payload as it
     meshes (``mt_ply_stream_*``). Returns (verts, faces, ply_written);
-    verts and faces are None when not ``want_mesh``."""
+    verts and faces are None when not ``want_mesh``.
+
+    Under a group this runs on the main rank (``create_mesh``): after its
+    refinement on its own card it broadcasts the route, device or host, and
+    on the host route every rank joins ``_sparse_active4``'s lattice call
+    (``_follow_stream``); everything else runs here alone."""
     lib = load_native()
     latent = torch.as_tensor(latent, dtype=torch.float32, device=evaluator.device).reshape(-1)
     LAST_STREAMING_STATS.clear()
@@ -1110,6 +1149,8 @@ def _create_mesh_streaming_impl(latent, N, evaluator: PointEvaluator, safety, cl
     abi4 = abi4_dev = abi4_resolver = None
     refined = evaluator.refine_active4_device(latent, N, safety, clamp_dist, async_fetch=True)
     refine = "device" if refined is not None else "host"
+    if evaluator.group is not None:
+        LAST_STREAMING_STATS["broadcast_bytes"] = evaluator.group.broadcast_pickled(("route", refine))[1]
     if refined is not None:
         abi4_resolver, A4, evaluated, abi4_dev = refined
     else:
@@ -1236,10 +1277,9 @@ def _create_mesh_sparse(latent, N: int, b: int, safety: float, evaluator: PointE
     materialising the N^3 grid. Returns (verts, faces); raises
     ``ValueError`` on an empty surface.
 
-    Float32 for both of its callers: a CPU evaluator stands where a CPU
-    ``msd_tpu`` builds no evaluator and meshes float32 values
-    (msd_tpu/mesh.py:2376-2377); over a group ``msd_tpu`` streams float16
-    rows, which the port does not do yet (ROADMAP A.2)."""
+    Float32, as a CPU ``msd_tpu`` meshes: it builds no evaluator there
+    (msd_tpu/mesh.py:2376-2377), and a CPU evaluator of the port stands in
+    its place (``_streams``)."""
     _, abi, block_vals, stats = _sparse_blocks(latent, N, b, safety, evaluator)
     logging.debug("[create_mesh] sparse eval stats: %s", stats)
     h = 2.0 / (N - 1)
@@ -1247,11 +1287,61 @@ def _create_mesh_sparse(latent, N: int, b: int, safety: float, evaluator: PointE
 
 
 def _streams(evaluator: PointEvaluator) -> bool:
-    """Whether ``create_mesh`` streams through ``evaluator``: on the card and
-    without a group. (``msd_tpu`` streams whenever it is handed an
+    """Whether ``create_mesh`` streams through ``evaluator``: on the card,
+    with or without a group. (``msd_tpu`` streams whenever it is handed an
     evaluator; here a CPU evaluator, such as the reconstruct CLI's with
     --device cpu, keeps the float32 sparse route.)"""
-    return evaluator.group is None and evaluator.device.type == "cuda"
+    return evaluator.device.type == "cuda"
+
+
+def _lead_stream(group, run):
+    """The main rank's side of a streamed ``create_mesh`` over a group:
+    ``run()`` (the whole call, which broadcasts each stream's route), then
+    one broadcast of its outcome, also when it raised: ("ok", what it
+    returns) or ("raise", the exception's type name and message). Every
+    other rank returns or raises it (``_follow_stream``), so none is left
+    waiting in a collective."""
+    try:
+        result = run()
+    except BaseException as e:
+        _broadcast_outcome(group, ("raise", type(e).__name__, str(e)))
+        raise
+    _broadcast_outcome(group, ("ok", result))
+    return result
+
+
+def _broadcast_outcome(group, outcome):
+    nbytes = group.broadcast_pickled(("outcome", outcome))[1]
+    LAST_STREAMING_STATS["broadcast_bytes"] = LAST_STREAMING_STATS.get("broadcast_bytes", 0) + nbytes
+
+
+def _follow_stream(latent, N, evaluator: PointEvaluator, safety, clamp_dist):
+    """A rank other than the main one in a streamed ``create_mesh`` over a
+    group. It takes the main rank's messages in order: for each stream a
+    route, on whose host route it evaluates its share of
+    ``_sparse_active4``'s lattice (the one ``eval_points`` call every rank
+    joins), then the outcome, which it returns, or raises as a
+    ``RuntimeError``. It does no other device work.
+    ``LAST_STREAMING_STATS`` holds the route, this rank's points and the
+    bytes it received."""
+    group = evaluator.group
+    LAST_STREAMING_STATS.clear()
+    start, nbytes, err = evaluator.n_evaluated, 0, None
+    while True:
+        (kind, msg), nb = group.broadcast_pickled(None)
+        nbytes += nb
+        if kind == "outcome":
+            break
+        LAST_STREAMING_STATS["refine"] = msg
+        if msg == "host":
+            try:
+                evaluator.eval_points(latent, _host_lattice(N, safety, clamp_dist)[0])
+            except Exception as e:  # every rank raised in eval_points; the outcome follows
+                err = e
+    LAST_STREAMING_STATS.update(evaluated=evaluator.n_evaluated - start, broadcast_bytes=nbytes)
+    if msg[0] == "raise":
+        raise RuntimeError(f"create_mesh raised on the main rank: {msg[1]}: {msg[2]}") from err
+    return msg[1]
 
 
 def create_mesh(
@@ -1281,66 +1371,85 @@ def create_mesh(
 
     With block refinement (``b > 2``) it streams (``_create_mesh_streaming``),
     as ``msd_tpu`` does with its evaluator on its chip, where ``_streams``
-    says so: the evaluator, given or made here, sits on the card and has no
-    group. ``value_codec`` ("auto", "packed", "int8" or "f16",
-    ``MSD_VALUE_CODEC`` overrides) is the streamed rows' codec. Elsewhere
-    it takes the float32 sparse route, or the dense one."""
+    says so: the evaluator, given or made here, sits on the card.
+    ``value_codec`` ("auto", "packed", "int8" or "f16", ``MSD_VALUE_CODEC``
+    overrides) is the streamed rows' codec. Elsewhere it takes the float32
+    sparse route, or the dense one.
+
+    Over a group (the evaluator's) every rank calls this in lockstep with
+    the same latent and N. Where it streams, the main rank refines, streams,
+    meshes and writes the PLY on its own card, as ``msd_tpu``'s programs
+    other than ``eval_points`` run on one device; one broadcast tells the
+    other ranks the route, and on the host route every rank evaluates its
+    share of the refinement lattice. (Rather than every rank refining
+    again on its own card: a route message costs one small broadcast and
+    leaves the other cards free.) A second broadcast hands every rank the
+    main rank's outcome, which each returns, or raises where the main rank
+    raised (``_lead_stream``, ``_follow_stream``). Unstreamed, every rank
+    runs every ``eval_points`` call and only the main rank writes."""
     start = time.time()
     if evaluator is None:
         evaluator = PointEvaluator(decoder, dtype=eval_dtype, max_batch=max_batch)
     if sparse:
         N = _snap_n(N)
-    voxel_size = 2.0 / (N - 1)
     b = _pick_block(N, clamp_dist, sparse_safety) if sparse else 1
     stream = b > 2 and _streams(evaluator)
-    ply_done = False
-    try:
-        if stream:
-            # the mesher spills the PLY as it meshes when no offset/scale
-            # transform follows; verts/faces are made only when wanted
-            spill_path = None
-            if filename and scale is None and offset is None:
-                os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
-                spill_path = filename + ".ply"
-            want_mesh = bool(return_mesh) or spill_path is None
-            verts, faces, ply_done = _create_mesh_streaming(
-                latent_vec, N, evaluator, sparse_safety, clamp_dist, voxel_size,
-                value_codec=value_codec, ply_path=spill_path, want_mesh=want_mesh,
-            )
-            if not want_mesh and not ply_done:
-                # the spill failed (e.g. tmpfs full): mesh again into memory
+    group = evaluator.group if stream else None
+    if group is not None and not group.is_main:
+        return _follow_stream(latent_vec, N, evaluator, sparse_safety, clamp_dist)
+
+    def run():  # the whole call in this process (the main rank's, over a group)
+        voxel_size = 2.0 / (N - 1)
+        ply_done = False
+        try:
+            if stream:
+                # the mesher spills the PLY as it meshes when no offset/scale
+                # transform follows; verts/faces are made only when wanted
+                spill_path = None
+                if filename and scale is None and offset is None:
+                    os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+                    spill_path = filename + ".ply"
+                want_mesh = bool(return_mesh) or spill_path is None
                 verts, faces, ply_done = _create_mesh_streaming(
                     latent_vec, N, evaluator, sparse_safety, clamp_dist, voxel_size,
-                    value_codec=value_codec, ply_path=None, want_mesh=True,
+                    value_codec=value_codec, ply_path=spill_path, want_mesh=want_mesh,
                 )
-            logging.debug("[create_mesh] streaming mesh takes: %f", time.time() - start)
-        elif b > 2:
-            verts, faces = _create_mesh_sparse(latent_vec, N, b, sparse_safety, evaluator)
-        else:
-            sdf_grid = eval_grid_dense(decoder, latent_vec, N, max_batch, evaluator)
-            logging.debug("[create_mesh] sampling takes: %f", time.time() - start)
-            verts, faces = marching_tetrahedra(
-                sdf_grid, level=0.0, spacing=(voxel_size,) * 3, origin=(-1.0, -1.0, -1.0)
-            )
-    except ValueError as e:
-        logging.error("[create_mesh] Caught marching cubes error: %s.", e)
-        return False
+                if not want_mesh and not ply_done:
+                    # the spill failed (e.g. tmpfs full): mesh again into memory
+                    verts, faces, ply_done = _create_mesh_streaming(
+                        latent_vec, N, evaluator, sparse_safety, clamp_dist, voxel_size,
+                        value_codec=value_codec, ply_path=None, want_mesh=True,
+                    )
+                logging.debug("[create_mesh] streaming mesh takes: %f", time.time() - start)
+            elif b > 2:
+                verts, faces = _create_mesh_sparse(latent_vec, N, b, sparse_safety, evaluator)
+            else:
+                sdf_grid = eval_grid_dense(decoder, latent_vec, N, max_batch, evaluator)
+                logging.debug("[create_mesh] sampling takes: %f", time.time() - start)
+                verts, faces = marching_tetrahedra(
+                    sdf_grid, level=0.0, spacing=(voxel_size,) * 3, origin=(-1.0, -1.0, -1.0)
+                )
+        except ValueError as e:
+            logging.error("[create_mesh] Caught marching cubes error: %s.", e)
+            return False
 
-    # apply additional offset and scale (ref: deep_sdf/mesh.py:132-136)
-    if scale is not None or offset is not None:
-        pts = verts.astype(np.float64)
-        if scale is not None:
-            pts = pts / scale
-        if offset is not None:
-            pts = pts - offset
-        verts = pts.astype(np.float32)
+        # apply additional offset and scale (ref: deep_sdf/mesh.py:132-136)
+        if scale is not None or offset is not None:
+            pts = verts.astype(np.float64)
+            if scale is not None:
+                pts = pts / scale
+            if offset is not None:
+                pts = pts - offset
+            verts = pts.astype(np.float32)
 
-    if filename and not ply_done and (evaluator.group is None or evaluator.group.is_main):
-        t0 = time.time()
-        os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
-        save_ply(filename + ".ply", verts, faces)
-        if stream:
-            LAST_STREAMING_STATS["t_ply"] = round(time.time() - t0, 3)
-    if return_mesh:
-        return verts, faces
-    return True
+        if filename and not ply_done and (evaluator.group is None or evaluator.group.is_main):
+            t0 = time.time()
+            os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+            save_ply(filename + ".ply", verts, faces)
+            if stream:
+                LAST_STREAMING_STATS["t_ply"] = round(time.time() - t0, 3)
+        if return_mesh:
+            return verts, faces
+        return True
+
+    return run() if group is None else _lead_stream(group, run)

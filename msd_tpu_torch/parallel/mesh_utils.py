@@ -114,13 +114,46 @@ class DataParallelGroup:
 
     def broadcast_object(self, obj):
         """The main rank's ``obj`` (any picklable value), on every rank."""
+        return self.broadcast_pickled(obj)[0]
+
+    def broadcast_pickled(self, obj):
+        """(the main rank's ``obj``, the bytes of its pickle) on every rank;
+        the other ranks' ``obj`` is ignored. Two broadcasts: the length,
+        then the bytes (on the card under NCCL, in host memory under
+        gloo)."""
         if self.world_size == 1:
-            return obj
+            return obj, 0
         import torch.distributed as dist
 
-        box = [obj]
-        dist.broadcast_object_list(box, src=0, group=self.process_group)
-        return box[0]
+        dev = self._collective_device()
+        if self.is_main:
+            data = torch.frombuffer(bytearray(pickle.dumps(obj, pickle.HIGHEST_PROTOCOL)), dtype=torch.uint8)
+            size = torch.tensor([data.numel()], dtype=torch.int64, device=dev)
+        else:
+            size = torch.zeros(1, dtype=torch.int64, device=dev)
+        dist.broadcast(size, src=0, group=self.process_group)
+        n = int(size.item())
+        buf = data.to(dev) if self.is_main else torch.empty(n, dtype=torch.uint8, device=dev)
+        dist.broadcast(buf, src=0, group=self.process_group)
+        return (obj if self.is_main else pickle.loads(buf.cpu().numpy().tobytes())), n
+
+    def any_true(self, flag: bool) -> bool:
+        """Whether ``flag`` is true on any rank (one small all-reduce), so
+        that every rank can raise where one rank failed."""
+        if self.world_size == 1:
+            return bool(flag)
+        import torch.distributed as dist
+
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=self._collective_device())
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.process_group)
+        return bool(t.item())
+
+    def _collective_device(self) -> torch.device:
+        """Where a small collective's tensor lives: the card under NCCL,
+        host memory under gloo."""
+        import torch.distributed as dist
+
+        return self.device if dist.get_backend(self.process_group) == "nccl" else torch.device("cpu")
 
 
 class _AllGatherRows(torch.autograd.Function):

@@ -165,3 +165,41 @@ def get_sdf_samples_filename(data_dir, dataset_name, class_name, instance_name):
     return os.path.join(
         data_dir, sdf_samples_subdir, dataset_name, class_name, instance_name + ".npz"
     )
+
+
+# ---------------------------------------------------------------------------
+# Model and latent loaders (msd_tpu/workspace.py:180-204; ref:
+# deep_sdf/workspace.py:40-115): thin wrappers over the registry and the
+# checkpoint module, for reference-style call sites.
+
+
+def build_decoder(experiment_directory, experiment_specifications=None):
+    """The experiment's decoder, built from its specs (ref:
+    deep_sdf/workspace.py:56-66), on the CPU with fresh weights."""
+    from msd_tpu_torch.models import build_decoder as _build
+
+    specs = experiment_specifications or load_experiment_specifications(experiment_directory)
+    return _build(specs["NetworkArch"], specs["CodeLength"], specs["NetworkSpecs"])
+
+
+def load_decoder(experiment_directory, checkpoint, experiment_specifications=None):
+    """Returns (decoder, epoch): the experiment's decoder with
+    ``ModelParameters/<checkpoint>.pth`` loaded, on the CPU (ref:
+    deep_sdf/workspace.py:69-80). ``msd_tpu``'s returns (decoder, params,
+    epoch) because a JAX decoder holds no weights; a torch module holds its
+    own, so there is no params entry."""
+    from msd_tpu_torch.utils.checkpoint import load_model
+
+    decoder = build_decoder(experiment_directory, experiment_specifications)
+    epoch = load_model(experiment_directory, checkpoint, decoder)
+    return decoder, epoch
+
+
+def load_latent_vectors(experiment_directory, checkpoint):
+    """The [S, L] float32 latent table of a checkpoint as a numpy array, from
+    the Embedding state dict or the legacy [S, 1, L] tensor (ref:
+    deep_sdf/workspace.py:83-115)."""
+    from msd_tpu_torch.utils.checkpoint import load_latent_vectors as _load
+
+    table, _epoch = _load(experiment_directory, str(checkpoint) + ".pth")
+    return table.numpy()

@@ -260,30 +260,40 @@ def test_streamed_mesh_matches_jax(pair, small_chunk, codec):
     for key in ("active_blocks", "crossing_blocks", "evaluated", "num_verts", "num_faces"):
         assert stats[key] == rstats[key], key
     assert stats["exact_slabs"] == 0 and "overflow_tail_slabs" not in stats
+    assert_differences_are_codec_steps(jdec, params, tdec, latent, codec, v, rv)
+
+
+def assert_differences_are_codec_steps(jdec, params, tdec, latent, codec, v, rv, n=N):
+    """Every vertex of the port's streamed mesh ``v`` more than 1e-4 from
+    msd_tpu's ``rv`` lies within a voxel of a lattice value whose codec
+    value differs between the packages, and each such value differs by one
+    codec step (float16: one step plus the float32 gap of the two fields)."""
+    h = 2.0 / (n - 1)
+    ev = mesh.PointEvaluator(tdec)
     # the crossing blocks' values as each package encodes them
-    abi4, _ = mesh._sparse_active4(latent, N, ev, 1.3, 0.1)
-    abi_x = ev.crossing_blocks(latent, abi4, N)
-    ours = ev.eval_blocks(latent, abi_x, 4, N).reshape(abi_x.shape[0], 125)
+    abi4, _ = mesh._sparse_active4(latent, n, ev, 1.3, 0.1)
+    abi_x = ev.crossing_blocks(latent, abi4, n)
+    ours = ev.eval_blocks(latent, abi_x, 4, n).reshape(abi_x.shape[0], 125)
     jev = jax_mesh.PointEvaluator(jdec, params)
-    theirs = np.asarray(jev.eval_blocks(jnp.asarray(latent), abi_x, 4, N)).reshape(abi_x.shape[0], 125)
+    theirs = np.asarray(jev.eval_blocks(jnp.asarray(latent), abi_x, 4, n)).reshape(abi_x.shape[0], 125)
     if codec == "f16":
         code_o, code_t = ours, theirs
         step = np.spacing(np.abs(theirs).astype(np.float16)).astype(np.float32) + FIELD_GAP
     else:
-        q, top = mesh.PointEvaluator._codec_q(codec, H), 127 if codec == "int8" else 255
+        q, top = mesh.PointEvaluator._codec_q(codec, h), 127 if codec == "int8" else 255
         code_o, code_t = (np.where(x == 0, 0, np.sign(x) * np.clip(np.round(np.abs(x) / q), 1, top))
                           for x in (ours, theirs))
         step = np.ones_like(ours)
     differ = code_o != code_t
     assert (np.abs(code_o - code_t)[differ] <= step[differ]).all()
     local = np.stack(np.meshgrid(*[np.arange(5)] * 3, indexing="ij"), -1).reshape(125, 3)
-    where = (((abi_x * 4)[:, None, :] + local[None]) * H - 1.0)[differ]
+    where = (((abi_x * 4)[:, None, :] + local[None]) * h - 1.0)[differ]
     dist = cKDTree(rv).query(v)[0]
     far = v[dist > 1e-4]
     print(f"{codec}: {int(differ.sum())} of {differ.size} values encode differently; "
           f"{far.shape[0]} of {v.shape[0]} vertices beyond 1e-4, at most {dist.max():.3g}")
     if far.shape[0]:
-        assert (cKDTree(where).query(far, p=np.inf)[0] <= H + 1e-7).all()
+        assert (cKDTree(where).query(far, p=np.inf)[0] <= h + 1e-7).all()
 
 
 @pytest.mark.parametrize("codec", CODECS)
