@@ -242,6 +242,28 @@ non-zero and prints no result. Phases, one JSON line each:
    ``check_experiment_inputs`` on the Stage-2 phase's experiment with no
    input missing; Hausdorff and EMD of a mesh the serving_ranks CLI
    reconstructed against its ellipsoid.
+19. figures: the latent explorer and the figure tools, on the tooling
+   phase's experiment and the training phase's. Whether matplotlib imports
+   (it is the port's optional dependency for figures). Always, needing no
+   matplotlib: ``python -m msd_tpu_torch.latent_explorer --mode html``
+   (in process, 4 dims x 9 steps, 33 decoded frames) at ``-N 129`` (capped
+   at 97, streamed on the card) and ``-N 64`` (65, the dense route), each
+   with K1 counted from 0 just before and read just after (the kernels
+   line's launches_figures), every frame of the HTML equal to
+   ``_pack_mesh`` of ``create_mesh`` called directly on its latent, the
+   CLI's seconds split into loading, the evaluator's set-up, the frames'
+   decoding and meshing (also per frame) and the export, and the file's
+   MB; ``manifold.tsne`` of the training phase's 64 latents on the card
+   against the same call on the CPU (``FIGURE_TSNE_TOL``), both timed; the
+   Stage-1 trainer's ``_eval_train`` and ``_eval_test`` (K1 launched;
+   ``EvalGridResolution`` 256, cut to 128 where matplotlib imports) writing
+   their three figures to ``ScalarRecorder`` where matplotlib imports, and
+   otherwise skipping them with msd_tpu's warning. Where
+   matplotlib imports, and otherwise listed as not run: ``latent_explorer``
+   in interp and sweep mode (K1 launched), ``plot_log`` for its five types,
+   ``analyze_sdf_npz`` on a training SdfSamples file and
+   ``latent_manifold`` with pca, ica, hlle and tsne. No sub-step's
+   exception is caught.
 
 Each phase's line carries the wall seconds since the previous line
 (``since_last_s``). Then the ``kernels`` line, the
@@ -257,6 +279,7 @@ import concurrent.futures
 import contextlib
 import functools
 import json
+import logging
 import math
 import os
 import subprocess
@@ -2116,13 +2139,26 @@ GMM_GRAD_TOL = 1e-5
 
 class ScalarRecorder:
     """Stands in for the Stage-1 trainer's TensorBoard writer and keeps
-    every scalar it is given, {tag: [values]}."""
+    every scalar it is given, {tag: [values]}, and every figure's tag with
+    its step, its pixel size and the seconds matplotlib took to draw it
+    (as a writer renders a figure to an image), {tag: [records]}."""
 
     def __init__(self):
         self.scalars = {}
+        self.figures = {}
 
     def add_scalar(self, tag, value, step=None):
         self.scalars.setdefault(tag, []).append(float(value))
+
+    def add_figure(self, tag, figure, global_step=None):
+        import matplotlib.pyplot as plt
+
+        t0 = time.time()
+        figure.canvas.draw()
+        width, height = figure.canvas.get_width_height()
+        self.figures.setdefault(tag, []).append({"step": global_step, "pixels": [width, height],
+                                                 "draw_s": time.time() - t0})
+        plt.close(figure)
 
     def add_hparams(self, *args, **kwargs):
         pass
@@ -2132,6 +2168,17 @@ class ScalarRecorder:
 
     def close(self):
         pass
+
+
+class WarningRecorder(logging.Handler):
+    """A logging handler that keeps the messages of warnings and above."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
 
 
 def run_cli(argv, recorder):
@@ -3540,6 +3587,242 @@ def tooling(root, specs, decoder, latents, stage2_inputs, device="cuda"):
             "note": "seeded weights, not trained: Hausdorff and EMD are no quality figures"}
 
 
+FIGURE_TSNE_TOL = {"emb_rel": 1e-3, "kl_rel": 1e-6}
+FIGURE_EVAL_TAGS = ("CD Percentiles/train dists", "Reconstructions/train comparison", "CD Percentiles/test dists")
+
+
+def explorer_html(exp, latents, resolution, out_dir, device):
+    """``python -m msd_tpu_torch.latent_explorer --mode html`` on ``exp``
+    (in process, 4 dims x 9 steps), K1 counted from 0 just before and read
+    just after; then every frame of the HTML's payload against
+    ``_pack_mesh`` of ``create_mesh`` called directly on its latent (K1's
+    launches there are not counted). The CLI's wall time is split by
+    wrapping, for that call only, ``export_interactive_html``,
+    ``sweep_frames`` and ``mesh_evaluator``: loading (the CLI less the
+    export), the evaluator's set-up (with ``warm_stream`` where it
+    streams), decoding and meshing the frames (``sweep_frames`` less the
+    set-up, also per decoded frame) and the export (packing, JSON, writing
+    the file). Returns the sub-step's summary and its K1 launches."""
+    import re
+
+    import torch
+
+    from msd_tpu_torch import explorer, latent_explorer, mesh
+    from msd_tpu_torch.ops import fused_mlp
+
+    out = os.path.join(out_dir, f"explorer_{resolution}.html")
+    argv = ["-e", exp, "--mode", "html", "--dims", "0", "1", "2", "3", "--steps", "9", "-N", str(resolution),
+            "--out", out, "--device", device, "--quiet"]
+    timed = {}
+
+    def timing(name, fn):
+        def wrapped(*args, **kwargs):
+            t = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                timed[name] = timed.get(name, 0.0) + time.time() - t
+        return wrapped
+
+    saved = explorer.export_interactive_html, explorer.sweep_frames, mesh.mesh_evaluator
+    explorer.export_interactive_html = timing("export", saved[0])
+    explorer.sweep_frames = timing("sweep", saved[1])
+    mesh.mesh_evaluator = timing("evaluator", saved[2])
+    try:
+        fused_mlp.LAUNCHES = 0
+        t0 = time.time()
+        latent_explorer.main(argv)
+        seconds = time.time() - t0
+        launches = fused_mlp.LAUNCHES
+    finally:
+        explorer.export_interactive_html, explorer.sweep_frames, mesh.mesh_evaluator = saved
+    if device == "cuda" and launches <= 0:
+        raise AssertionError(f"figures: latent_explorer --mode html -N {resolution} launched no K1")
+    stats = dict(mesh.LAST_STREAMING_STATS)
+    with open(out, encoding="utf-8") as f:
+        data = json.loads(re.search(r"const DATA = (\{.*\});\n", f.read()).group(1))
+    N = min(resolution, 97)
+    decoder = ws_load_decoder(exp, device)
+    ev = mesh.PointEvaluator(decoder)
+    base = np.asarray(latents[0], np.float32)
+    frames = 0
+    for d in data["dims"]:
+        for s, packed in zip(data["steps"], data["frames"][str(d)]):
+            z = base.copy()
+            z[d] += np.float64(s)  # as sweep_frames: linspace's float64 offsets
+            want = explorer._pack_mesh(mesh.create_mesh(decoder, torch.as_tensor(z, device=ev.device), N=N,
+                                                        return_mesh=True, evaluator=ev) or None)
+            if packed != want:
+                raise AssertionError(f"figures: html -N {resolution}: frame dim {d} step {s} is not create_mesh's mesh")
+            frames += 1
+    decoded = 1 + len(data["dims"]) * (len(data["steps"]) - 1)  # the centre step reuses the base mesh
+    N_mesh = mesh._snap_n(N)
+    route = mesh.mesh_route(N_mesh, ev)[1]
+    frames_seconds = timed["sweep"] - timed["evaluator"]
+    return {"N": N_mesh, "route": route, "cli_seconds": seconds, "load_seconds": seconds - timed["export"],
+            "evaluator_seconds": timed["evaluator"], "frames_seconds": frames_seconds,
+            "export_seconds": timed["export"] - timed["sweep"], "frames_decoded": decoded,
+            "frames_seconds_per_frame": frames_seconds / decoded, "frames_checked": frames,
+            "frames_equal_create_mesh": True,
+            "html_mb": os.path.getsize(out) / 1e6, "k1_launches": launches,
+            "last_frame_refine": stats.get("refine") if route == "streamed" else None}, launches
+
+
+def ws_load_decoder(exp, device):
+    import msd_tpu_torch.workspace as ws
+
+    return ws.load_decoder(exp, "latest")[0].to(device).eval()
+
+
+def figures(tool_exp, train_exp, out_dir, device="cuda"):
+    """The figures phase, after tooling: the latent explorer and the figure
+    CLIs on the tooling phase's experiment (``tool_exp``: the serving
+    decoder, flagship width, with the 4 latents the ranks fitted) and the
+    training phase's (``train_exp``: its Logs.pth, 64 latents, SdfSamples).
+    No sub-step's exception is caught. Always (K1 and the card, no
+    matplotlib): ``latent_explorer --mode html`` at ``-N 129`` (capped at 97,
+    streamed) and ``-N 64`` (65, dense), each frame held against
+    ``create_mesh``; ``manifold.tsne`` of the 64 training latents on the card
+    against the same call on the CPU (``FIGURE_TSNE_TOL``); the Stage-1
+    trainer's ``_eval_train`` and ``_eval_test`` on the tooling experiment
+    with ``TorusPath`` its data's ``Meshes/`` and ``EvalTrainSceneNumber`` 3
+    (``_eval_test`` fits one shape for 800 steps), at the spec's
+    ``EvalGridResolution`` (256, snapped to 257) where matplotlib does not
+    import and at 128 where it does (matplotlib's plot_trisurf of three
+    257^3 meshes would take minutes to draw): both Chamfer scalars, and where matplotlib
+    imports the three ``FIGURE_EVAL_TAGS``, else none and two "eval figures
+    skipped" warnings, as ``msd_tpu``'s hooks behave. Where matplotlib
+    imports, and otherwise listed as not run: ``latent_explorer`` in interp
+    and sweep mode (3 steps at N=33: plot_trisurf drew 3 frames of N=97 in
+    60 s in a CPU rehearsal), ``plot_log`` for its five types,
+    ``analyze_sdf_npz`` on one training file, ``latent_manifold`` with pca,
+    ica, hlle and tsne. Returns the phase summary and K1's launches by
+    sub-step."""
+    import importlib.util
+    import io
+
+    import torch
+
+    import msd_tpu_torch.workspace as ws
+    from msd_tpu_torch import manifold
+    from msd_tpu_torch.ops import fused_mlp
+    from msd_tpu_torch.train.stage1 import Stage1Trainer
+
+    t_start = time.time()
+    os.makedirs(out_dir, exist_ok=True)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    summary = {"matplotlib": has_mpl}
+    launches = {}
+    latents = ws.load_latent_vectors(tool_exp, "latest")
+    for resolution, key in ((129, "html_97"), (64, "html_65")):
+        summary[key], launches[key] = explorer_html(tool_exp, latents, resolution, out_dir, device)
+
+    train_latents = ws.load_latent_vectors(train_exp, "latest")
+    perplexity = min(30.0, max(2.0, train_latents.shape[0] / 4))
+    runs = {}
+    for dev in (device, "cpu"):
+        t0 = time.time()
+        emb, info = manifold.tsne(train_latents.astype(np.float64), perplexity=perplexity, device=dev,
+                                  return_info=True)
+        _sync(torch.device(dev))
+        runs[dev] = (emb, info, time.time() - t0)
+    (emb, info, t_dev), (ref, ref_info, t_cpu) = runs[device], runs["cpu"]
+    emb_rel = float(np.abs(emb - ref).max() / np.abs(ref).max())
+    kl_rel = abs(info["kl_divergence"] - ref_info["kl_divergence"]) / ref_info["kl_divergence"]
+    if not (np.isfinite(emb).all() and emb_rel <= FIGURE_TSNE_TOL["emb_rel"] and kl_rel <= FIGURE_TSNE_TOL["kl_rel"]):
+        raise AssertionError(f"figures: t-SNE on {device} against the CPU: embedding {emb_rel}, KL {kl_rel}")
+    summary["tsne"] = {"latents": list(train_latents.shape), "perplexity": perplexity, "device": device,
+                       "seconds": t_dev, "cpu_seconds": t_cpu, "emb_max_rel_diff": emb_rel, "kl_rel_diff": kl_rel,
+                       "kl": info["kl_divergence"], "n_iter": info["n_iter"], "tol": FIGURE_TSNE_TOL}
+
+    tool_specs = ws.load_experiment_specifications(tool_exp)
+    data_dir = os.path.dirname(tool_specs["DataSource"])
+    eval_specs = dict(tool_specs, TorusPath=os.path.join(data_dir, "Meshes"), TestSplit=tool_specs["TrainSplit"],
+                      EvalTrainSceneNumber=3, EvalTestSceneNumber=1, EvalTestOptimizationSteps=800)
+    if has_mpl:
+        eval_specs["EvalGridResolution"] = 128
+    trainer = Stage1Trainer(tool_exp, specs=eval_specs, device=device)
+    decoder = ws_load_decoder(tool_exp, device)
+    trainer.decoder.load_state_dict(decoder.state_dict())
+    with torch.no_grad():
+        trainer.latents.copy_(torch.as_tensor(latents, device=trainer.latents.device))
+    recorder = ScalarRecorder()
+    trainer._writer = recorder
+    warnings = WarningRecorder()
+    logging.getLogger().addHandler(warnings)
+    fused_mlp.LAUNCHES = 0
+    t0 = time.time()
+    try:
+        trainer._eval_train(1)
+        t_train = time.time() - t0
+        trainer._eval_test(1)
+    finally:
+        logging.getLogger().removeHandler(warnings)
+    launches["stage1_eval"] = fused_mlp.LAUNCHES
+    want = sorted(FIGURE_EVAL_TAGS) if has_mpl else []
+    skipped = [m for m in warnings.messages if "eval figures skipped" in m]
+    if (sorted(recorder.figures) != want or (not has_mpl and len(skipped) != 2)
+            or not {"Mean Chamfer Dist/train", "Mean Chamfer Dist/test"} <= set(recorder.scalars)
+            or (device == "cuda" and launches["stage1_eval"] <= 0)):
+        raise AssertionError(f"figures: the Stage-1 eval hooks wrote figures {sorted(recorder.figures)} and scalars "
+                             f"{sorted(recorder.scalars)}, warned {skipped}, K1 launched {launches['stage1_eval']}")
+    summary["stage1_eval"] = {"figures": recorder.figures, "skipped_warnings": skipped, "scalars": recorder.scalars,
+                              "eval_train_seconds": t_train, "seconds": time.time() - t0,
+                              "k1_launches": launches["stage1_eval"],
+                              "EvalGridResolution": eval_specs.get("EvalGridResolution", 256),
+                              "cut": ("EvalGridResolution 128 (snapped to 129), not 256: plot_trisurf of three 257^3 "
+                                      "meshes would take minutes to draw") if has_mpl else None}
+
+    needs_mpl = ("latent_explorer_interp", "latent_explorer_sweep", "plot_log", "analyze_sdf_npz",
+                 "latent_manifold")
+    if not has_mpl:
+        summary["not_run"] = {"steps": list(needs_mpl), "reason": "matplotlib does not import here"}
+        summary["seconds"] = time.time() - t_start
+        return summary, launches
+
+    from msd_tpu_torch import analyze_sdf_npz, latent_explorer, latent_manifold, plot_log
+
+    for mode in ("interp", "sweep"):
+        out = os.path.join(out_dir, f"explorer_{mode}.png")
+        fused_mlp.LAUNCHES = 0
+        t0 = time.time()
+        latent_explorer.main(["-e", tool_exp, "--mode", mode, "--steps", "3", "-N", "33", "--out", out,
+                              "--device", device, "--quiet"])
+        key = f"latent_explorer_{mode}"
+        launches[key] = fused_mlp.LAUNCHES
+        if device == "cuda" and launches[key] <= 0:
+            raise AssertionError(f"figures: latent_explorer --mode {mode} launched no K1")
+        summary[key] = {"seconds": time.time() - t0, "png_kb": os.path.getsize(out) / 1e3,
+                        "k1_launches": launches[key]}
+
+    t0 = time.time()
+    pngs = [plot_log.main(["-e", train_exp, "-t", t, "--quiet"])
+            for t in ("loss", "learning_rate", "time", "lat_mag", "param_mag")]
+    summary["plot_log"] = {"seconds": time.time() - t0, "pngs": [os.path.basename(p) for p in pngs]}
+
+    specs = ws.load_experiment_specifications(train_exp)
+    npz = sorted(os.path.join(d, n) for d, _, names in os.walk(specs["DataSource"]) for n in names
+                 if n.endswith(".npz"))[0]
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        analyze_sdf_npz.main([npz])
+    summary["analyze_sdf_npz"] = {"seconds": time.time() - t0, "lines": buf.getvalue().splitlines()[1:]}
+
+    t0 = time.time()
+    written = latent_manifold.main(["-e", train_exp, "--methods", "pca", "ica", "hlle", "tsne",
+                                    "--out_dir", os.path.join(out_dir, "manifold"), "--device", device, "--quiet"])
+    if sorted(written) != ["hlle", "ica", "pca", "tsne"]:
+        raise AssertionError(f"figures: latent_manifold wrote {sorted(written)}")
+    for method, path in written.items():
+        emb_m = np.load(path)
+        if emb_m.shape != (train_latents.shape[0], 2) or not np.isfinite(emb_m).all():
+            raise AssertionError(f"figures: latent_manifold {method}: {emb_m.shape}")
+    summary["latent_manifold"] = {"seconds": time.time() - t0, "methods": sorted(written)}
+    summary["seconds"] = time.time() - t_start
+    return summary, launches
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3630,15 +3913,19 @@ def main(argv=None):
         phase("training_iso", **training_iso)
         dp_summary, k2e_launches = dp(root, specs, args.seed)
         phase("dp", **dp_summary)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
-        prep_summary, prep_records = preprocess(root, args.seed)
-        for r in prep_records:
-            phase("preprocess_mesh", **r)
-        phase("preprocess", **prep_summary)
-        ranks_summary, k1_ranks, rank_latents = serving_ranks(
-            root, specs, decoder, args.seed, os.path.join(root, "meshes", prep_summary["meshes"][0] + ".obj"))
-        phase("serving_ranks", **ranks_summary)
-        phase("tooling", **tooling(root, specs, decoder, rank_latents, stage2_inputs))
+        train_exp = os.path.join(root, "train_experiment")  # kept for the figures phase
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root2:
+            prep_summary, prep_records = preprocess(root2, args.seed)
+            for r in prep_records:
+                phase("preprocess_mesh", **r)
+            phase("preprocess", **prep_summary)
+            ranks_summary, k1_ranks, rank_latents = serving_ranks(
+                root2, specs, decoder, args.seed, os.path.join(root2, "meshes", prep_summary["meshes"][0] + ".obj"))
+            phase("serving_ranks", **ranks_summary)
+            phase("tooling", **tooling(root2, specs, decoder, rank_latents, stage2_inputs))
+            figures_summary, k1_figures = figures(os.path.join(root2, "tooling_experiment"), train_exp,
+                                                  os.path.join(root2, "figures"))
+            phase("figures", **figures_summary)
 
     bf16 = k1["bfloat16"]
 
@@ -3652,7 +3939,7 @@ def main(argv=None):
         "name": "fused_mlp", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "msd_tpu/ops/fused_mlp.py:211", "launches": launches, "launches_stage2": k1_stage2,
         "launches_stage2_points": k1_points, "launches_serving_ranks": k1_ranks,
-        "launches_streaming": k1_stream,
+        "launches_streaming": k1_stream, "launches_figures": k1_figures,
         "max_abs_err": worst(bf16), "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes the whole decoder",

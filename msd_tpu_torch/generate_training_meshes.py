@@ -44,9 +44,7 @@ def code_to_mesh(experiment_directory, checkpoint, keep_normalized=False, resolu
     instance_filenames = get_instance_filenames(data_source, load_split(specs["TrainSplit"]))
     logging.info("%d instances vs %d latents", len(instance_filenames), len(latent_vectors))
 
-    evaluator = mesh.PointEvaluator(decoder)
-    if mesh._streams(evaluator):
-        evaluator.warm_stream(mesh._snap_n(resolution))
+    evaluator = mesh.mesh_evaluator(decoder, resolution)
     summary = []
     for i, latent_vector in enumerate(latent_vectors):
         parts = instance_filenames[i].split("/")

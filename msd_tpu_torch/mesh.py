@@ -59,6 +59,10 @@ from msd_tpu_torch.ops.marching_cubes import _FLIP_TABLE, marching_tetrahedra, m
 
 # Fixed sparse-refinement block size (msd_tpu/mesh.py SPARSE_BLOCK).
 SPARSE_BLOCK = 4
+# ``create_mesh``'s defaults for the refinement's clamp band and the safety
+# factor of its Lipschitz bound (``_pick_block``, ``mesh_route``)
+CLAMP_DIST = 0.1
+SPARSE_SAFETY = 1.3
 # Points per K1 call on the GPU: the flagship-width kernel needs no
 # scratch, so chunks are large (``fused_eval`` splits a wide decoder's
 # launches by the scratch they need).
@@ -1344,6 +1348,29 @@ def _follow_stream(latent, N, evaluator: PointEvaluator, safety, clamp_dist):
     return msg[1]
 
 
+def mesh_route(N: int, evaluator: PointEvaluator, sparse: bool = True, clamp_dist: float = CLAMP_DIST,
+               safety: float = SPARSE_SAFETY):
+    """(b, route) of ``create_mesh`` at ``N`` (already snapped where
+    ``sparse``) through ``evaluator``: the refinement block ``b`` (1 when
+    not sparse) and the route, "streamed" (``b > 2`` and ``_streams``),
+    "sparse" (``b > 2`` elsewhere) or "dense"."""
+    b = _pick_block(N, clamp_dist, safety) if sparse else 1
+    if b <= 2:
+        return b, "dense"
+    return b, "streamed" if _streams(evaluator) else "sparse"
+
+
+def mesh_evaluator(decoder, N: int) -> PointEvaluator:
+    """One ``PointEvaluator`` for a run of ``create_mesh`` calls at ``N`` (K1's
+    weights prepared once, not per mesh), its stream warmed
+    (``warm_stream``) where those calls stream."""
+    evaluator = PointEvaluator(decoder)
+    n = _snap_n(N)
+    if mesh_route(n, evaluator)[1] == "streamed":
+        evaluator.warm_stream(n)
+    return evaluator
+
+
 def create_mesh(
     decoder,
     latent_vec,
@@ -1354,8 +1381,8 @@ def create_mesh(
     scale=None,
     return_mesh: bool = False,
     sparse: bool = True,
-    clamp_dist: float = 0.1,
-    sparse_safety: float = 1.3,
+    clamp_dist: float = CLAMP_DIST,
+    sparse_safety: float = SPARSE_SAFETY,
     evaluator: Optional[PointEvaluator] = None,
     eval_dtype: Optional[torch.dtype] = None,
     value_codec: str = "auto",
@@ -1371,7 +1398,8 @@ def create_mesh(
 
     With block refinement (``b > 2``) it streams (``_create_mesh_streaming``),
     as ``msd_tpu`` does with its evaluator on its chip, where ``_streams``
-    says so: the evaluator, given or made here, sits on the card.
+    says so (``mesh_route``): the evaluator, given or made here, sits on the
+    card.
     ``value_codec`` ("auto", "packed", "int8" or "f16", ``MSD_VALUE_CODEC``
     overrides) is the streamed rows' codec. Elsewhere it takes the float32
     sparse route, or the dense one.
@@ -1392,8 +1420,8 @@ def create_mesh(
         evaluator = PointEvaluator(decoder, dtype=eval_dtype, max_batch=max_batch)
     if sparse:
         N = _snap_n(N)
-    b = _pick_block(N, clamp_dist, sparse_safety) if sparse else 1
-    stream = b > 2 and _streams(evaluator)
+    b, route = mesh_route(N, evaluator, sparse, clamp_dist, sparse_safety)
+    stream = route == "streamed"
     group = evaluator.group if stream else None
     if group is not None and not group.is_main:
         return _follow_stream(latent_vec, N, evaluator, sparse_safety, clamp_dist)
@@ -1421,7 +1449,7 @@ def create_mesh(
                         value_codec=value_codec, ply_path=None, want_mesh=True,
                     )
                 logging.debug("[create_mesh] streaming mesh takes: %f", time.time() - start)
-            elif b > 2:
+            elif route == "sparse":
                 verts, faces = _create_mesh_sparse(latent_vec, N, b, sparse_safety, evaluator)
             else:
                 sdf_grid = eval_grid_dense(decoder, latent_vec, N, max_batch, evaluator)

@@ -614,17 +614,20 @@ class Stage1Trainer:
     # ------------------------------------------------------------------
     # Eval hooks (train-set mesh Chamfer / test-set reconstruction) through
     # the port's create_mesh and reconstruct_batch (ref: train_deep_sdf.py
-    # :934-1032). The figures need plotting, not ported yet (ROADMAP M12).
+    # :934-1032). Their figures import plotting (so matplotlib) inside the
+    # hook and are skipped with a warning when that fails, as msd_tpu's
+    # (msd_tpu/train/stage1.py:1252-1264, :1329-1337).
     def _eval_train(self, epoch):
         torus_path = get_spec_with_default(self.specs, "TorusPath", None)
         if not torus_path or not os.path.exists(str(torus_path)):
             return
         from msd_tpu_torch import mesh as mesh_mod
+        from msd_tpu_torch.data.mesh_io import load_mesh
         from msd_tpu_torch.metrics.chamfer import compute_mesh_chamfer
 
         eval_grid_res = get_spec_with_default(self.specs, "EvalGridResolution", 256)
         n_eval = min(get_spec_with_default(self.specs, "EvalTrainSceneNumber", 10), self.num_scenes)
-        dists = []
+        dists, all_dists, compare_rows = [], [], []
         self.decoder.eval()
         try:
             for index in range(n_eval):
@@ -637,12 +640,27 @@ class Stage1Trainer:
                                            N=eval_grid_res, return_mesh=True)
                 gt_path = os.path.join(str(torus_path), save_name + ".obj")
                 if tri is not False and os.path.exists(gt_path):
-                    dists.append(compute_mesh_chamfer(gt_path, tri)[0])
+                    cd, per_point = compute_mesh_chamfer(gt_path, tri)
+                    dists.append(cd)
+                    all_dists.append(np.asarray(per_point))
+                    if len(compare_rows) < 3:
+                        compare_rows.append((save_name, [load_mesh(gt_path), tri]))
         finally:
             self.decoder.train()
         if dists:
             self.writer.add_scalar("Mean Chamfer Dist/train", float(np.mean(dists)), epoch)
-            logging.warning("eval figures skipped: plotting is not ported to msd_tpu_torch yet (ROADMAP M12)")
+            # CD-percentile violin + GT-vs-reconstruction comparison figures
+            # (ref: train_deep_sdf.py:947-954 add_figure pattern)
+            try:
+                from msd_tpu_torch import plotting
+
+                fig, _ = plotting.plot_dist_violin(np.concatenate(all_dists))
+                self.writer.add_figure("CD Percentiles/train dists", fig, global_step=epoch)
+                if compare_rows:
+                    fig = plotting.plot_mesh_comparison(compare_rows)
+                    self.writer.add_figure("Reconstructions/train comparison", fig, global_step=epoch)
+            except Exception as exc:
+                logging.warning("eval figures skipped: %s", exc)
 
     def _eval_test(self, epoch):
         """Test-set eval: fit a latent per test shape from its SDF samples,
@@ -674,7 +692,7 @@ class Stage1Trainer:
             return
         errs, latents = reconstruct_batch(self.decoder, int(steps), self.latent_size, shapes, 0.01, 0.1,
                                           num_samples=16384, lr=5e-3, l2reg=True)
-        dists, lat_mags = [], []
+        dists, lat_mags, all_dists = [], [], []
         self.decoder.eval()
         try:
             for save_name, latent in zip(names, latents):
@@ -686,14 +704,23 @@ class Stage1Trainer:
                                            N=eval_grid_res, return_mesh=True)
                 gt_path = os.path.join(str(torus_path), save_name + ".obj") if torus_path else None
                 if tri is not False and gt_path and os.path.exists(gt_path):
-                    dists.append(compute_mesh_chamfer(gt_path, tri)[0])
+                    cd, per_point = compute_mesh_chamfer(gt_path, tri)
+                    dists.append(cd)
+                    all_dists.append(np.asarray(per_point))
         finally:
             self.decoder.train()
         self.writer.add_scalar("Loss/test", float(np.mean(errs)), epoch)
         self.writer.add_scalar("Mean Latent Magnitude/test", float(np.mean(lat_mags)), epoch)
         if dists:
             self.writer.add_scalar("Mean Chamfer Dist/test", float(np.mean(dists)), epoch)
-            logging.warning("test eval figures skipped: plotting is not ported to msd_tpu_torch yet (ROADMAP M12)")
+            # CD-percentile violin figure (ref: train_deep_sdf.py:1026-1027)
+            try:
+                from msd_tpu_torch import plotting
+
+                fig, _ = plotting.plot_dist_violin(np.concatenate(all_dists))
+                self.writer.add_figure("CD Percentiles/test dists", fig, global_step=epoch)
+            except Exception as exc:
+                logging.warning("test eval figures skipped: %s", exc)
         self.writer.add_scalar("Time/test eval per shape (sec)", (time.time() - t0) / max(1, n_eval), epoch)
         return {"names": names, "errors": [float(e) for e in errs], "chamfer": dists}
 

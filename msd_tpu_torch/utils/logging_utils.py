@@ -60,6 +60,9 @@ class _NullWriter:
     def add_hparams(self, *args, **kwargs):
         pass
 
+    def add_figure(self, *args, **kwargs):
+        pass
+
     def flush(self):
         pass
 
