@@ -123,7 +123,27 @@ non-zero and prints no result. Phases, one JSON line each:
    split, and the trainer's step on K2 d against its float32 autograd path
    (loss and VAE gradient).
 
-10b. stage2_points: Stage 2 in points mode on the same Stage-1 experiment:
+10b. hpo: the port's Stage-2 hyper-parameter search as a user runs it,
+   ``python -m msd_tpu_torch.hparams_optuna_vae_sdf`` in process on the
+   stage2 phase's spec (its absolute paths; TrainLatentHoldoutFraction
+   0.25: 0.1 holds out 6 of the 64 scenes, whose classification SAP is 0,
+   as its 5-fold cross-validation needs 5 holdout scenes of each class):
+   3 trials of 2 epochs (48 training scenes, one batch of 32 per epoch,
+   K2 d), then 1 more resumed from trials.json. Every trial has a finite
+   objective, SAP, correlation and recon; best.json is written; the resumed
+   trial's parameters are the sampler's, replayed on the host from the
+   seed and the first 3 trials; K2 d launches once per step; each trial's
+   seconds and the device memory held after it, which may not grow over
+   the 4 trials by more than one trial's dataset on the card.
+10c. profile: ``ProfileEpochs`` on a copy of the training phase's
+   flagship Stage-1 spec with NumEpochs 2 and ProfileEpochs [2], through
+   ``python -m msd_tpu_torch.train_deep_sdf`` in process: exactly one trace
+   file under TensorBoard/profile, a JSON document whose kernel events name
+   K2's five CUDA kernels as often as ``fused_train.KERNEL_LAUNCHES``
+   counted them in epoch 2; the trace's size and the profiled epoch's
+   seconds against epoch 1's.
+
+10d. stage2_points: Stage 2 in points mode on the same Stage-1 experiment:
    the flagship Stage-2 spec with EncoderType pointnet2 (PointNet++, the
    point VAE's default; no shipped config sets a point encoder),
    SurfacePointCount 2048 from DataSourceMesh, the ellipsoids' .obj meshes
@@ -143,7 +163,7 @@ non-zero and prints no result. Phases, one JSON line each:
    once per step, pointnet_encoder's BatchNorm means moved by training and
    fixed by compute_vae_latents.
 
-10c. stage2_points_ranks: the stage2_points experiment (PointNet++, 32
+10e. stage2_points_ranks: the stage2_points experiment (PointNet++, 32
    scenes x 2048 surface points, K2 d) on 2 gloo ranks on the card, each
    encoding its 16 scenes with BatchNorm over both ranks' rows and running
    K2 d on them, for 4 steps on given scene ids, labels, weights and
@@ -1604,6 +1624,161 @@ def stage2(root, seed, device="cuda", changes=None):
         "scenes_per_s": B / (step_med * 1e-3), "k2_kernel_launches_per_step": kernel_launches, "profile": profile,
         "autograd_step_ms": autograd_step_ms, "step_vs_autograd": vs_autograd,
     }, k2_first + k2_resumed, k1_first + k1_resumed
+
+
+HPO_HOLDOUT = 0.25
+
+
+def hpo(root, seed, device="cuda", trials=3, epochs=2):
+    """The port's hyper-parameter search (``python -m
+    msd_tpu_torch.hparams_optuna_vae_sdf``, in process) on the stage2
+    phase's experiment: its flagship spec with the smoke's absolute paths
+    and ``TrainLatentHoldoutFraction`` ``HPO_HOLDOUT``, ``trials`` trials of
+    ``epochs`` epochs, then one more resumed from trials.json. Returns
+    (phase summary, K2 d launches)."""
+    import torch
+
+    from msd_tpu_torch import hparams_optuna_vae_sdf as search
+    from msd_tpu_torch.ops import fused_train
+
+    with open(os.path.join(root, "stage2_experiment", "specs.json")) as f:
+        specs = json.load(f)
+    base, out = os.path.join(root, "hpo_base_specs.json"), os.path.join(root, "hpo")
+    with open(base, "w") as f:
+        json.dump(dict(specs, TrainLatentHoldoutFraction=HPO_HOLDOUT), f)
+    card = device == "cuda"
+
+    def held():  # read once main has dropped the trial's trainer
+        return torch.cuda.memory_allocated() if card else None
+
+    records, sizes = [], []
+
+    class Measured(search.Stage2Trainer):
+        """The trial's trainer, noting its dataset's bytes on the device and
+        its steps per epoch; nothing kept."""
+
+        def train(self, *args, **kw):
+            super().train(*args, **kw)
+            sizes.append({"dataset_bytes": sum(t.numel() * t.element_size()
+                                               for t in self.dataset.device_arrays(self.device)),
+                          "steps_per_epoch": len(self.train_indices) // self.scene_per_batch,
+                          "holdout_scenes": len(self.holdout_indices)})
+
+    inner, trainer_class = search.run_trial, search.Stage2Trainer
+
+    def timed(trial_dir, *args, **kw):
+        if records:
+            records[-1]["memory_allocated_after"] = held()
+        _sync(torch.device(device))
+        t0 = time.perf_counter()
+        try:
+            return inner(trial_dir, *args, **kw)
+        finally:
+            _sync(torch.device(device))
+            records.append({"trial": os.path.basename(trial_dir), "seconds": time.perf_counter() - t0})
+
+    cli = ["-b", base, "-o", out, "--epochs", str(epochs), "--device", device, "--seed", str(seed), "--quiet"]
+    search.run_trial, search.Stage2Trainer = timed, Measured
+    fused_train.reset_launches()
+    try:
+        t0 = time.time()
+        search.main(cli + ["-n", str(trials)])
+        t_first = time.time() - t0
+        records[-1]["memory_allocated_after"] = held()
+        history = search.main(cli + ["-n", "1"])
+        records[-1]["memory_allocated_after"] = held()
+    finally:
+        search.run_trial, search.Stage2Trainer = inner, trainer_class
+    launches = fused_train.LAUNCHES
+
+    with open(os.path.join(out, "trials.json")) as f:
+        saved = json.load(f)
+    n = trials + 1
+    if saved != history or [t["trial"] for t in saved] != list(range(n)):
+        raise AssertionError(f"trials.json holds trials {[t.get('trial') for t in saved]}, want 0-{n - 1}")
+    for t in saved:
+        parts = [t.get("value")] + [t.get("detail", {}).get(k) for k in ("sap", "corr", "recon")]
+        if not all(isinstance(v, float) and math.isfinite(v) for v in parts):
+            raise AssertionError(f"trial {t['trial']} has no finite value and parts: {json.dumps(t)}")
+    if not os.path.isfile(os.path.join(out, "best.json")):
+        raise AssertionError("no best.json")
+    replay = search.sample_params(np.random.default_rng(seed + trials), saved[:trials])
+    if replay != saved[trials]["params"]:
+        raise AssertionError(f"the resumed trial's parameters {saved[trials]['params']} are not the sampler's {replay}")
+    steps = sizes[0]["steps_per_epoch"]
+    if launches != card * n * epochs * steps:
+        raise AssertionError(f"K2 d launches {launches}, want {n} trials x {epochs} epochs x {steps} steps")
+    grown = None
+    if card:
+        grown = records[-1]["memory_allocated_after"] - records[0]["memory_allocated_after"]
+        if grown > sizes[0]["dataset_bytes"]:
+            raise AssertionError(f"device memory grew by {grown} B over {n} trials, more than one trial's "
+                                 f"dataset ({sizes[0]['dataset_bytes']} B)")
+    return {
+        "base": {"from": "stage2 phase's specs.json", "TrainLatentHoldoutFraction": HPO_HOLDOUT,
+                 "holdout_note": "0.1 holds out 6 of 64 scenes, whose classification SAP is 0: its 5-fold "
+                                 "cross-validation needs 5 holdout scenes of each class"},
+        "trials": n, "epochs": epochs, "steps_per_epoch": steps, "holdout_scenes": sizes[0]["holdout_scenes"],
+        "first_run_seconds": t_first, "per_trial": records, "dataset_bytes": sizes[0]["dataset_bytes"],
+        "memory_grown_bytes": grown, "k2d_launches": launches,
+        "values": [t["value"] for t in saved], "detail": [t["detail"] for t in saved],
+        "best_trial": max(saved, key=lambda t: t["value"])["trial"],
+    }, launches
+
+
+def profile_epochs(root, device="cuda"):
+    """``ProfileEpochs`` on the training phase's flagship Stage-1 spec: a
+    copy with NumEpochs 2 and ProfileEpochs [2] through ``python -m
+    msd_tpu_torch.train_deep_sdf`` in process. Returns (phase summary, K2
+    launches)."""
+    import glob
+
+    import msd_tpu_torch.workspace as ws
+    from msd_tpu_torch import train_deep_sdf
+    from msd_tpu_torch.ops import fused_train
+    from msd_tpu_torch.train.stage1 import Stage1Trainer
+
+    with open(os.path.join(root, "train_experiment", "specs.json")) as f:
+        specs = json.load(f)
+    exp = os.path.join(root, "profile_experiment")
+    ws.save_experiment_specifications(exp, dict(specs, NumEpochs=2, ProfileEpochs=[2]))
+
+    per_epoch, inner = {}, Stage1Trainer.train_epoch
+
+    def counted(self, epoch, *args, **kw):  # K2's kernel counts over the epoch, inside its trace
+        before = dict(fused_train.KERNEL_LAUNCHES)
+        out = inner(self, epoch, *args, **kw)
+        per_epoch[epoch] = {k: n - before[k] for k, n in fused_train.KERNEL_LAUNCHES.items()}
+        return out
+
+    Stage1Trainer.train_epoch = counted
+    fused_train.reset_launches()
+    try:
+        trainer = train_deep_sdf.main(["-e", exp, "--device", device, "--quiet"])
+    finally:
+        Stage1Trainer.train_epoch = inner
+    launches = fused_train.LAUNCHES
+
+    paths = glob.glob(os.path.join(exp, ws.tb_logs_dir, "profile", "*"))
+    if len(paths) != 1 or not paths[0].endswith(".pt.trace.json"):
+        raise AssertionError(f"want one trace file, found {paths}")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    traced = {k: sum(k in name for name in kernels) for k in fused_train.KERNEL_LAUNCHES}
+    if traced != per_epoch[2] or (device == "cuda" and not all(per_epoch[2].values())):
+        raise AssertionError(f"the trace's K2 kernels {traced} against the counters in epoch 2: {per_epoch[2]}")
+    steps = len(trainer.loss_log) // 2
+    if launches != (device == "cuda") * 2 * steps:
+        raise AssertionError(f"K2 launches {launches}, want one per step ({2 * steps})")
+    seconds = trainer.timing_log
+    return {
+        "changed": {"NumEpochs": 2, "ProfileEpochs": [2]}, "trace": os.path.relpath(paths[0], exp),
+        "trace_bytes": os.path.getsize(paths[0]), "trace_events": len(events), "kernel_events": len(kernels),
+        "k2_kernels_traced": traced, "k2_kernels_counted": per_epoch[2], "k2_kernels_epoch_1": per_epoch[1],
+        "epoch_seconds": seconds, "profiled_over_epoch_1": seconds[1] / seconds[0],
+        "k2_launches": launches,
+    }, launches
 
 
 def stage2_points(root, seed, device="cuda", changes=None):
@@ -3899,6 +4074,10 @@ def main(argv=None):
         phase("training", **training)
         stage2_summary, k2d_launches, k1_stage2 = stage2(root, args.seed)
         phase("stage2", **stage2_summary)
+        hpo_summary, k2d_hpo = hpo(root, args.seed)
+        phase("hpo", **hpo_summary)
+        profile_summary, k2_profile = profile_epochs(root)
+        phase("profile", **profile_summary)
         points_summary, k2d_points, k1_points = stage2_points(root, args.seed)
         phase("stage2_points", **points_summary)
         stage2_inputs = input_report(os.path.join(root, "stage2_experiment"))
@@ -3954,6 +4133,7 @@ def main(argv=None):
         "name": "fused_train", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_train.cu",
         "replaces": "msd_tpu/ops/fused_train.py:423", "launches": k2_launches + k2_gmm_launches,
         "launches_training": k2_launches, "launches_training_gmm": k2_gmm_launches,
+        "launches_profile": k2_profile,
         "max_abs_err": b["vs_plain"]["max_abs_err"], "max_rel_frobenius": b["vs_plain"]["worst_grad_rel"],
         "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
         "library_ms": None, "library_note": "no single PyTorch call computes the loss and every gradient",
@@ -3973,7 +4153,7 @@ def main(argv=None):
                         "max_rel_frobenius": k2d["vs_plain"]["dlat"]["rel"], "loss_rel": k2d["vs_plain"]["loss_rel"],
                         "launches": k2d_launches, "step_ms": stage2_summary["step_ms_median"],
                         "launches_stage2_points": k2d_points, "points_step_ms": points_summary["step_ms_median"],
-                        "launches_stage2_points_ranks": k2d_points_ranks,
+                        "launches_stage2_points_ranks": k2d_points_ranks, "launches_hpo": k2d_hpo,
                         "autograd_step_ms": stage2_summary["autograd_step_ms"], "library_ms": None},
         **{f"variant_{v}": {k: k2ce[v][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "design_bytes_ms")}
            | {"max_abs_err": k2ce[v]["vs_plain"]["max_abs_err"],

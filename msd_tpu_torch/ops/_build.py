@@ -75,6 +75,12 @@ _SIGNATURES = {
     },
 }
 
+
+class KernelError(RuntimeError):
+    """A kernel of the port did not build or did not launch: a fault of the
+    card or its toolchain, never of the data it was given."""
+
+
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 # nvcc's report (registers, shared memory, spills) of the latest build
@@ -87,7 +93,7 @@ def _nvcc() -> str:
         home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
         path = os.path.join(home, "bin", "nvcc")
     if not os.path.isfile(path):
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+        raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
     return path
 
 
@@ -119,7 +125,7 @@ def _finish_build(name: str, job) -> None:
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise KernelError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)
 
 
@@ -134,10 +140,10 @@ def build(names) -> None:
                 continue
             try:
                 _finish_build(n, job)
-            except RuntimeError as e:
+            except KernelError as e:
                 errors.append(str(e))
         if errors:
-            raise RuntimeError("\n".join(errors))
+            raise KernelError("\n".join(errors))
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -47,6 +47,7 @@ import torch
 
 from msd_tpu_torch.models.common import LAYER_NORM_EPS
 from msd_tpu_torch.models.deepsdf import DeepSDFDecoder
+from msd_tpu_torch.ops._build import KernelError
 
 # Output tile of the mma_sync kernel per operand type: every hidden width
 # is zero-padded to a multiple of it.
@@ -278,7 +279,7 @@ def _count(route: str) -> None:
 
 
 def _raise(lib, rc: int, route: str):
-    raise RuntimeError(f"fused_mlp {route} kernel launch failed: {lib.msd_cuda_error_string(rc).decode()} ({rc})")
+    raise KernelError(f"fused_mlp {route} kernel launch failed: {lib.msd_cuda_error_string(rc).decode()} ({rc})")
 
 
 def _eval_wgmma(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:

@@ -64,6 +64,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from msd_tpu_torch.ops._build import KernelError
+
 # Points per scene must be a multiple of this (the TPU kernel's lane tile;
 # also the per-point kernels' tile, so a tile never spans two scenes).
 TILE = 128
@@ -283,7 +285,7 @@ def _check(lib, rc, what, kernel=None):
     """Raise if a launch's return code is not 0; else count ``kernel``'s
     launch (what: the kernel's name when not given)."""
     if rc != 0:
-        raise RuntimeError(f"fused_train kernel {what} failed: {lib.msd_ft_error_string(rc).decode()} ({rc})")
+        raise KernelError(f"fused_train kernel {what} failed: {lib.msd_ft_error_string(rc).decode()} ({rc})")
     KERNEL_LAUNCHES[kernel or what] += 1
 
 

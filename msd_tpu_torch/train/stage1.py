@@ -56,10 +56,21 @@ mixup) come from the step's generator and a numpy generator seeded by
 (Seed, step). Stage 1 trains ``deep_sdf_decoder`` only: ``msd_tpu``'s
 trainer cannot checkpoint another decoder (its ``save_model`` needs
 ``params_to_torch_state_dict``, which only ``DeepSDFDecoder`` has).
+
+``ProfileEpochs`` (a list of epochs) runs each listed epoch's training
+under ``torch.profiler`` and writes its trace to
+``<exp>/TensorBoard/profile`` as ``rank<r>.<ns>.pt.trace.json`` (read by
+TensorBoard's PyTorch profiler plugin or as a Chrome trace), as
+``msd_tpu`` writes a ``jax.profiler`` trace there (:963-968). Over a group
+each rank is a process and writes its own file; ``msd_tpu`` traces every
+device of its one process into one. On the card the trace records CUDA
+activity and the epoch raises rather than write a trace with no device
+event in it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
@@ -115,8 +126,6 @@ class Stage1Trainer:
         validate_stage1_specs(specs)
         note_noop_keys(specs)
         logging.info("Experiment description: \n%s", specs.get("Description", "(none)"))
-        if get_spec_with_default(specs, "ProfileEpochs", None):
-            logging.info("ProfileEpochs: profiling is not ported to msd_tpu_torch yet; ignored")
 
         self.data_source = specs["DataSource"]
         self.latent_size = specs["CodeLength"]
@@ -501,14 +510,36 @@ class Stage1Trainer:
         eval_train_frequency = get_spec_with_default(self.specs, "EvalTrainFrequency", 300)
         eval_test_frequency = get_spec_with_default(self.specs, "EvalTestFrequency", 500)
         rng = np.random.default_rng(self.seed + start_epoch)
+        profile_epochs = set(get_spec_with_default(self.specs, "ProfileEpochs", []) or [])
         for epoch in range(start_epoch, num_epochs + 1):
             t0 = time.time()
             self.epoch = epoch
-            mean = self.train_epoch(epoch, batch_split, rng)
+            with self._epoch_profiler() if epoch in profile_epochs else contextlib.nullcontext():
+                mean = self.train_epoch(epoch, batch_split, rng)
             self._post_epoch(epoch, mean, time.time() - t0, self.lr_log[-1], eval_hooks,
                              eval_train_frequency, eval_test_frequency)
         self.save_checkpoint("latest")
         self.save_logs()
+
+    def _epoch_profiler(self):
+        """A ``torch.profiler.profile`` whose trace goes to
+        ``<exp>/TensorBoard/profile`` as ``rank<r>.<ns>.pt.trace.json``;
+        CUDA activity too on the card, where a trace without any raises."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        on_card = self.device.type == "cuda"
+        rank = self.group.rank if self.group is not None else 0
+        write = tensorboard_trace_handler(os.path.join(self.experiment_directory, ws.tb_logs_dir, "profile"),
+                                          worker_name=f"rank{rank}")
+
+        def on_trace_ready(prof):
+            if on_card and not any(e.device_type == DeviceType.CUDA for e in prof.key_averages()):
+                raise RuntimeError("ProfileEpochs: the profiler recorded no CUDA activity; no trace written")
+            write(prof)
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+        return profile(activities=activities, on_trace_ready=on_trace_ready)
 
     def _post_epoch(self, epoch, mean, seconds, lr_pair, eval_hooks, eval_train_frequency, eval_test_frequency):
         """Per-epoch bookkeeping: logs, TensorBoard scalars, checkpoints, eval

@@ -702,12 +702,10 @@ def test_trainer_data_parallel_on_card(dev, train_data, tmp_path):
         assert _rel(grads, ref_grads.cpu()) <= 1e-3
 
 
-def test_stage2_trainer_takes_k2d_once_per_step(dev, train_data, tmp_path):
-    """The Stage-2 trainer with the flagship switches (frozen decoder) takes
-    K2 variant d once per step, in bf16, and its metrics are finite."""
+def _stage2_specs(train_data, **extra):
+    """The flagship Stage-2 switches on ``train_data``'s 4 ellipsoids, with
+    their labels, at the card tests' width; no eval epoch."""
     from chip_smoke import write_labels
-    from msd_tpu_torch.ops import fused_train as ft
-    from msd_tpu_torch.train.stage2 import Stage2Trainer
 
     with open(os.path.join(ROOT, "examples", "ADNI", "MLP_VAE_SDF_disentangle_all_true_label_age", "specs.json")) as f:
         specs = json.load(f)
@@ -718,14 +716,69 @@ def test_stage2_trainer_takes_k2d_once_per_step(dev, train_data, tmp_path):
     specs.update(DataSource=train_data["DataSource"], TrainSplit=train_data["TrainSplit"],
                  NetworkSpecs=TRAIN_SPECS["NetworkSpecs"], CodeLength=16, VAEInputDim=16, SamplesPerScene=256,
                  ScenesPerBatch=2, TrainLatentHoldoutFraction=0.0, EvalTrainFrequency=0, EvalTestFrequency=0)
-    teacher = (0.1 * np.random.default_rng(0).standard_normal((4, 16))).astype(np.float32)
-    tr = Stage2Trainer(str(tmp_path / "s2"), specs=specs, teacher_latents=teacher, device="cuda")
+    return dict(specs, **extra)
+
+
+def _teacher(n=4):
+    return (0.1 * np.random.default_rng(0).standard_normal((n, 16))).astype(np.float32)
+
+
+def test_stage2_trainer_takes_k2d_once_per_step(dev, train_data, tmp_path):
+    """The Stage-2 trainer with the flagship switches (frozen decoder) takes
+    K2 variant d once per step, in bf16, and its metrics are finite."""
+    from msd_tpu_torch.ops import fused_train as ft
+    from msd_tpu_torch.train.stage2 import Stage2Trainer
+
+    specs = _stage2_specs(train_data)
+    tr = Stage2Trainer(str(tmp_path / "s2"), specs=specs, teacher_latents=_teacher(), device="cuda")
     assert tr.fused_ok and tr.k2_dtype == torch.bfloat16 and not tr.train_sdf_decoder
     launches = ft.LAUNCHES
     m = tr.train_epoch(1)
     assert ft.LAUNCHES == launches + 2  # 4 scenes, 2 per batch
     assert all(np.isfinite(v) for v in m.values())
     assert not any(p.grad is not None for p in tr.sdf_decoder.parameters())
+
+
+def test_hpo_trial_takes_k2d_once_per_step(dev, train_data, tmp_path):
+    """A search trial on the card on 8 ellipsoids, half held out (SAP needs
+    4 holdout scenes), 2 epochs of 2 steps: K2 d launched once per step, a
+    finite objective."""
+    from chip_smoke import write_dataset
+    from msd_tpu_torch import hparams_optuna_vae_sdf as hpo
+    from msd_tpu_torch.ops import fused_train as ft
+
+    split = write_dataset(str(tmp_path / "data8"), 8, 5000, seed=3)
+    with open(tmp_path / "split8.json", "w") as f:
+        json.dump(split, f)
+    teacher = str(tmp_path / "teacher.pth")
+    torch.save({"epoch": 1, "latent_codes": {"weight": torch.from_numpy(_teacher(8))}}, teacher)
+    data = dict(train_data, DataSource=str(tmp_path / "data8" / "SdfSamples"), TrainSplit=str(tmp_path / "split8.json"))
+    specs = _stage2_specs(data, TrainLatentHoldoutFraction=0.5, PretrainedLatentPath=teacher)
+    ft.reset_launches()
+    value, detail = hpo.run_trial(str(tmp_path / "trial"), specs, train_epochs=2)
+    assert ft.VARIANT_LAUNCHES == dict.fromkeys("abcde", 0) | {"d": 4} and ft.LAUNCHES == 4
+    assert np.isfinite(value) and all(np.isfinite(v) for v in detail.values())
+
+
+def test_profiled_epoch_traces_k2_kernels(dev, train_data, tmp_path):
+    """``ProfileEpochs`` on a K2 b epoch: one trace whose kernel events
+    name K2's five CUDA kernels as often as ``KERNEL_LAUNCHES`` counted
+    them in the epoch."""
+    import glob
+
+    from msd_tpu_torch.ops import fused_train as ft
+    from msd_tpu_torch.train.stage1 import Stage1Trainer
+
+    exp = str(tmp_path / "profiled")
+    tr = Stage1Trainer(exp, specs=dict(train_data, NumEpochs=1, ProfileEpochs=[1]), device="cuda")
+    ft.reset_launches()
+    tr.train(num_epochs=1, eval_hooks=False)
+    counted = dict(ft.KERNEL_LAUNCHES)
+    (path,) = glob.glob(os.path.join(exp, "TensorBoard", "profile", "rank0.*.pt.trace.json"))
+    with open(path) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    traced = {k: sum(k in name for name in kernels) for k in counted}
+    assert traced == counted and counted["chain_kernel"] > 0 and counted["wgrad_kernel"] > 0
 
 
 def test_stage2_points_mode_takes_k2d_once_per_step(dev, train_data, tmp_path):
