@@ -12,14 +12,19 @@ non-zero and prints no result. Phases, one JSON line each:
 3. k1: the fused SDF-query kernel (csrc/fused_mlp.cu) against its plain
    PyTorch version at the flagship decoder's full width
    (examples/ADNI/minimal_eikonal/specs.json), in bf16 (the wgmma route)
-   and float32 (the mma_sync route), on two inputs whose last point tile is
+   and float32 (the f32 route), on two inputs whose last point tile is
    ragged: 2^20 + 37 seeded points in [-1, 1]^3 (errors, sign agreement,
    times by CUDA events, FLOP bound) and the 65^3 corner lattice that
-   create_mesh evaluates first at N=257. On the bf16 spec also, in the same
-   run: the mma_sync kernel on the same spec and points (errors and
-   time), torch.matmul of one bf16 512 x 512 product over 2^20 rows (a
-   reference for the products alone), and both routes' registers, spills
-   and shared memory.
+   create_mesh evaluates first at N=257. The same on the flagship-width
+   LayerNorm decoder (``ln_decoder``: norm_layers 0-7, no weight norm,
+   seeded LayerNorm affine), which takes the wgmma kernel's LayerNorm
+   instantiation in bf16 and the f32 kernel in float32. On every one of
+   those four specs also, in the same run: the mma_sync kernel on the same
+   spec and points (errors and time). On the bf16 flagship torch.matmul of
+   one bf16 512 x 512 product over 2^20 rows (a reference for the products
+   alone). Then the mma_sync route on its own configs, hidden widths over
+   512 (``WIDE_NET``), in both types (k1_wide), and every K1 kernel's
+   registers, spills and shared memory (k1_kernels).
 4. serving: the port's main path as a user runs it. A seeded flagship
    checkpoint and two seeded ellipsoids (250k + 250k SdfSamples each, plus
    SurfaceSamples) are written to a temporary experiment; then
@@ -30,6 +35,13 @@ non-zero and prints no result. Phases, one JSON line each:
    one reconstructed latent is meshed twice more at N=257, through the
    kernel and through the plain version on the card: active blocks of each
    and the symmetric Chamfer between the two meshes (``MESH_TOL``).
+4a. serving_variants: the serving path on the decoders the other two K1
+   kernels serve (``serving_variants``): the flagship-width LayerNorm
+   decoder through the reconstruct CLI on the first shape (its mesh
+   streamed at N=257, every K1 launch on the wgmma route), and
+   ``create_mesh(eval_dtype=torch.float32)`` of the flagship on the first
+   latent at N=257 (every K1 launch on the f32 route, beside the bf16
+   mesh); K1 counted from 0 before each.
 4b. mesher_ab: the same latent's sparse block values at N=257 meshed
    through the C++ host mesher (msd_tpu_torch/native/marching_tets.cpp,
    create_mesh's route) and the numpy route: equal vertex and face counts,
@@ -320,6 +332,18 @@ HBM_BYTES_PER_S = 3.35e12
 # 4.2e-7; bf16 max 2.2e-3, mean 1.7e-5, sign agreement 0.999997. The limits
 # keep a margin of at least 4x over those.
 TOL = {"float32": {"max": 1e-5}, "bfloat16": {"max": 1e-2, "mean": 1e-4, "sign": 0.9999}}
+# The flagship-width LayerNorm decoder (``ln_decoder``) in bf16: LayerNorm
+# divides each row by its standard deviation, so a bf16 rounding that two
+# summation orders round apart moves the later layers further than on the
+# flagship. Measured on an H100 (PERF.md) against the plain version at
+# 2^20 + 37 points: the wgmma kernel max 1.87e-2, mean 1.56e-4, sign
+# 0.99987; the mma_sync kernel on the same spec max 2.19e-2, mean 1.98e-4,
+# sign 0.99983, both over TOL["bfloat16"]. The limits keep a margin of
+# about 2x (1 - sign: 3.8x); besides, the LayerNorm kernel may be no
+# further from the plain version than LN_OLD_RATIO times the mma_sync
+# kernel's max and mean error on the same points.
+TOL_LN = {"max": 4e-2, "mean": 3e-4, "sign": 0.9995}
+LN_OLD_RATIO = 1.5
 
 
 _LAST_PHASE = [time.time()]
@@ -481,34 +505,77 @@ def k1_errors(spec, latent, xyz, tol, label, fn=None):
     return r
 
 
+# K1's kernels in nvcc's -Xptxas -v log (mangled-name fragments), and the
+# route number msd_fused_mlp_smem_bytes takes for each
+K1_KERNELS = {
+    "fused_mlp_wgmma_kernelILb0E": ("wgmma", 1), "fused_mlp_wgmma_kernelILb1E": ("wgmma_ln", 1),
+    "fused_mlp_f32_kernel": ("f32", 2), "fused_mlp_kernelI13__nv_bfloat16Lb0E": ("mma_sync_bf16", 0),
+    "fused_mlp_kernelIfLb0E": ("mma_sync_f32", None),
+}
+
+
 def k1_ptxas(log):
-    """Registers, spills and stack of K1's bf16 kernels, from nvcc's
-    ``-Xptxas -v`` log, with their dynamic shared memory at width 512."""
+    """Registers, spills and stack of K1's kernels (both wgmma
+    instantiations, f32, mma_sync in bf16 and float32), from nvcc's
+    ``-Xptxas -v`` log, with their dynamic shared memory at width 512. An
+    empty log (the library was built by an earlier run) reports nothing."""
     from msd_tpu_torch.ops._build import load_library
 
     lib = load_library("fused_mlp")
-    names = {"fused_mlp_wgmma_kernel": "wgmma", "fused_mlp_kernelI13__nv_bfloat16Lb0E": "mma_sync_bf16"}
+    if not log:
+        return {"ptxas": "not reported: the library was built before this run"}
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            cur = next((v for k, v in names.items() if k in ln), None)
+            cur = next((v for k, v in K1_KERNELS.items() if k in ln), None)
             if cur:
-                out[cur] = {"ptxas": [], "dynamic_smem_bytes": lib.msd_fused_mlp_smem_bytes(
-                    0 if cur.startswith("mma") else 1, 512)}
+                name, route = cur
+                out[name] = {"ptxas": [], "dynamic_smem_bytes": None if route is None
+                             else lib.msd_fused_mlp_smem_bytes(route, 512)}
+                cur = name
         elif cur and ("registers" in ln or "spill" in ln or "arning" in ln):
             out[cur]["ptxas"].append(ln.strip())
+    missing = {v[0] for v in K1_KERNELS.values()} - set(out)
+    if missing:
+        raise AssertionError(f"K1: no ptxas report for {sorted(missing)}")
     return out
 
 
-def check_k1(decoder, latent, n_points, seed, dev):
-    """K1 against its plain version at the decoder's width, on ``n_points``
-    uniform points (timed) and on the serving path's first corner lattice;
-    on a wgmma-route spec also the mma_sync route and a torch.matmul reference
-    (same run); returns the per-dtype results."""
+def ln_decoder(specs, seed, dev):
+    """The flagship's NetworkSpecs with every hidden layer LayerNorm and no
+    weight norm (norm_layers 0-7: 8 x 512, latent 256, latent_in [4]),
+    seeded; LayerNorm scale drawn in [0.5, 1.5] and bias in +-0.1 so it is
+    not the identity, then give_surface_ as for the flagship."""
+    import torch
+
+    from msd_tpu_torch.models import build_decoder
+    from msd_tpu_torch.models.deepsdf import give_surface_
+
+    net = dict(specs["NetworkSpecs"], norm_layers=list(range(len(specs["NetworkSpecs"]["dims"]))),
+               weight_norm=False)
+    g = torch.Generator().manual_seed(seed + 20)
+    dec = build_decoder(specs["NetworkArch"], specs["CodeLength"], net, generator=g)
+    with torch.no_grad():
+        for layer in net["norm_layers"]:
+            bn = getattr(dec, f"bn{layer}")
+            bn.weight.copy_(0.5 + torch.rand(bn.weight.shape, generator=g))
+            bn.bias.copy_(0.2 * torch.rand(bn.bias.shape, generator=g) - 0.1)
+    dec = dec.to(dev).eval()
+    give_surface_(dec, torch.zeros(specs["CodeLength"]))
+    return dec, net
+
+
+def check_k1(decoder, latent, n_points, seed, dev, label="flagship"):
+    """K1 against its plain version at the decoder's width, in bf16 (the
+    wgmma route) and float32 (the f32 route), on ``n_points`` uniform points
+    (timed) and on the serving path's first corner lattice. On each spec
+    also the mma_sync kernel (the route of widths over 512) on the same
+    points, held to the same limits and timed in the same run; on the bf16
+    flagship a torch.matmul reference. Returns the per-dtype results."""
     import torch
 
     from msd_tpu_torch import mesh
-    from msd_tpu_torch.ops import _build, fused_mlp
+    from msd_tpu_torch.ops import fused_mlp
     from msd_tpu_torch.ops.fused_mlp import FusedDecoderSpec, fused_eval, fused_eval_plain
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -520,54 +587,98 @@ def check_k1(decoder, latent, n_points, seed, dev):
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         spec = FusedDecoderSpec(decoder, dtype)
-        r = {"dtype": name, "route": spec.route, **k1_errors(spec, latent, xyz, TOL[name], f"{name} uniform")}
-        r[f"corner_lattice_{n_mesh}"] = k1_errors(spec, latent, corners, TOL[name], f"{name} corner lattice")
+        ln = any(spec.ln) and dtype == torch.bfloat16
+        tol = TOL_LN if ln else TOL[name]
+        r = {"decoder": label, "dtype": name, "route": spec.route, "tol": tol,
+             **k1_errors(spec, latent, xyz, tol, f"{label} {name} uniform")}
+        r[f"corner_lattice_{n_mesh}"] = k1_errors(spec, latent, corners, tol, f"{label} {name} corner lattice")
         w_bytes = sum(t.numel() * t.element_size() for t in spec.wp + spec.wx if t is not None)
         bytes_moved = n_points * 16 + w_bytes
         t_flops = flops / PEAK_FLOPS[name] * 1e3
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
         r.update({
             "ms": time_ms(lambda: fused_eval(spec, latent, xyz)),
-            "plain_ms": time_ms(lambda: fused_eval_plain(spec, latent, xyz)),
+            "plain_ms": time_ms(lambda: fused_eval_plain(spec, latent, xyz), reps=5, warmup=1),
             "bound_ms": max(t_flops, t_bytes), "bound_by": "operations" if t_flops >= t_bytes else "bytes",
             "flop": flops,
         })
         r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
-        if spec.route == "wgmma":
-            r.update(k1_ab(spec, latent, xyz, corners, flops, n_mesh, dev))
-            r["ms_again"] = time_ms(lambda: fused_eval(spec, latent, xyz))
-            r["kernels"] = k1_ptxas(_build.BUILD_LOGS.get("fused_mlp", ""))
+        r["mma_sync"] = k1_old(spec, latent, xyz, corners, flops, n_mesh, f"{label} {name}", tol)
+        if ln and any(r[k] > LN_OLD_RATIO * r["mma_sync"][k] for k in ("max_abs_err", "mean_abs_err")):
+            raise AssertionError(f"K1 {label} {name}: further from the plain version than {LN_OLD_RATIO} x the "
+                                 f"mma_sync kernel: {r['max_abs_err']}, {r['mean_abs_err']} against "
+                                 f"{r['mma_sync']['max_abs_err']}, {r['mma_sync']['mean_abs_err']}")
+        r["ms_again"] = time_ms(lambda: fused_eval(spec, latent, xyz))
+        if spec.route == "wgmma" and not any(spec.ln):
+            r.update(k1_matmul(xyz, flops, dev))
         phase("k1", **r)
         results[name] = r
     return results
 
 
-def k1_ab(spec, latent, xyz, corners, flops, n_mesh, dev):
-    """Measurements on a wgmma-route spec, same run: the mma_sync kernel
-    on the same spec and points (errors and time), and torch.matmul of one
-    bf16 [2^20, 512] x [512, 512] product, scaled by the decoder's kernel
-    weights over 512^2 (the products alone, no epilogue)."""
-    import torch
-
+def k1_old(spec, latent, xyz, corners, flops, n_mesh, label, tol):
+    """The mma_sync kernel on a spec of another route, same points and run:
+    errors on both inputs (limits ``tol``) and its time."""
     from msd_tpu_torch.ops import fused_mlp
 
     def old(s, lat, x):
         return fused_mlp._eval_mma_sync(s, lat, x)
 
-    mma_sync = k1_errors(spec, latent, xyz, TOL["bfloat16"], "mma_sync uniform", old)
-    mma_sync[f"corner_lattice_{n_mesh}"] = k1_errors(spec, latent, corners, TOL["bfloat16"],
-                                                     "mma_sync corner lattice", old)
-    mma_sync["ms"] = time_ms(lambda: old(spec, latent, xyz))
-    mma_sync["tflops"] = flops / (mma_sync["ms"] * 1e-3) / 1e12
+    r = k1_errors(spec, latent, xyz, tol, f"mma_sync {label} uniform", old)
+    r[f"corner_lattice_{n_mesh}"] = k1_errors(spec, latent, corners, tol, f"mma_sync {label} corner lattice", old)
+    r["ms"] = time_ms(lambda: old(spec, latent, xyz), reps=3, warmup=1)
+    r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+    return r
+
+
+def k1_matmul(xyz, flops, dev):
+    """torch.matmul of one bf16 [2^20, 512] x [512, 512] product, scaled by
+    the decoder's kernel weights over 512^2 (the products alone, no
+    epilogue): a reference for the bf16 flagship."""
+    import torch
+
     g = torch.Generator(device=dev).manual_seed(7)
     a = torch.randn(2**20, 512, generator=g, device=dev).to(torch.bfloat16)
     b = torch.randn(512, 512, generator=g, device=dev).to(torch.bfloat16)
     mm = time_ms(lambda: a @ b)
     products = flops / (2.0 * xyz.shape[0] * 512 * 512)
-    return {"mma_sync": mma_sync, "matmul_512_ms": mm,
-            "matmul_products": products, "matmul_ref_ms": mm * xyz.shape[0] / 2**20 * products,
+    return {"matmul_512_ms": mm, "matmul_products": products,
+            "matmul_ref_ms": mm * xyz.shape[0] / 2**20 * products,
             "matmul_note": "torch.matmul, one bf16 512x512 product over 2^20 rows, times the decoder's "
                            "kernel weights over 512^2 (6.0 products); no epilogue, no layer chain"}
+
+
+# The config of the mma_sync route's own timing: hidden widths over 512
+# (tests/test_torch_cuda.py's "wide"), which no shipped config has
+WIDE_NET = dict(dims=[1024, 1024, 512], latent_in=[1], weight_norm=False, norm_layers=[])
+
+
+def check_k1_wide(latent_size, n_points, seed, dev):
+    """The mma_sync route on its own configs (hidden widths over 512), bf16
+    and float32: against the plain version on ``n_points`` uniform points,
+    timed beside its bound."""
+    import torch
+
+    from msd_tpu_torch.models.deepsdf import DeepSDFDecoder
+    from msd_tpu_torch.ops.fused_mlp import FusedDecoderSpec, fused_eval, fused_eval_plain
+
+    dec = DeepSDFDecoder(latent_size, generator=torch.Generator().manual_seed(seed + 30), **WIDE_NET).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xyz = torch.rand(n_points, 3, generator=g, device=dev) * 2 - 1
+    latent = 0.01 * torch.randn(latent_size, generator=g, device=dev)
+    flops = 2.0 * kernel_weights(dec) * n_points
+    out = {"net": WIDE_NET}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        spec = FusedDecoderSpec(dec, dtype)
+        if spec.route != "mma_sync":
+            raise AssertionError(f"K1 wide {name}: route {spec.route}, not mma_sync")
+        r = k1_errors(spec, latent, xyz, TOL[name], f"wide {name} uniform")
+        r.update(ms=time_ms(lambda: fused_eval(spec, latent, xyz), reps=5, warmup=1),
+                 plain_ms=time_ms(lambda: fused_eval_plain(spec, latent, xyz), reps=3, warmup=1),
+                 bound_ms=flops / PEAK_FLOPS[name] * 1e3, bound_by="operations")
+        out[name] = r
+    return out
 
 
 # K2 tolerances against its plain version (bf16, two summation orders that
@@ -2762,7 +2873,7 @@ def serve(root, specs, decoder, seed):
     t_eval = time.time() - t0
     launches = fused_mlp.LAUNCHES
     routes = dict(fused_mlp.ROUTE_LAUNCHES)
-    if routes != {"wgmma": launches, "mma_sync": 0}:
+    if routes != dict(dict.fromkeys(fused_mlp.ROUTES, 0), wgmma=launches):
         raise AssertionError(f"serving: K1 launches {launches} by route {routes}: not all on wgmma")
 
     for s in summary:
@@ -2785,6 +2896,85 @@ def serve(root, specs, decoder, seed):
     code = torch_load(os.path.join(exp_dir, "Reconstructions", "1", "Codes", summary[0]["shape"] + ".pth"))
     return (summary, results, t_eval, launches, routes, mesh_pair(decoder, code), mesher_ab(decoder, code, root),
             streaming(decoder, code, root, specs, seed))
+
+
+def serving_variants(root, specs, decoder, seed):
+    """The serving path on the decoders the other two K1 kernels serve, as
+    a user runs it, after ``serve`` (its data, split and first latent under
+    ``root``), K1's counters set to 0 just before each run and read just
+    after:
+
+    * ln: the flagship-width LayerNorm decoder (``ln_decoder``) saved as an
+      experiment and reconstructed by ``python -m msd_tpu_torch.reconstruct``
+      on the first shape (800 x 8000: the fit on float32 autograd, no K1),
+      then meshed by create_mesh, streamed at N=257 through PointEvaluator:
+      every K1 launch on the wgmma route (its LayerNorm instantiation);
+    * f32: ``create_mesh(eval_dtype=torch.float32)`` of the flagship on the
+      serving phase's first latent at N=257 (streamed): every K1 launch on
+      the f32 route; its vertex count beside the bf16 mesh's.
+
+    Returns (summary, K1 launches of the ln run, of the f32 run)."""
+    import torch
+
+    from msd_tpu_torch import mesh
+    from msd_tpu_torch import reconstruct as reconstruct_cli
+    from msd_tpu_torch.ops import fused_mlp
+    from msd_tpu_torch.utils.checkpoint import save_model
+
+    dev = next(decoder.parameters()).device
+    ln_dec, ln_net = ln_decoder(specs, seed, dev)
+    exp_dir, data_dir = os.path.join(root, "experiment_ln"), os.path.join(root, "data")
+    os.makedirs(exp_dir)
+    with open(os.path.join(exp_dir, "specs.json"), "w") as f:
+        json.dump(dict(specs, NetworkSpecs=ln_net), f, indent=2)
+    save_model(exp_dir, "latest.pth", ln_dec, 1)
+    with open(os.path.join(root, "smoke_test_split.json")) as f:
+        split = json.load(f)
+    first = split["smoke"]["ellipsoid"][0]
+    split_path = os.path.join(root, "smoke_test_split_ln.json")
+    with open(split_path, "w") as f:
+        json.dump({"smoke": {"ellipsoid": [first]}}, f)
+
+    def counted(fn):
+        fused_mlp.LAUNCHES = 0
+        fused_mlp.ROUTE_LAUNCHES = dict.fromkeys(fused_mlp.ROUTES, 0)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, fused_mlp.LAUNCHES, dict(fused_mlp.ROUTE_LAUNCHES)
+
+    summary, seconds, ln_launches, ln_routes = counted(lambda: reconstruct_cli.main([
+        "-e", exp_dir, "-s", split_path, "--quiet", "-c", "latest", "-d", os.path.join(data_dir, "SdfSamples"),
+        "--iters", "800", "--mesh_resolution", "256", "--device", "cuda"]))
+    shape = summary[0]
+    if ln_launches <= 0 or ln_routes != dict(dict.fromkeys(fused_mlp.ROUTES, 0), wgmma=ln_launches):
+        raise AssertionError(f"serving_variants ln: K1 launches {ln_launches} by route {ln_routes}")
+    if not os.path.isfile(os.path.join(exp_dir, "Reconstructions", "1", "Meshes", first + ".ply")):
+        raise AssertionError(f"serving_variants ln: no mesh for {first}: {shape}")
+    if shape["faces"] <= 0 or not shape["loss_last_tenth"] < shape["loss_first_tenth"]:
+        raise AssertionError(f"serving_variants ln: empty mesh or the loss did not fall: {shape}")
+
+    code = torch_load(os.path.join(root, "experiment", "Reconstructions", "1", "Codes", first + ".pth"))
+    code = code.reshape(-1).to(dev)
+    N = mesh._snap_n(257)
+    (v32, f32), s32, f32_launches, f32_routes = counted(
+        lambda: mesh.create_mesh(decoder, code, N=N, return_mesh=True, eval_dtype=torch.float32))
+    stream32 = dict(mesh.LAST_STREAMING_STATS)
+    (v16, f16), s16, bf16_launches, _ = counted(lambda: mesh.create_mesh(decoder, code, N=N, return_mesh=True))
+    if not stream32:
+        raise AssertionError("serving_variants f32: create_mesh did not stream")
+    if f32_launches <= 0 or f32_routes != dict(dict.fromkeys(fused_mlp.ROUTES, 0), f32=f32_launches):
+        raise AssertionError(f"serving_variants f32: K1 launches {f32_launches} by route {f32_routes}")
+    if f32.shape[0] <= 0 or abs(v32.shape[0] - v16.shape[0]) > 0.01 * v16.shape[0]:
+        raise AssertionError(f"serving_variants f32: {v32.shape[0]} vertices against {v16.shape[0]} in bf16")
+    return {
+        "ln": {"net": ln_net, "shape": first, "seconds": seconds, "k1_launches": ln_launches,
+               "k1_route_launches": ln_routes, **{k: shape[k] for k in shape if k != "shape"}},
+        "f32": {"N": N, "seconds": s32, "k1_launches": f32_launches, "k1_route_launches": f32_routes,
+                "verts": int(v32.shape[0]), "faces": int(f32.shape[0]),
+                "stream": {k: stream32.get(k) for k in STREAM_STAT_KEYS},
+                "bf16_seconds": s16, "bf16_k1_launches": bf16_launches, "bf16_verts": int(v16.shape[0])},
+    }, ln_launches, f32_launches
 
 
 def torch_load(path):
@@ -4044,17 +4234,25 @@ def main(argv=None):
           kernel_weights=kernel_weights(decoder), bias_shift=shift)
     latent = 0.01 * torch.randn(specs["CodeLength"], generator=g).to(dev)
     k1 = check_k1(decoder, latent, 2**20 + 37, args.seed, dev)
+    ln_dec, _ = ln_decoder(specs, args.seed, dev)
+    k1_ln = check_k1(ln_dec, latent, 2**20 + 37, args.seed, dev, label="flagship_ln")
+    del ln_dec
+    k1_wide = check_k1_wide(specs["CodeLength"], 2**20 + 37, args.seed, dev)
+    phase("k1_wide", **k1_wide)
+    phase("k1_kernels", **k1_ptxas(_build.BUILD_LOGS.get("fused_mlp", "")))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
         t0 = time.time()
         summary, results, t_eval, launches, routes, pair, mesher, (stream, k1_stream) = serve(
             root, specs, decoder, args.seed)
         t_total = time.time() - t0
+        variants, k1_ln_launches, k1_f32_launches = serving_variants(root, specs, decoder, args.seed)
     for s in summary:
         phase("serving_shape", **s)
     phase("serving", seconds=t_total, evaluate_seconds=t_eval, k1_launches=launches, k1_route_launches=routes,
           chamfer={r[0]: r[1][0] for r in results}, kernel_vs_plain_mesh=pair,
           note="seeded weights, not trained: the Chamfer is no quality figure")
+    phase("serving_variants", **variants)
     phase("mesher_ab", **mesher)
     phase("streaming", **stream)
 
@@ -4106,29 +4304,35 @@ def main(argv=None):
                                                   os.path.join(root2, "figures"))
             phase("figures", **figures_summary)
 
-    bf16 = k1["bfloat16"]
+    bf16, f32, ln = k1["bfloat16"], k1["float32"], k1_ln["bfloat16"]
 
     def worst(r):  # max abs error over both K1 inputs
         return max(r["max_abs_err"], r["corner_lattice_257"]["max_abs_err"])
 
+    def k1_entry(r):
+        return {"max_abs_err": worst(r), **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": None, "library_note": "no single PyTorch call computes the whole decoder",
+                "dtype": r["dtype"], "decoder": r["decoder"], "points": r["points"], "kernel_route": r["route"],
+                "ms_again": r["ms_again"], "mma_sync_ms": r["mma_sync"]["ms"],
+                "mma_sync_max_abs_err": worst(r["mma_sync"])}
+
     b, a = k2["b"], k2["a"]
     autograd_step = {"autograd_step_ms": training["step_ms_by_path"]["autograd_b"],
                      "autograd_step_note": "the trainer's float32 autograd step, batch_split 4, same batch"}
+    k1_source = {"route": "cuda", "source": "msd_tpu_torch/csrc/fused_mlp.cu",
+                 "replaces": "msd_tpu/ops/fused_mlp.py:211"}
     print(json.dumps({"kernels": [{
-        "name": "fused_mlp", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_mlp.cu",
-        "replaces": "msd_tpu/ops/fused_mlp.py:211", "launches": launches, "launches_stage2": k1_stage2,
+        "name": "fused_mlp", **k1_source, "launches": launches, "launches_stage2": k1_stage2,
         "launches_stage2_points": k1_points, "launches_serving_ranks": k1_ranks,
-        "launches_streaming": k1_stream, "launches_figures": k1_figures,
-        "max_abs_err": worst(bf16), "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
-        "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"], "library_ms": None,
-        "library_note": "no single PyTorch call computes the whole decoder",
-        "dtype": "bfloat16", "points": bf16["points"], "kernel_route": bf16["route"],
-        "route_launches": routes, "ms_again": bf16["ms_again"],
-        "mma_sync_ms": bf16["mma_sync"]["ms"], "mma_sync_max_abs_err": worst(bf16["mma_sync"]),
-        "matmul_ref_ms": bf16["matmul_ref_ms"],
-        "matmul_512_ms": bf16["matmul_512_ms"],
-        "float32": {"max_abs_err": worst(k1["float32"]),
-                    **{k: k1["float32"][k] for k in ("ms", "plain_ms", "bound_ms")}},
+        "launches_streaming": k1_stream, "launches_figures": k1_figures, **k1_entry(bf16),
+        "route_launches": routes, "matmul_ref_ms": bf16["matmul_ref_ms"], "matmul_512_ms": bf16["matmul_512_ms"],
+        "mma_sync_wide": {name: {k: k1_wide[name][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                          for name in ("bfloat16", "float32")},
+    }, {
+        "name": "fused_mlp_wgmma_ln", **k1_source, "launches": k1_ln_launches, **k1_entry(ln),
+    }, {
+        "name": "fused_mlp_f32", **k1_source, "launches": k1_f32_launches, **k1_entry(f32),
+        "layer_norm": k1_entry(k1_ln["float32"]),
     }, {
         "name": "fused_train", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_train.cu",
         "replaces": "msd_tpu/ops/fused_train.py:423", "launches": k2_launches + k2_gmm_launches,

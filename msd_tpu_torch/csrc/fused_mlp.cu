@@ -12,11 +12,13 @@
 // the kernel (3.147 MFLOP per point) against 16 bytes of point I/O, so 2^20
 // points take at least 3.34 ms at the 989 TFLOP/s dense bf16 peak.
 //
-// Two routes, chosen by the decoder once (ops/fused_mlp.py, spec.route):
-//   wgmma     bf16 operands, no LayerNorm, hidden widths up to 512 (every
-//             shipped config): fused_mlp_wgmma_kernel, below;
-//   mma_sync  everything else (LayerNorm, float32 operands, wider layers):
-//             fused_mlp_kernel, described next.
+// Three routes, chosen by the decoder once (ops/fused_mlp.py, spec.route):
+//   wgmma     bf16 operands, hidden widths up to 512, with or without
+//             LayerNorm (every shipped config): fused_mlp_wgmma_kernel<LN>;
+//   f32       float32 operands, hidden widths up to 512, with or without
+//             LayerNorm: fused_mlp_f32_kernel;
+//   mma_sync  hidden widths over 512, either operand type: fused_mlp_kernel,
+//             described next (also callable on any spec, for measurements).
 //
 // mma_sync design. The TPU kernel kept all weights resident on chip; 3.15 MB of bf16
 // weights are far over a block's 227 KB of shared memory, but they sit in
@@ -46,6 +48,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -413,7 +417,7 @@ int launch(Params& p, long long scratch_bytes, cudaStream_t stream) {
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The wgmma route: bf16, no LayerNorm, hidden widths padded to 256 or 512.
+// The wgmma route: bf16, hidden widths padded to 256 or 512, LayerNorm or not.
 //
 // Why the mma_sync design stays far from the bound: a 64-point block streams all
 // 3.15 MB of bf16 weights from L2 (51.6 GB per 2^20 points) and ends every
@@ -441,12 +445,19 @@ int launch(Params& p, long long scratch_bytes, cudaStream_t stream) {
 //     The last layer (one output) is a per-row dot product fused into the
 //     last hidden layer's epilogue, reduced over the quad of threads that
 //     shares a row, then c_last, the optional use_tanh and tanh;
+//   * LayerNorm layers (the LN = true instantiation) take the row mean and
+//     variance in float32 over the true width before ReLU: per N tile two
+//     passes reduced over the quad, the two N tiles of a 512-wide layer
+//     merged by Chan's formula. N tile 0's float32 values wait in a device
+//     scratch (L2-resident) until N tile 1's statistics exist; the layer
+//     before the last feeds the dot product only after both;
 //   * rows past n read xyz 0 and are not stored.
 // Measured slower on an H100 and not kept (PERF.md): sharing each weight
 // tile across a 2-block cluster by .multicast::cluster (half the L2
 // traffic; L2 was not the limit, and a ring slot then waits for the
-// slower of four consumer warpgroups), and 128-wide N tiles in a 6 x 16 KB
-// ring.
+// slower of four consumer warpgroups), 128-wide N tiles in a 6 x 16 KB
+// ring, and LayerNorm's row sum taken in the pass that adds c_l (fewer
+// spills, yet slower on the flagship-width LayerNorm decoder).
 // Shared memory: 1024 (alignment) + 128 KB activations + 3 x 32 KB ring +
 // the barriers = 230,448 bytes: one block per SM.
 // ---------------------------------------------------------------------------
@@ -478,8 +489,12 @@ struct Params {
   const bf16* wlast;              // [in_pad of the last layer]
   const float* wx[MAX_LAYERS];    // [out_pad][4] bf16-rounded xyz weights, or null
   const float* cl[MAX_LAYERS];    // [out_pad] latent consts + bias
+  const float* lns[MAX_LAYERS];   // LN: [out_pad] LayerNorm scale (zero-padded), or null
+  const float* lnb[MAX_LAYERS];   // LN: [out_pad] LayerNorm bias (zero-padded), or null
+  float4* scratch;                // LN: [grid][2][32][128] float4, N tile 0 of a 512-wide LayerNorm layer
   int in_pad[MAX_LAYERS];         // 0 for layer 0
   int out_pad[MAX_LAYERS];        // 256 or 512; 1 for the last layer
+  int out_true[MAX_LAYERS];       // true widths (LayerNorm statistics)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -591,6 +606,10 @@ __device__ __forceinline__ void load_xyz(const Params& p, long long row, float* 
   for (int j = 0; j < 3; ++j) x[j] = row < p.n ? bf(__float2bfloat16_rn(p.xyz[3 * row + j])) : 0.0f;
 }
 
+// LN selects the epilogue at compile time: LN = false (every shipped
+// config) is the kernel without LayerNorm; LN = true adds the LayerNorm
+// layers' epilogue and leaves the other layers' as they are.
+template <bool LN>
 __global__ void __launch_bounds__(THREADS, 1) fused_mlp_wgmma_kernel(const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -669,9 +688,9 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mlp_wgmma_kernel(const __gri
       acc_fence(acc);
     };
 
-    // float32 epilogue of N tile nt of ``layer``: xyz term, c_l, ReLU, bf16;
-    // emit(j, h, pair) takes each bf16 pair
-    auto epilogue = [&](float(&acc)[128], int layer, int nt, long long row, auto emit) {
+    // float32 values of N tile nt of ``layer``: the products plus the xyz
+    // term and c_l; take(j, h, v0, v1) takes each pair of columns
+    auto xyz_cl = [&](const float(&acc)[128], int layer, int nt, long long row, auto take) {
       const float* wx = p.wx[layer];
       float x[2][3];
       if (wx != nullptr) {
@@ -694,10 +713,79 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mlp_wgmma_kernel(const __gri
             v0 += x[h][0] * w0.x + x[h][1] * w0.y + x[h][2] * w0.z;
             v1 += x[h][0] * w1.x + x[h][1] * w1.y + x[h][2] * w1.z;
           }
-          emit(j, h, __floats2bfloat162_rn(fmaxf(v0 + cc.x, 0.0f), fmaxf(v1 + cc.y, 0.0f)));
+          take(j, h, v0 + cc.x, v1 + cc.y);
         }
       }
     };
+
+    // float32 epilogue of N tile nt of ``layer``: xyz term, c_l, ReLU, bf16;
+    // emit(j, h, pair) takes each bf16 pair
+    auto epilogue = [&](float(&acc)[128], int layer, int nt, long long row, auto emit) {
+      xyz_cl(acc, layer, nt, row, [&](int j, int h, float v0, float v1) {
+        emit(j, h, __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f)));
+      });
+    };
+
+    // LayerNorm layers (LN only). Each row's values lie in a quad of
+    // threads, 64 per thread per N tile. ``pre`` turns the products into
+    // the float32 pre-LayerNorm values in place (``xyz_cl``), ``stats``
+    // takes an N tile's row mean and sum of squared deviations over its
+    // columns below the true width (two passes, reduced over the quad), and
+    // ``norm`` normalises, scales, shifts, applies ReLU and hands each bf16
+    // pair to ``emit``. Padded columns have scale and bias 0, so they stay 0.
+    auto pre = [&](float(&acc)[128], int layer, int nt, long long row) {
+      xyz_cl(acc, layer, nt, row, [&](int j, int h, float v0, float v1) {
+        acc[4 * j + 2 * h] = v0;
+        acc[4 * j + 2 * h + 1] = v1;
+      });
+    };
+    auto stats = [&](const float(&acc)[128], int valid, float(&mean)[2], float(&m2)[2]) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float s = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          if (8 * (i >> 1) + 2 * q + (i & 1) < valid) s += acc[4 * (i >> 1) + 2 * h + (i & 1)];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        mean[h] = s / static_cast<float>(valid);
+        float d2 = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          if (8 * (i >> 1) + 2 * q + (i & 1) < valid) {
+            const float d = acc[4 * (i >> 1) + 2 * h + (i & 1)] - mean[h];
+            d2 += d * d;
+          }
+        }
+        d2 += __shfl_xor_sync(0xffffffffu, d2, 1);
+        d2 += __shfl_xor_sync(0xffffffffu, d2, 2);
+        m2[h] = d2;
+      }
+    };
+    auto norm = [&](const float(&acc)[128], int layer, int nt, const float(&mean)[2], const float(&rstd)[2],
+                    auto emit) {
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j) {
+        const int col = nt * TN + 8 * j + 2 * q;
+        const float2 sc = __ldg(reinterpret_cast<const float2*>(p.lns[layer] + col));
+        const float2 sh = __ldg(reinterpret_cast<const float2*>(p.lnb[layer] + col));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v0 = (acc[4 * j + 2 * h] - mean[h]) * rstd[h] * sc.x + sh.x;
+          const float v1 = (acc[4 * j + 2 * h + 1] - mean[h]) * rstd[h] * sc.y + sh.y;
+          emit(j, h, __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f)));
+        }
+      }
+    };
+    // N tile 0's pre-LayerNorm values of a 512-wide LayerNorm layer wait
+    // in this thread's slice of the block's device scratch (float32, so
+    // the rounding points stay those of the plain version) until N tile
+    // 1's statistics exist: 128 registers cannot hold them beside tile
+    // 1's accumulators, shared memory is full, and running tile 0's
+    // products again would cost 1.45 times the products of those layers.
+    // Coalesced: float4 i of thread t at [i][t]; 17 MB on 132 SMs, L2-resident.
+    float4* const stash =
+        LN && p.scratch != nullptr ? p.scratch + (static_cast<size_t>(blockIdx.x) * 2 + c) * 32 * 128 + t : nullptr;
 
     for (long long tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
       const long long row = tile * BM + 64 * c + 16 * w + g;  // and row + 8
@@ -705,6 +793,69 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mlp_wgmma_kernel(const __gri
       for (int layer = 0; layer < last; ++layer) {
         const int nt_n = p.out_pad[layer] / TN, kt_n = p.in_pad[layer] / TK;
         float acc[128];
+        if constexpr (LN) {
+          if (p.lns[layer] != nullptr) {
+            const int out_true = p.out_true[layer];
+            float mean[2], m2[2], rstd[2];
+            if (nt_n == 2) {
+              mma(acc, kt_n);
+              pre(acc, layer, 0, row);
+              stats(acc, TN, mean, m2);  // tile 0 is all inside the true width
+#pragma unroll
+              for (int i = 0; i < 32; ++i)
+                stash[i * 128] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+            }
+            const int nt = nt_n - 1;
+            mma(acc, kt_n);
+            pre(acc, layer, nt, row);
+            const int n1 = out_true - nt * TN;
+            float mean1[2], m21[2];
+            stats(acc, n1, mean1, m21);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float mu = mean1[h], s2 = m21[h];
+              if (nt_n == 2) {  // Chan's merge of tile 0 (TN columns) and tile 1 (n1)
+                const float n0 = static_cast<float>(TN), nb = static_cast<float>(n1), nn = n0 + nb;
+                const float delta = mean1[h] - mean[h];
+                mu = mean[h] + delta * (nb / nn);
+                s2 = m2[h] + m21[h] + delta * delta * (n0 * nb / nn);
+              }
+              mean[h] = mu;
+              rstd[h] = rsqrtf(s2 / static_cast<float>(out_true) + LN_EPS);
+            }
+            if (layer == last - 1) {  // the dot product over the normalised outputs
+              auto to_dot = [&](int ntile, int j, int h, __nv_bfloat162 v) {
+                const __nv_bfloat162 wl =
+                    *reinterpret_cast<const __nv_bfloat162*>(p.wlast + ntile * TN + 8 * j + 2 * q);
+                dot[h] += bf(v.x) * bf(wl.x) + bf(v.y) * bf(wl.y);
+              };
+              norm(acc, layer, nt, mean, rstd, [&](int j, int h, __nv_bfloat162 v) { to_dot(nt, j, h, v); });
+              if (nt_n == 2) {
+#pragma unroll
+                for (int i = 0; i < 32; ++i) {
+                  const float4 v = stash[i * 128];
+                  acc[4 * i] = v.x, acc[4 * i + 1] = v.y, acc[4 * i + 2] = v.z, acc[4 * i + 3] = v.w;
+                }
+                norm(acc, layer, 0, mean, rstd, [&](int j, int h, __nv_bfloat162 v) { to_dot(0, j, h, v); });
+              }
+            } else {
+              named_bar_sync(1 + c, 128);  // every warp's products have read the layer's input
+              norm(acc, layer, nt, mean, rstd,
+                   [&](int j, int h, __nv_bfloat162 v) { *pair(4 * nt + (j >> 3), j, h) = v; });
+              if (nt_n == 2) {
+#pragma unroll
+                for (int i = 0; i < 32; ++i) {
+                  const float4 v = stash[i * 128];
+                  acc[4 * i] = v.x, acc[4 * i + 1] = v.y, acc[4 * i + 2] = v.z, acc[4 * i + 3] = v.w;
+                }
+                norm(acc, layer, 0, mean, rstd, [&](int j, int h, __nv_bfloat162 v) { *pair(j >> 3, j, h) = v; });
+              }
+              fence_proxy_async();
+              named_bar_sync(1 + c, 128);  // the output is the next layer's input
+            }
+            continue;
+          }
+        }
         if (layer == last - 1) {
           // the last layer's dot product over this layer's bf16 outputs
           for (int nt = 0; nt < nt_n; ++nt) {
@@ -761,19 +912,354 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mlp_wgmma_kernel(const __gri
   }
 }
 
-int launch(const Params& p, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(fused_mlp_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+// bytes of LN scratch per block: two warpgroups' N tile 0 (64 x 256 float32 each)
+constexpr long long SCRATCH_PER_BLOCK = 2LL * 32 * 128 * 16;
+
+// persistent grid over ``tiles`` point tiles: one block per SM, or fewer
+// when there are fewer tiles
+cudaError_t grid_for(long long tiles, long long* grid) {
   int dev, sms;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) *grid = tiles < sms ? tiles : sms;
+  return e;
+}
+
+template <bool LN>
+int launch(const Params& p, long long grid, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(fused_mlp_wgmma_kernel<LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // persistent: one block per SM, or fewer when there are fewer tiles
-  const long long grid = p.tiles < sms ? p.tiles : sms;
-  fused_mlp_wgmma_kernel<<<static_cast<unsigned>(grid), THREADS, SMEM, stream>>>(p);
+  fused_mlp_wgmma_kernel<LN><<<static_cast<unsigned>(grid), THREADS, SMEM, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wg
+
+// ---------------------------------------------------------------------------
+// The f32 route: float32 operands, hidden widths up to 512, with or without
+// LayerNorm (create_mesh(eval_dtype=torch.float32), PointEvaluator(dtype=
+// torch.float32): the counterparts of msd_tpu's eval_dtype).
+//
+// Bound on an H100: the FP32 FMA pipe (exact float32 products and sums, no
+// TF32), 67 TFLOP/s: 49.25 ms per 2^20 flagship points. Why fused_mlp_kernel's
+// float32 path stays far from it: a 32-point block streams every float32
+// weight from L2 (206 GB per 2^20 points), keeps 8 accumulators a thread (6
+// shared-memory loads per 8 FMAs) and ends every 64-deep K tile in a block
+// barrier. This design:
+//   * persistent blocks (one per SM) walk 64-point tiles. Eight warps:
+//     warp w owns rows 8w..8w+7 of the tile, lane l the columns
+//     4l + 128i (i < 4, four float4), so a 512-wide layer's output sits in
+//     128 float32 registers a thread and each weight byte read from L2 feeds
+//     64 points (103 GB per 2^20 points);
+//   * the activations stay in shared memory ([64][512] float32, 128 KB). A
+//     warp reads and writes only its own 8 rows, so a __syncwarp orders a
+//     layer's output after its products, and no block barrier runs;
+//   * the weights, laid out once per spec K-major ([in_pad][out_pad], rows
+//     of out_pad floats; ops/fused_mlp.py, spec.wk), arrive as 16-deep K
+//     tiles (16 x out_pad x 4 bytes, at most 32 KB) through a 3-stage ring
+//     of mbarriers, by 1-D bulk copies that thread 0 issues into each slot
+//     once all eight warps have released it (no block barrier either);
+//   * per 4 K steps a thread loads 8 float4 of activations (a broadcast:
+//     the warp reads one address) and 16 float4 of weights for 512 FMAs, so
+//     the FMA pipe, not shared memory, sets the pace. The products take the
+//     count of float4 columns as a compile-time constant, with no branch
+//     inside, so the next K step's loads overlap this one's FMAs;
+//   * the epilogue: the xyz term, c_l, then LayerNorm where the layer has
+//     one (a row's values lie in one warp: two-pass statistics over the
+//     true width by warp shuffles) and ReLU; the last layer's dot product
+//     is fused into the epilogue of the layer before it;
+//   * rows past n read xyz 0 and are not stored. A width padded to an odd
+//     multiple of 64 leaves half the lanes' last float4 column outside the
+//     layer: they multiply into accumulators that nothing reads.
+// Measured slower on an H100 and not kept (PERF.md): 16 warps of 4 rows
+// (128 registers a thread, twice the weight loads per FMA).
+// Shared memory: 3 x 32 KB ring + 128 KB activations + xyz + barriers =
+// 230,448 bytes: one block per SM.
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int BM = 64;                        // points per tile
+constexpr int KMAX = 512;                     // widest hidden layer
+constexpr int TK = 16;                        // K rows per weight tile
+constexpr int STAGES = 3;                     // weight tiles in the ring
+constexpr int WARPS = 8;                      // 8 rows each
+constexpr int THREADS = 32 * WARPS;
+constexpr int SLOT_FLOATS = TK * KMAX;        // one ring slot (32 KB)
+constexpr int SMEM = (STAGES * SLOT_FLOATS + BM * KMAX + BM * 4) * 4 + 2 * STAGES * 8;
+
+struct Params {
+  const float* xyz;  // [n, 3]
+  float* out;        // [n]
+  long long n;
+  long long tiles;   // point tiles of BM
+  int n_layers, use_tanh;
+  const float* wk[MAX_LAYERS];   // [in_pad][out_pad] K-major, or null (layer 0)
+  const float* wx[MAX_LAYERS];   // [out_pad][4] xyz weights, or null
+  const float* cl[MAX_LAYERS];   // [out_pad] latent consts + bias
+  const float* lns[MAX_LAYERS];  // [out_pad] LayerNorm scale (zero-padded), or null
+  const float* lnb[MAX_LAYERS];  // [out_pad] LayerNorm bias (zero-padded), or null
+  const float* wlast;            // [in_pad of the last layer]
+  int in_pad[MAX_LAYERS];        // 0 for layer 0
+  int out_pad[MAX_LAYERS];       // multiples of 64 up to 512; 1 for the last layer
+  int out_true[MAX_LAYERS];      // true widths (LayerNorm statistics)
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+__global__ void __launch_bounds__(THREADS, 1) fused_mlp_f32_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) unsigned char f32_smem[];
+  float* const ring = reinterpret_cast<float*>(f32_smem);
+  float* const act = ring + STAGES * SLOT_FLOATS;  // [BM][KMAX]
+  float* const xs = act + BM * KMAX;               // [BM][4]
+  const uint32_t ring_s = wg::smem_u32(ring);
+  const uint32_t bars = wg::smem_u32(xs + BM * 4);  // full[s], then empty[s]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int last = p.n_layers - 1;
+
+  // Thread 0 also feeds the ring: every K tile of every layer with
+  // products, per point tile, in the order the warps consume them, each
+  // into the slot that every warp has just released. A dedicated producer
+  // warp would make 9 warps, 3 on one SM sub-partition, and cap every
+  // thread at 168 registers; the accumulators alone take 128.
+  bool feeds = false;  // whether any layer has products (else the ring is unused)
+  for (int layer = 0; layer < last; ++layer) feeds = feeds || p.wk[layer] != nullptr;
+  long long ld_tile = blockIdx.x;  // the next K tile to load: point tile, layer, K tile, slot
+  int ld_layer = -1, ld_kt = 0, ld_s = 0;
+  auto next_layer = [&]() {  // the next layer with products, wrapping to the next point tile
+    do {
+      if (++ld_layer == last) {
+        ld_layer = 0;
+        ld_tile += gridDim.x;
+      }
+    } while (p.wk[ld_layer] == nullptr);
+  };
+  auto issue_next = [&]() {
+    if (ld_tile >= p.tiles) return;
+    const int out_pad = p.out_pad[ld_layer];
+    const uint32_t bytes = TK * out_pad * 4;
+    wg::mbar_expect_tx(bars + 8 * ld_s, bytes);
+    wg::bulk_load(ring_s + ld_s * SLOT_FLOATS * 4, p.wk[ld_layer] + static_cast<size_t>(ld_kt) * TK * out_pad, bytes,
+                  bars + 8 * ld_s);
+    ld_s = ld_s + 1 == STAGES ? 0 : ld_s + 1;
+    if (++ld_kt == p.in_pad[ld_layer] / TK) {
+      ld_kt = 0;
+      next_layer();
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(bars + 8 * s, 1);
+      wg::mbar_init(bars + 8 * (STAGES + s), WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (feeds) {
+      next_layer();  // the first layer with products
+      for (int s = 0; s < STAGES; ++s) issue_next();
+    }
+  }
+  __syncthreads();
+
+  float* const arow = act + 8 * warp * KMAX;  // this warp's 8 rows
+  float* const xw = xs + 32 * warp;           // their xyz, [8][4]
+  int s = 0;
+  uint32_t ph = 0;
+  for (long long tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const long long row0 = tile * BM + 8 * warp;
+    __syncwarp();  // the previous tile's last reads of xw are done
+    if (lane < 24) {
+      const int r = lane / 3, j = lane % 3;
+      xw[4 * r + j] = row0 + r < p.n ? p.xyz[3 * (row0 + r) + j] : 0.0f;
+    }
+    __syncwarp();
+    for (int layer = 0; layer < last; ++layer) {
+      const int out_pad = p.out_pad[layer];
+      float acc[8][16];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 16; ++c) acc[r][c] = 0.0f;
+      bool on[4];  // which of this lane's four float4 columns lie inside out_pad
+#pragma unroll
+      for (int i = 0; i < 4; ++i) on[i] = 128 * i + 4 * lane < out_pad;
+
+      // the products, at a compile-time count of float4 columns per lane
+      // (ceil(out_pad / 128)) with no branch inside, so the compiler can
+      // load the next K step's operands while this one's FMAs run (behind a
+      // per-lane branch each weight load stalled its own 32 FMAs). A lane
+      // past out_pad in the last float4 column multiplies neighbouring ring
+      // floats into accumulators that nothing reads.
+      auto products = [&](auto nch_c) {
+        constexpr int NCH = decltype(nch_c)::value;
+        const int kt_n = p.in_pad[layer] / TK;
+        for (int kt = 0; kt < kt_n; ++kt) {
+          wg::mbar_wait(bars + 8 * s, ph);
+          const float* wt = ring + s * SLOT_FLOATS + 4 * lane;
+          const float* a = arow + kt * TK;
+#pragma unroll
+          for (int k4 = 0; k4 < TK; k4 += 4) {
+            float4 av[8];
+#pragma unroll
+            for (int r = 0; r < 8; ++r) av[r] = *reinterpret_cast<const float4*>(a + r * KMAX + k4);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float* wrow = wt + (k4 + kk) * out_pad;
+#pragma unroll
+              for (int i = 0; i < NCH; ++i) {
+                const float4 wv = *reinterpret_cast<const float4*>(wrow + 128 * i);
+#pragma unroll
+                for (int r = 0; r < 8; ++r) {
+                  const float x = comp(av[r], kk);
+                  acc[r][4 * i] = fmaf(x, wv.x, acc[r][4 * i]);
+                  acc[r][4 * i + 1] = fmaf(x, wv.y, acc[r][4 * i + 1]);
+                  acc[r][4 * i + 2] = fmaf(x, wv.z, acc[r][4 * i + 2]);
+                  acc[r][4 * i + 3] = fmaf(x, wv.w, acc[r][4 * i + 3]);
+                }
+              }
+            }
+          }
+          __syncwarp();
+          if (lane == 0) wg::mbar_arrive(bars + 8 * (STAGES + s));
+          if (threadIdx.x == 0) {  // slot s is free once every warp has arrived
+            wg::mbar_wait(bars + 8 * (STAGES + s), ph);
+            issue_next();
+          }
+          if (++s == STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      };
+      if (p.wk[layer] != nullptr) {
+        switch ((out_pad + 127) / 128) {
+          case 1: products(std::integral_constant<int, 1>()); break;
+          case 2: products(std::integral_constant<int, 2>()); break;
+          case 3: products(std::integral_constant<int, 3>()); break;
+          default: products(std::integral_constant<int, 4>()); break;
+        }
+      }
+
+      // epilogue: xyz term and c_l
+      const float* wx = p.wx[layer];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (!on[i]) continue;
+        const int col = 128 * i + 4 * lane;
+        const float4 cc = __ldg(reinterpret_cast<const float4*>(p.cl[layer] + col));
+        float4 w4[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w4[e] = wx != nullptr ? __ldg(reinterpret_cast<const float4*>(wx) + col + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float x0 = xw[4 * r], x1 = xw[4 * r + 1], x2 = xw[4 * r + 2];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v = acc[r][4 * i + e];
+            if (wx != nullptr) v += x0 * w4[e].x + x1 * w4[e].y + x2 * w4[e].z;
+            acc[r][4 * i + e] = v + comp(cc, e);
+          }
+        }
+      }
+      // LayerNorm over the true width (two passes, warp shuffles), then ReLU
+      if (p.lns[layer] != nullptr) {
+        const int out_true = p.out_true[layer];
+        const float inv = 1.0f / static_cast<float>(out_true);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          float sum = 0.0f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (on[i] && 128 * i + 4 * lane + e < out_true) sum += acc[r][4 * i + e];
+          const float mean = warp_sum(sum) * inv;
+          float d2 = 0.0f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (on[i] && 128 * i + 4 * lane + e < out_true) {
+                const float d = acc[r][4 * i + e] - mean;
+                d2 += d * d;
+              }
+          const float rstd = rsqrtf(warp_sum(d2) * inv + LN_EPS);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (!on[i]) continue;
+            const int col = 128 * i + 4 * lane;
+            const float4 sc = __ldg(reinterpret_cast<const float4*>(p.lns[layer] + col));
+            const float4 sh = __ldg(reinterpret_cast<const float4*>(p.lnb[layer] + col));
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[r][4 * i + e] = (acc[r][4 * i + e] - mean) * rstd * comp(sc, e) + comp(sh, e);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 16; ++c) acc[r][c] = fmaxf(acc[r][c], 0.0f);
+
+      if (layer < last - 1) {
+        __syncwarp();  // every lane's products have read the layer's input
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (!on[i]) continue;
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+            *reinterpret_cast<float4*>(arow + r * KMAX + 128 * i + 4 * lane) =
+                make_float4(acc[r][4 * i], acc[r][4 * i + 1], acc[r][4 * i + 2], acc[r][4 * i + 3]);
+        }
+        __syncwarp();  // the output is the next layer's input
+        continue;
+      }
+      // the last layer: one output per row, a dot product over this layer's outputs
+      float dot[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) dot[r] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (!on[i]) continue;
+        const float4 wl = __ldg(reinterpret_cast<const float4*>(p.wlast + 128 * i + 4 * lane));
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          dot[r] += acc[r][4 * i] * wl.x + acc[r][4 * i + 1] * wl.y + acc[r][4 * i + 2] * wl.z + acc[r][4 * i + 3] * wl.w;
+      }
+      const float* wxl = p.wx[last];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        float v = warp_sum(dot[r]);
+        if (lane == r && row0 + r < p.n) {
+          if (wxl != nullptr) v += xw[4 * r] * wxl[0] + xw[4 * r + 1] * wxl[1] + xw[4 * r + 2] * wxl[2];
+          v += p.cl[last][0];
+          if (p.use_tanh) v = tanhf(v);
+          p.out[row0 + r] = tanhf(v);
+        }
+      }
+    }
+  }
+}
+
+int launch(const Params& p, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(fused_mlp_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  long long grid = 0;
+  if (e == cudaSuccess) e = wg::grid_for(p.tiles, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fused_mlp_f32_kernel<<<static_cast<unsigned>(grid), THREADS, SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32
 
 }  // namespace
 
@@ -834,12 +1320,18 @@ int msd_fused_mlp_forward(int dtype, int n_layers, const void* xyz, void* out, l
 // The wgmma route. wt: the hidden layers' weight tiles, wtiles of them
 // ([256][64] bf16 each, 128-byte swizzled, in the order of the layers, N
 // tiles and K tiles); wlast: the last layer's [in_pad] bf16 weights; wx:
-// per layer [out_pad][4] float32 or null; cl: per layer [out_pad] float32.
-// in_pad[0] is 0; hidden out_pad is 256 or 512, the last layer's 1.
-// Returns a cudaError_t code.
+// per layer [out_pad][4] float32 or null; cl: per layer [out_pad] float32;
+// lns, lnb: per layer [out_pad] float32 LayerNorm scale and bias
+// (zero-padded), both null or both set, never on the last layer; out_true:
+// per layer true widths. in_pad[0] is 0; hidden out_pad is 256 or 512, the
+// last layer's 1. scratch: scratch_bytes bytes of device memory, at least
+// msd_fused_mlp_wgmma_scratch_bytes(n) when a LayerNorm layer is 512 wide
+// (else it may be null). Returns a cudaError_t code.
 int msd_fused_mlp_wgmma(int n_layers, const void* xyz, void* out, long long n, const void* wt, int wtiles,
-                        const void* wlast, const void* const* wx, const void* const* cl, const int* in_pad,
-                        const int* out_pad, int use_tanh, void* stream) {
+                        const void* wlast, const void* const* wx, const void* const* cl,
+                        const void* const* lns, const void* const* lnb, const int* in_pad,
+                        const int* out_pad, const int* out_true, int use_tanh, void* scratch,
+                        long long scratch_bytes, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (n_layers < 2 || n_layers > MAX_LAYERS || n < 0 || wlast == nullptr ||
       in_pad[0] != 0 || out_pad[n_layers - 1] != 1 || wtiles < 0 || (wtiles > 0) != (wt != nullptr))
@@ -853,28 +1345,95 @@ int msd_fused_mlp_wgmma(int n_layers, const void* xyz, void* out, long long n, c
   p.wtiles = wtiles;
   p.wt = static_cast<const __nv_bfloat16*>(wt);
   p.wlast = static_cast<const __nv_bfloat16*>(wlast);
+  p.scratch = static_cast<float4*>(scratch);
   long long tiles = 0;
+  bool ln = false, wide_ln = false;
   for (int l = 0; l < n_layers; ++l) {
     const bool last = l == n_layers - 1;
     if (cl[l] == nullptr || (l > 0 && in_pad[l] != out_pad[l - 1])) return bad;
-    if (!last && out_pad[l] != wg::TN && out_pad[l] != 2 * wg::TN) return bad;
+    if ((lns[l] == nullptr) != (lnb[l] == nullptr) || (last && lns[l] != nullptr)) return bad;
+    if (!last && (out_pad[l] != wg::TN && out_pad[l] != 2 * wg::TN)) return bad;
+    if (!last && (out_true[l] < 1 || out_true[l] > out_pad[l] || out_true[l] <= out_pad[l] - wg::TN)) return bad;
     if (!last) tiles += static_cast<long long>(out_pad[l] / wg::TN) * (in_pad[l] / wg::TK);
+    ln = ln || lns[l] != nullptr;
+    wide_ln = wide_ln || (lns[l] != nullptr && out_pad[l] == 2 * wg::TN);
     p.wx[l] = static_cast<const float*>(wx[l]);
     p.cl[l] = static_cast<const float*>(cl[l]);
+    p.lns[l] = static_cast<const float*>(lns[l]);
+    p.lnb[l] = static_cast<const float*>(lnb[l]);
     p.in_pad[l] = in_pad[l];
     p.out_pad[l] = out_pad[l];
+    p.out_true[l] = out_true[l];
   }
   if (tiles != wtiles) return bad;
   if (n == 0) return 0;
   p.tiles = (n + wg::BM - 1) / wg::BM;
-  return wg::launch(p, static_cast<cudaStream_t>(stream));
+  long long grid = 0;
+  const cudaError_t e = wg::grid_for(p.tiles, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (wide_ln && (scratch == nullptr || scratch_bytes < grid * wg::SCRATCH_PER_BLOCK)) return bad;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return ln ? wg::launch<true>(p, grid, s) : wg::launch<false>(p, grid, s);
+}
+
+// Bytes of device scratch msd_fused_mlp_wgmma needs for n points when a
+// LayerNorm layer is 512 wide (one block's share per SM the launch uses);
+// -1 on a CUDA error.
+long long msd_fused_mlp_wgmma_scratch_bytes(long long n) {
+  long long grid = 0;
+  if (wg::grid_for((n + wg::BM - 1) / wg::BM, &grid) != cudaSuccess) return -1;
+  return grid * wg::SCRATCH_PER_BLOCK;
+}
+
+// The f32 route. wk: per layer the [in_pad][out_pad] float32 weights of the
+// previous layer's output, K-major (null for layer 0 and the last layer);
+// wlast: the last layer's [in_pad] float32 weights; wx: per layer
+// [out_pad][4] float32 or null; cl: per layer [out_pad] float32; lns, lnb:
+// per layer [out_pad] LayerNorm scale and bias (zero-padded), both null or
+// both set, never on the last layer; out_true: per layer true widths.
+// in_pad[0] is 0; hidden out_pad is a multiple of 64 up to 512, the last
+// layer's 1. Returns a cudaError_t code.
+int msd_fused_mlp_f32(int n_layers, const void* xyz, void* out, long long n, const void* const* wk,
+                      const void* wlast, const void* const* wx, const void* const* cl, const void* const* lns,
+                      const void* const* lnb, const int* in_pad, const int* out_pad, const int* out_true,
+                      int use_tanh, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (n_layers < 2 || n_layers > MAX_LAYERS || n < 0 || wlast == nullptr || in_pad[0] != 0 || wk[0] != nullptr ||
+      out_pad[n_layers - 1] != 1)
+    return bad;
+  f32::Params p;
+  p.xyz = static_cast<const float*>(xyz);
+  p.out = static_cast<float*>(out);
+  p.n = n;
+  p.n_layers = n_layers;
+  p.use_tanh = use_tanh;
+  p.wlast = static_cast<const float*>(wlast);
+  for (int l = 0; l < n_layers; ++l) {
+    const bool last = l == n_layers - 1;
+    if (cl[l] == nullptr || (l > 0 && in_pad[l] != out_pad[l - 1])) return bad;
+    if ((lns[l] == nullptr) != (lnb[l] == nullptr) || (last && lns[l] != nullptr)) return bad;
+    if (!last && (out_pad[l] < 64 || out_pad[l] > f32::KMAX || out_pad[l] % 64 != 0)) return bad;
+    if (!last && (out_true[l] < 1 || out_true[l] > out_pad[l])) return bad;
+    if (!last && l > 0 && (wk[l] == nullptr) != (in_pad[l] == 0)) return bad;
+    p.wk[l] = last ? nullptr : static_cast<const float*>(wk[l]);
+    p.wx[l] = static_cast<const float*>(wx[l]);
+    p.cl[l] = static_cast<const float*>(cl[l]);
+    p.lns[l] = static_cast<const float*>(lns[l]);
+    p.lnb[l] = static_cast<const float*>(lnb[l]);
+    p.in_pad[l] = in_pad[l];
+    p.out_pad[l] = out_pad[l];
+    p.out_true[l] = out_true[l];
+  }
+  if (n == 0) return 0;
+  p.tiles = (n + f32::BM - 1) / f32::BM;
+  return f32::launch(p, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory of one block: route 0 the mma_sync kernel (bf16,
 // activations in shared memory) at hidden width kmax, route 1 the wgmma
-// kernel.
+// kernel, route 2 the f32 kernel.
 long long msd_fused_mlp_smem_bytes(int route, int kmax) {
-  return route == 1 ? wg::SMEM : smem_bytes_t<__nv_bfloat16, false>(kmax);
+  return route == 1 ? wg::SMEM : route == 2 ? f32::SMEM : smem_bytes_t<__nv_bfloat16, false>(kmax);
 }
 
 const char* msd_cuda_error_string(int code) {

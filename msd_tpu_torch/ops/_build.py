@@ -38,8 +38,13 @@ _SIGNATURES = {
         ),
         "msd_fused_mlp_wgmma": (
             ctypes.c_int,
-            [ctypes.c_int, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _PP, _PP, _PI, _PI,
-             ctypes.c_int, _P],
+            [ctypes.c_int, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _PP, _PP, _PP, _PP, _PI, _PI, _PI,
+             ctypes.c_int, _P, ctypes.c_longlong, _P],
+        ),
+        "msd_fused_mlp_wgmma_scratch_bytes": (ctypes.c_longlong, [ctypes.c_longlong]),
+        "msd_fused_mlp_f32": (
+            ctypes.c_int,
+            [ctypes.c_int, _P, _P, ctypes.c_longlong, _PP, _P, _PP, _PP, _PP, _PP, _PI, _PI, _PI, ctypes.c_int, _P],
         ),
         "msd_fused_mlp_scratch_bytes": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]),
         "msd_fused_mlp_smem_bytes": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_int]),

@@ -13,25 +13,33 @@ them on an H100: they are compute-bound. The flagship decoder
 (``examples/ADNI/minimal_eikonal/specs.json``) keeps 1,573,376 weights in
 the kernel, 3.147 MFLOP per point against 16 bytes of point I/O, so 2^20
 points need at least 3.34 ms at the dense bf16 tensor-core peak of
-989 TFLOP/s. The TPU kernel kept every weight resident on chip; 3.15 MB of
-bf16 weights do not fit a block's 227 KB of shared memory, so the Hopper
-kernels keep a tile of points' activations in shared memory instead and
-stream weight tiles from the (L2-resident) weights; activations never
-touch device memory. The decoder picks one of two routes, once, when its
-``FusedDecoderSpec`` is built (``spec.route``):
+989 TFLOP/s, and 49.25 ms at the 67 TFLOP/s float32 FMA peak. The TPU
+kernel kept every weight resident on chip; 3.15 MB of bf16 weights do not
+fit a block's 227 KB of shared memory, so the Hopper kernels keep a tile of
+points' activations in shared memory instead and stream weight tiles from
+the (L2-resident) weights; activations never touch device memory. The
+decoder picks one of three routes, once, when its ``FusedDecoderSpec`` is
+built (``spec.route``):
 
-* ``"wgmma"``: bf16 operands, no LayerNorm, hidden widths up to 512 (every
-  shipped config). 128-point blocks on ``wgmma``, the weights laid out
-  here once (``wtiles``) and copied in 32 KB tiles through an mbarrier
-  ring.
-* ``"mma_sync"``: every other config (LayerNorm, float32 operands, wider
-  layers). 64-point (bf16) or 32-point (float32) blocks on
-  ``mma.sync.m16n8k16`` or FMAs with ``cp.async`` weight tiles; decoders
-  with hidden widths over 640 keep the activations in a device scratch,
-  which ``fused_eval`` allocates at the size the kernel asks for.
+* ``"wgmma"``: bf16 operands, hidden widths up to 512, with or without
+  LayerNorm (every shipped config). 128-point blocks on ``wgmma``, the
+  weights laid out here once (``wtiles``) and copied in 32 KB tiles through
+  an mbarrier ring. A LayerNorm layer 512 wide keeps its first N tile's
+  float32 values in a device scratch (``wgmma_scratch_bytes``) until the
+  row statistics exist.
+* ``"f32"``: float32 operands, hidden widths up to 512, with or without
+  LayerNorm. 64-point blocks on exact float32 FMAs, each warp 8 rows by the
+  whole layer width, the weights laid out here once K-major (``wk``) and
+  copied in 16-deep K tiles through an mbarrier ring.
+* ``"mma_sync"``: hidden widths over 512, either operand type. 64-point
+  (bf16) or 32-point (float32) blocks on ``mma.sync.m16n8k16`` or FMAs
+  with ``cp.async`` weight tiles; decoders with hidden widths over 640 keep
+  the activations in a device scratch, which ``fused_eval`` allocates at
+  the size the kernel asks for. ``_eval_mma_sync`` runs it on any spec
+  (for measurements).
 
-A failed build or launch raises on either route; nothing retries on the
-other one.
+A failed build or launch raises on every route; nothing retries on another
+one.
 
 On a CPU tensor ``fused_eval`` computes the plain PyTorch version
 (``fused_eval_plain``) with the same rounding points. On a CUDA tensor it
@@ -50,12 +58,12 @@ from msd_tpu_torch.models.deepsdf import DeepSDFDecoder
 from msd_tpu_torch.ops._build import KernelError
 
 # Output tile of the mma_sync kernel per operand type: every hidden width
-# is zero-padded to a multiple of it.
+# is zero-padded to a multiple of it (the f32 route pads float32 to it too).
 TILE_N = {torch.bfloat16: 128, torch.float32: 64}
 # The wgmma route: hidden widths padded to multiples of its 256-wide N tile,
 # at most WGMMA_MAX_WIDTH; weight tiles of [WGMMA_TILE_N][WGMMA_TILE_K].
 WGMMA_TILE_N, WGMMA_TILE_K, WGMMA_MAX_WIDTH = 256, 64, 512
-ROUTES = ("wgmma", "mma_sync")
+ROUTES = ("wgmma", "f32", "mma_sync")
 # Weight bytes above which the config is refused, as the TPU kernel does
 # (``msd_tpu/ops/fused_mlp.py:98``).
 MAX_WEIGHT_BYTES = 10 * 1024 * 1024
@@ -82,15 +90,13 @@ def _round_up(x: int, m: int) -> int:
 
 
 def route_for(decoder, dtype: torch.dtype) -> str:
-    """The kernel route of a decoder at an operand type: "wgmma" for bf16
-    operands, no LayerNorm and hidden widths up to ``WGMMA_MAX_WIDTH``
-    (padded to ``WGMMA_TILE_N``), else "mma_sync"."""
+    """The kernel route of a decoder at an operand type: with hidden widths
+    up to ``WGMMA_MAX_WIDTH`` (LayerNorm or not), "wgmma" for bf16 operands
+    and "f32" for float32; wider decoders "mma_sync"."""
     hidden = [out_dim for (_, out_dim, _, _) in decoder.layer_shapes][:-1]
-    if (dtype != torch.bfloat16 or not hidden
-            or any(getattr(decoder, f"bn{layer}", None) is not None for layer in range(len(hidden)))
-            or any(_round_up(w, WGMMA_TILE_N) > WGMMA_MAX_WIDTH for w in hidden)):
+    if not hidden or any(w > WGMMA_MAX_WIDTH for w in hidden):
         return "mma_sync"
-    return "wgmma"
+    return "wgmma" if dtype == torch.bfloat16 else "f32"
 
 
 def swizzle128(tiles: torch.Tensor) -> torch.Tensor:
@@ -124,11 +130,14 @@ class FusedDecoderSpec:
     [L, out_pad] float32 (applied to the latent outside the kernel),
     ``bias`` [out_pad] float32 and ``ln`` (scale, bias) [out_pad] float32
     or None. Padded rows and columns are zero, which is exact for ReLU
-    layers; LayerNorm uses the true width ``out_true``. The last layer has
-    out_pad 1. ``route`` names the kernel (``route_for``); on the wgmma
-    route ``wtiles`` holds the hidden layers' ``wgmma_tiles`` of ``wp``
-    (layers 1 to n_layers - 2) in one bf16 buffer, ``n_wtiles`` of them, and
-    ``wx4`` each layer's ``wx`` as float32 [out_pad, 4] (or None). Raises
+    layers; LayerNorm uses the true width ``out_true`` (its padded scale and
+    bias are zero, so padded columns stay zero). The last layer has out_pad
+    1. ``route`` names the kernel (``route_for``); on the wgmma route
+    ``wtiles`` holds the hidden layers' ``wgmma_tiles`` of ``wp`` (layers 1
+    to n_layers - 2) in one bf16 buffer, ``n_wtiles`` of them; on the f32
+    route ``wk`` holds each hidden layer's ``wp`` transposed, K-major
+    [in_pad, out_pad] (None for layer 0 and the last layer); on both ``wx4``
+    holds each layer's ``wx`` as float32 [out_pad, 4] (or None). Raises
     UnsupportedConfig for the configs the TPU kernel refuses too (another
     decoder than ``DeepSDFDecoder``, ``xyz_in_all``, weights over
     ``MAX_WEIGHT_BYTES``), and ValueError for an operand type other than bfloat16 or float32."""
@@ -192,11 +201,14 @@ class FusedDecoderSpec:
         if weight_bytes > MAX_WEIGHT_BYTES:
             raise UnsupportedConfig(f"fused kernel: weights too large ({weight_bytes} B)")
         self.kmax = max([tile_n] + self.out_pad[:-1])
-        self.wtiles, self.n_wtiles, self.wx4 = None, 0, None
+        self.wtiles, self.n_wtiles, self.wk, self.wx4 = None, 0, None, None
         if self.route == "wgmma":
             tiles = [wgmma_tiles(w) for w in self.wp[1:-1]]
             self.n_wtiles = sum(t.shape[0] for t in tiles)
             self.wtiles = torch.cat([t.reshape(-1) for t in tiles]) if tiles else None
+        if self.route == "f32":
+            self.wk = [None if w is None else w.t().contiguous() for w in self.wp[:-1]] + [None]
+        if self.route != "mma_sync":
             self.wx4 = [None if w is None else torch.nn.functional.pad(w.float(), (0, 1)).contiguous()
                         for w in self.wx]
 
@@ -261,6 +273,8 @@ def fused_eval(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) 
         raise ValueError(f"fused_eval: unsupported device {xyz.device}")
     if spec.route == "wgmma":
         return _eval_wgmma(spec, latent, xyz)
+    if spec.route == "f32":
+        return _eval_f32(spec, latent, xyz)
     return _eval_mma_sync(spec, latent, xyz)
 
 
@@ -282,6 +296,27 @@ def _raise(lib, rc: int, route: str):
     raise KernelError(f"fused_mlp {route} kernel launch failed: {lib.msd_cuda_error_string(rc).decode()} ({rc})")
 
 
+def _ln_ptrs(spec: FusedDecoderSpec):
+    """Per-layer LayerNorm scale and bias pointer arrays (null where none)."""
+    return (_ptrs([None if ln is None else ln[0] for ln in spec.ln]),
+            _ptrs([None if ln is None else ln[1] for ln in spec.ln]))
+
+
+def wgmma_scratch_bytes(spec: FusedDecoderSpec, n: int) -> int:
+    """Device scratch the wgmma kernel needs for ``n`` points on the current
+    device: one block's share per SM the launch uses when a LayerNorm layer
+    is 512 wide (its first N tile's float32 values wait there for the row
+    statistics), else 0."""
+    if n == 0 or not any(ln is not None and o == 2 * WGMMA_TILE_N for ln, o in zip(spec.ln, spec.out_pad)):
+        return 0
+    from msd_tpu_torch.ops._build import load_library
+
+    need = load_library("fused_mlp").msd_fused_mlp_wgmma_scratch_bytes(n)
+    if need < 0:
+        raise KernelError("fused_mlp wgmma kernel: could not read the device's SM count")
+    return need
+
+
 def _eval_wgmma(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
     """The wgmma route on a CUDA tensor."""
     xyz = _check(spec, xyz)
@@ -295,11 +330,14 @@ def _eval_wgmma(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor)
     out = torch.empty(n, dtype=torch.float32, device=xyz.device)
     if n == 0:
         return out
-    wx, cl = _ptrs(spec.wx4), _ptrs(consts)  # alive until the call returns
+    need = wgmma_scratch_bytes(spec, n)
+    scratch = torch.empty(need, dtype=torch.uint8, device=xyz.device) if need else None
+    wx, cl, (lns, lnb) = _ptrs(spec.wx4), _ptrs(consts), _ln_ptrs(spec)  # alive until the call returns
     rc = lib.msd_fused_mlp_wgmma(
         spec.n_layers, xyz.data_ptr(), out.data_ptr(), n,
         None if spec.wtiles is None else spec.wtiles.data_ptr(), spec.n_wtiles, spec.wp[-1].data_ptr(),
-        wx, cl, _ints(spec.in_pad), _ints(spec.out_pad), int(spec.use_tanh),
+        wx, cl, lns, lnb, _ints(spec.in_pad), _ints(spec.out_pad), _ints(spec.out_true), int(spec.use_tanh),
+        None if scratch is None else scratch.data_ptr(), need,
         torch.cuda.current_stream(xyz.device).cuda_stream,
     )
     if rc != 0:
@@ -308,9 +346,34 @@ def _eval_wgmma(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor)
     return out
 
 
+def _eval_f32(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+    """The f32 route on a CUDA tensor."""
+    xyz = _check(spec, xyz)
+    if spec.route != "f32":
+        raise ValueError(f"fused_eval: a {spec.route} spec has no K-major float32 weights")
+    from msd_tpu_torch.ops._build import load_library
+
+    lib = load_library("fused_mlp")
+    n = xyz.shape[0]
+    consts = spec.latent_consts(latent.to(xyz.device))
+    out = torch.empty(n, dtype=torch.float32, device=xyz.device)
+    if n == 0:
+        return out
+    wk, wx, cl, (lns, lnb) = _ptrs(spec.wk), _ptrs(spec.wx4), _ptrs(consts), _ln_ptrs(spec)
+    rc = lib.msd_fused_mlp_f32(
+        spec.n_layers, xyz.data_ptr(), out.data_ptr(), n, wk, spec.wp[-1].data_ptr(), wx, cl, lns, lnb,
+        _ints(spec.in_pad), _ints(spec.out_pad), _ints(spec.out_true), int(spec.use_tanh),
+        torch.cuda.current_stream(xyz.device).cuda_stream,
+    )
+    if rc != 0:
+        _raise(lib, rc, "f32")
+    _count("f32")
+    return out
+
+
 def _eval_mma_sync(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
-    """The mma_sync route on a CUDA tensor (any spec: the flagship's too,
-    for measurements)."""
+    """The mma_sync route on a CUDA tensor (any spec: those of the other
+    routes too, for measurements)."""
     xyz = _check(spec, xyz)
     from msd_tpu_torch.ops._build import load_library
 
@@ -319,11 +382,9 @@ def _eval_mma_sync(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tens
     n = xyz.shape[0]
     consts = spec.latent_consts(latent.to(xyz.device))
     out = torch.empty(n, dtype=torch.float32, device=xyz.device)
-    ln_s = [None if ln is None else ln[0] for ln in spec.ln]
-    ln_b = [None if ln is None else ln[1] for ln in spec.ln]
     # keep every array alive until the launch calls return
     arrays = (
-        _ptrs(spec.wp), _ptrs(spec.wx), _ptrs(consts), _ptrs(ln_s), _ptrs(ln_b),
+        _ptrs(spec.wp), _ptrs(spec.wx), _ptrs(consts), *_ln_ptrs(spec),
         _ints(spec.in_pad), _ints(spec.out_pad), _ints(spec.out_true),
     )
     chunk = max(n, 1)

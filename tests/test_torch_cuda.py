@@ -118,11 +118,14 @@ def test_wide_launches_split_by_scratch(dtype, dev, monkeypatch):
     assert torch.equal(split, whole)  # points are independent: same bits
 
 
-def test_cuda_tensor_never_falls_back(dev, monkeypatch):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_tensor_never_falls_back(dtype, dev, monkeypatch):
     from msd_tpu_torch.ops import _build
 
-    spec = FusedDecoderSpec(_decoder(CONFIGS["flagship_shape"], dev), torch.bfloat16)
+    spec = FusedDecoderSpec(_decoder(CONFIGS["flagship_shape"], dev), dtype)
+    assert spec.route == ("wgmma" if dtype == torch.bfloat16 else "f32")
     latent, xyz = _inputs(10, dev)
+    before = _routes()
 
     def broken(name):
         raise RuntimeError("nvcc failed")
@@ -132,12 +135,14 @@ def test_cuda_tensor_never_falls_back(dev, monkeypatch):
         fused_eval(spec, latent, xyz)
     with pytest.raises(ValueError, match="float32"):
         fused_eval(spec, latent, xyz.double())
+    assert _routes() == before
 
 
-# K1's routes: bf16 without LayerNorm up to width 512 takes "wgmma", every
-# other config "mma_sync"
-ROUTE_BF16 = {"flagship_shape": "wgmma", "weight_norm": "wgmma", "layer_norm": "mma_sync", "use_tanh": "wgmma",
+# K1's routes: widths up to 512 take "wgmma" in bf16 and "f32" in float32,
+# LayerNorm or not; wider decoders "mma_sync"
+ROUTE_BF16 = {"flagship_shape": "wgmma", "weight_norm": "wgmma", "layer_norm": "wgmma", "use_tanh": "wgmma",
               "wide": "mma_sync", "wide_layer_norm": "mma_sync"}
+ROUTE_F32 = {name: "f32" if route == "wgmma" else route for name, route in ROUTE_BF16.items()}
 WGMMA_NS = [0, 1, 37, 127, 128, 129, 1000, 2**16 + 37]
 
 
@@ -166,27 +171,132 @@ def test_wgmma_route_matches_plain(width, n, dev):
     out = fused_eval(spec, latent, xyz)
     again = fused_eval(spec, latent, xyz)
     torch.cuda.synchronize()
-    assert _routes() == {"wgmma": before["wgmma"] + (2 if n else 0), "mma_sync": before["mma_sync"]}
+    assert _routes() == dict(before, wgmma=before["wgmma"] + (2 if n else 0))
     assert out.shape == (n,) and torch.equal(out, again)
     if n:
         assert torch.isfinite(out).all()
         assert float((out - fused_eval_plain(spec, latent, xyz).to(out.device)).abs().max()) <= TOL[torch.bfloat16]
 
 
+def _route_case(spec, n, route, dev, seed=8):
+    """Two launches of ``spec`` on ``n`` points: only ``route`` counts them,
+    equal bits twice, within TOL of the plain version."""
+    latent, xyz = _inputs(n, dev, seed=seed)
+    before = _routes()
+    out = fused_eval(spec, latent, xyz)
+    again = fused_eval(spec, latent, xyz)
+    torch.cuda.synchronize()
+    assert _routes() == dict(before, **{route: before[route] + (2 if n else 0)})
+    assert out.shape == (n,) and torch.equal(out, again)
+    if n:
+        assert torch.isfinite(out).all()
+        assert float((out - fused_eval_plain(spec, latent, xyz)).abs().max()) <= TOL[spec.dtype]
+
+
+@pytest.mark.parametrize("n", WGMMA_NS)
+@pytest.mark.parametrize("width", [200, 256, 512])
+def test_wgmma_layer_norm_matches_plain(width, n, dev):
+    """LayerNorm on the wgmma route: every hidden layer normalised, true
+    widths 200 or 256 - 19 = 237 (padded to 256) and 512 - 19 = 493 before
+    the latent_in layer; ragged n."""
+    cfg = dict(dims=[width] * 4, latent_in=[2], weight_norm=False, norm_layers=[0, 1, 2, 3])
+    spec = FusedDecoderSpec(_decoder(cfg, dev), torch.bfloat16)
+    assert spec.route == "wgmma" and all(ln is not None for ln in spec.ln[:4])
+    _route_case(spec, n, "wgmma", dev)
+
+
+@pytest.mark.parametrize("n", WGMMA_NS)
+@pytest.mark.parametrize("ln", [False, True], ids=["relu", "ln"])
+@pytest.mark.parametrize("width", [64, 200, 256, 512])
+def test_f32_route_matches_plain(width, ln, n, dev):
+    """The f32 route, with and without LayerNorm, widths padded to 64 (200
+    pads to 256, and 200 - 19 = 181 to 192: half the lanes' last float4
+    column lies outside the layer); ragged n."""
+    cfg = dict(dims=[width] * 4, latent_in=[2], weight_norm=False, norm_layers=[0, 1, 2, 3] if ln else [])
+    spec = FusedDecoderSpec(_decoder(cfg, dev), torch.float32)
+    assert spec.route == "f32"
+    _route_case(spec, n, "f32", dev)
+
+
+def _flagship_ln(dev):
+    """chip_smoke's flagship-width LayerNorm decoder (norm_layers 0-7, no
+    weight norm, seeded LayerNorm affine) and a latent."""
+    from chip_smoke import ln_decoder
+
+    with open(os.path.join(ROOT, "examples", "ADNI", "minimal_eikonal", "specs.json")) as f:
+        specs = json.load(f)
+    dec, _ = ln_decoder(specs, 0, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    return dec, 0.01 * torch.randn(specs["CodeLength"], generator=g, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ln", [False, True], ids=["flagship", "flagship_ln"])
+def test_new_routes_flagship_width(ln, dtype, dev):
+    """The flagship-width LayerNorm decoder on wgmma (bf16) and f32, and the
+    flagship on f32, against the plain version at 2^16 + 37 points."""
+    if not ln and dtype == torch.bfloat16:
+        pytest.skip("the flagship in bf16 is test_wgmma_flagship_spec")
+    dec, latent = _flagship_ln(dev) if ln else _flagship(dev)
+    spec = FusedDecoderSpec(dec, dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "f32"
+    assert spec.route == route and spec.out_true[3] == 253
+    g = torch.Generator(device=dev).manual_seed(2)
+    xyz = torch.rand(2**16 + 37, 3, generator=g, device=dev) * 2 - 1
+    before = _routes()
+    out = fused_eval(spec, latent, xyz)
+    again = fused_eval(spec, latent, xyz)
+    torch.cuda.synchronize()
+    assert _routes() == dict(before, **{route: before[route] + 2})
+    assert torch.equal(out, again)
+    ref = fused_eval_plain(spec, latent, xyz)
+    assert float((out - ref).abs().max()) <= TOL[dtype]
+    # the mma_sync kernel on the same spec (the measurement hook) agrees too
+    old = fused_mlp._eval_mma_sync(spec, latent, xyz)
+    assert float((old - ref).abs().max()) <= TOL[dtype]
+
+
+def test_wgmma_layer_norm_scratch_sized_and_reused(dev):
+    """A 512-wide LayerNorm layer takes one block's share of scratch per SM
+    the launch uses (64 x 256 float32 per consumer warpgroup); a spec with
+    no such layer none. The caching allocator hands the same memory back
+    launch after launch, and the values do not depend on it."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wide = FusedDecoderSpec(_decoder(dict(dims=[512] * 3, latent_in=[], weight_norm=False, norm_layers=[1]), dev),
+                            torch.bfloat16)
+    narrow = FusedDecoderSpec(_decoder(dict(dims=[256] * 3, latent_in=[], weight_norm=False, norm_layers=[0, 1]),
+                                       dev), torch.bfloat16)
+    per_block = 2 * 64 * 256 * 4
+    assert fused_mlp.wgmma_scratch_bytes(wide, 0) == 0
+    assert fused_mlp.wgmma_scratch_bytes(wide, 1) == per_block
+    assert fused_mlp.wgmma_scratch_bytes(wide, 128 * 5 + 1) == 6 * per_block
+    assert fused_mlp.wgmma_scratch_bytes(wide, 2**20) == sms * per_block
+    assert fused_mlp.wgmma_scratch_bytes(narrow, 2**20) == 0
+    latent, xyz = _inputs(2**16 + 37, dev)
+    first = fused_eval(wide, latent, xyz)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    outs = [fused_eval(wide, latent, xyz) for _ in range(3)]
+    torch.cuda.synchronize()
+    del outs
+    assert torch.cuda.memory_allocated(dev) == held
+    assert torch.equal(fused_eval(wide, latent, xyz), first)
+    assert float((first - fused_eval_plain(wide, latent, xyz)).abs().max()) <= TOL[torch.bfloat16]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_route_by_config(name, dtype, dev):
     spec = FusedDecoderSpec(_decoder(CONFIGS[name], dev), dtype)
-    route = ROUTE_BF16[name] if dtype == torch.bfloat16 else "mma_sync"
+    route = ROUTE_BF16[name] if dtype == torch.bfloat16 else ROUTE_F32[name]
     assert spec.route == route
     latent, xyz = _inputs(777, dev, seed=11)
     before = _routes()
     out = fused_eval(spec, latent, xyz)
     again = fused_eval(spec, latent, xyz)
     torch.cuda.synchronize()
-    other = "mma_sync" if route == "wgmma" else "wgmma"
-    assert _routes()[route] == before[route] + 2 and _routes()[other] == before[other]
-    if route == "wgmma":  # mma_sync's LayerNorm layers sum row statistics with atomics
+    assert _routes() == dict(before, **{route: before[route] + 2})
+    if route != "mma_sync":  # mma_sync's LayerNorm layers sum row statistics with atomics
         assert torch.equal(out, again)
     assert float((out - fused_eval_plain(spec, latent, xyz)).abs().max()) <= TOL[dtype]
 
@@ -226,7 +336,28 @@ def test_wgmma_failure_raises_and_never_switches_route(dev, monkeypatch):
         fused_eval(spec, latent, xyz)
     assert _routes() == before
     with pytest.raises(ValueError, match="no wgmma weight tiles"):
-        fused_mlp._eval_wgmma(FusedDecoderSpec(_decoder(CONFIGS["layer_norm"], dev), torch.bfloat16), latent, xyz)
+        fused_mlp._eval_wgmma(FusedDecoderSpec(_decoder(CONFIGS["wide"], dev), torch.bfloat16), latent, xyz)
+
+
+def test_f32_failure_raises_and_never_switches_route(dev, monkeypatch):
+    from msd_tpu_torch.ops import _build
+
+    spec = FusedDecoderSpec(_decoder(CONFIGS["layer_norm"], dev), torch.float32)
+    assert spec.route == "f32"
+    latent, xyz = _inputs(300, dev)
+    before = _routes()
+    monkeypatch.setattr(spec, "wk", [None] * len(spec.wk))  # refused by the launcher
+    with pytest.raises(RuntimeError, match="f32 kernel launch failed"):
+        fused_eval(spec, latent, xyz)
+    monkeypatch.undo()
+    monkeypatch.setattr(_build, "load_library", lambda name: (_ for _ in ()).throw(RuntimeError("nvcc failed")))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fused_eval(spec, latent, xyz)
+    assert _routes() == before
+    with pytest.raises(ValueError, match="no K-major float32 weights"):
+        fused_mlp._eval_f32(FusedDecoderSpec(_decoder(CONFIGS["wide"], dev), torch.float32), latent, xyz)
+    with pytest.raises(ValueError, match="no K-major float32 weights"):
+        fused_mlp._eval_f32(FusedDecoderSpec(_decoder(CONFIGS["layer_norm"], dev), torch.bfloat16), latent, xyz)
 
 
 def test_create_mesh_on_gpu_launches_kernel(dev):
@@ -237,9 +368,12 @@ def test_create_mesh_on_gpu_launches_kernel(dev):
     res = mesh.create_mesh(dec, torch.zeros(LATENT), N=129, return_mesh=True, evaluator=ev)
     assert res is not False and res[1].shape[0] > 0
     assert fused_mlp.LAUNCHES > launches
-    # the float32 kernel meshes like the CPU does
+    # the float32 kernel (the f32 route) meshes like the CPU does
     cpu = mesh.create_mesh(dec.cpu(), torch.zeros(LATENT), N=129, return_mesh=True)
+    before = _routes()
     gpu = mesh.create_mesh(dec.to(dev), torch.zeros(LATENT), N=129, return_mesh=True, eval_dtype=torch.float32)
+    after = _routes()
+    assert after["f32"] > before["f32"] and all(after[r] == before[r] for r in ("wgmma", "mma_sync"))
     assert abs(gpu[0].shape[0] - cpu[0].shape[0]) <= 0.001 * cpu[0].shape[0]
 
 

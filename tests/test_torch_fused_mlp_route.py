@@ -1,8 +1,9 @@
-"""K1's routes in msd_tpu_torch on the CPU: which configs take the wgmma
-route, the weight tiles that route's kernel reads (laid out once per spec),
-inverted and held against msd_tpu's FusedDecoderSpec weights, and the plain
-version of a wgmma-route spec against msd_tpu's Pallas kernel (interpret
-mode). The kernels themselves run in tests/test_torch_cuda.py, on a GPU."""
+"""K1's routes in msd_tpu_torch on the CPU: which configs take the wgmma,
+f32 and mma_sync routes, the weights the wgmma and f32 kernels read (laid
+out once per spec), inverted and held against msd_tpu's FusedDecoderSpec
+weights, and the plain version of wgmma- and f32-route specs, LayerNorm
+ones included, against msd_tpu's Pallas kernel (interpret mode). The
+kernels themselves run in tests/test_torch_cuda.py, on a GPU."""
 
 import json
 import os
@@ -21,8 +22,12 @@ from test_torch_decoder import CONFIGS, IDS, inputs, make_pair
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "examples", "ADNI", "minimal_eikonal", "specs.json")
-# bf16 route of each config of test_torch_decoder (xyz_in_all: no spec)
-ROUTE_BF16 = {"flagship_shape": "wgmma", "weight_norm": "wgmma", "layer_norm": "mma_sync", "use_tanh": "wgmma"}
+# bf16 route of each config of test_torch_decoder (xyz_in_all: no spec);
+# float32 operands take "f32" on every one of them
+ROUTE_BF16 = {"flagship_shape": "wgmma", "weight_norm": "wgmma", "layer_norm": "wgmma", "use_tanh": "wgmma"}
+# a LayerNorm decoder on the wgmma and f32 routes whose true widths (200,
+# and the 200 - 19 = 181 before the latent_in layer) are no multiple of a tile
+LN_CFG = dict(dims=[200, 200, 200], latent_in=[2], weight_norm=False, norm_layers=[0, 1, 2])
 
 
 def _flagship():
@@ -65,11 +70,12 @@ def test_route_by_config(name, dtype):
             FusedDecoderSpec(tdec, dtype)
         return
     spec = FusedDecoderSpec(tdec, dtype)
-    route = ROUTE_BF16[name] if dtype == torch.bfloat16 else "mma_sync"
+    route = ROUTE_BF16[name] if dtype == torch.bfloat16 else "f32"
     assert spec.route == route_for(tdec, dtype) == route
     tile = 256 if route == "wgmma" else fused_mlp.TILE_N[dtype]
     assert all(o % tile == 0 for o in spec.out_pad[:-1]) and spec.out_pad[-1] == 1
     assert (spec.wtiles is not None) == (route == "wgmma" and spec.n_layers > 2)
+    assert (spec.wk is not None) == (route == "f32")
 
 
 def test_route_flagship_and_wide():
@@ -77,11 +83,16 @@ def test_route_flagship_and_wide():
     spec = FusedDecoderSpec(dec, torch.bfloat16)
     assert spec.route == "wgmma" and spec.n_wtiles == 96
     assert spec.out_pad == [512, 512, 512, 256, 512, 512, 512, 512, 1]
-    assert FusedDecoderSpec(dec, torch.float32).route == "mma_sync"
+    assert FusedDecoderSpec(dec, torch.float32).route == "f32"
     from msd_tpu_torch.models.deepsdf import DeepSDFDecoder
 
-    assert route_for(DeepSDFDecoder(8, dims=[513, 64]), torch.bfloat16) == "mma_sync"  # pads to 768
-    assert route_for(DeepSDFDecoder(8, dims=[512, 64]), torch.bfloat16) == "wgmma"
+    for dtype, narrow in ((torch.bfloat16, "wgmma"), (torch.float32, "f32")):
+        assert route_for(DeepSDFDecoder(8, dims=[513, 64]), dtype) == "mma_sync"  # over 512
+        assert route_for(DeepSDFDecoder(8, dims=[512, 64]), dtype) == narrow
+        ln = DeepSDFDecoder(8, dims=[512, 512], norm_layers=[0, 1], weight_norm=False)
+        assert route_for(ln, dtype) == narrow
+        wide_ln = DeepSDFDecoder(8, dims=[1000, 700], norm_layers=[0, 1], weight_norm=False)
+        assert route_for(wide_ln, dtype) == "mma_sync"
 
 
 def test_swizzle128_is_its_own_inverse_and_matches_the_address_rule():
@@ -155,3 +166,120 @@ def test_wgmma_padding_is_exact_on_the_plain_version():
     narrow.bias = [b[:128] for b in wide.bias]
     narrow.wz = [None if z is None else z[:, :128] for z in wide.wz]
     assert torch.equal(fused_eval_plain(wide, latent, xyz), fused_eval_plain(narrow, latent, xyz))
+
+
+def test_route_flagship_width_layer_norm():
+    """chip_smoke's flagship-width LayerNorm decoder: wgmma in bf16 (8 x 512,
+    layer 3 253 wide), f32 in float32; its LayerNorm scale in [0.5, 1.5]
+    and bias in +-0.1, zero-padded."""
+    from chip_smoke import ln_decoder
+
+    with open(FLAGSHIP) as f:
+        dec, _ = ln_decoder(json.load(f), 0, "cpu")
+    for dtype, route, pad in ((torch.bfloat16, "wgmma", 256), (torch.float32, "f32", 64)):
+        spec = FusedDecoderSpec(dec, dtype)
+        assert spec.route == route
+        assert spec.out_true[3] == 253 and spec.out_pad[3] == 256
+        assert all(ln is not None for ln in spec.ln[:8]) and spec.ln[8] is None
+        for layer in range(8):
+            scale, bias = spec.ln[layer]
+            w = spec.out_true[layer]
+            assert scale.shape == bias.shape == (spec.out_pad[layer],)
+            assert not scale[w:].any() and not bias[w:].any()
+            assert float(scale[:w].min()) >= 0.5 and float(bias[:w].abs().max()) <= 0.1
+        assert all(o % pad == 0 for o in spec.out_pad[:-1])
+
+
+@pytest.mark.parametrize("name", ["flagship_shape", "layer_norm", "use_tanh", "ln_200"])
+def test_f32_weights_invert_to_jax_weights(name):
+    """The f32 kernel's K-major weights, transposed back, are msd_tpu's
+    FusedDecoderSpec weights (zero-padded to 64), as are its xyz columns.
+    Bit for bit in float32, so not on the weight_norm config: there the two
+    frameworks' weight norms differ in the last bit of some weights."""
+    cfg = LN_CFG if name == "ln_200" else CONFIGS[IDS.index(name)]
+    jdec, params, tdec = make_pair(cfg)
+    spec = FusedDecoderSpec(tdec, torch.float32)
+    jspec = JaxSpec(jdec, _jnp(params), jnp.float32)
+    assert spec.route == "f32" and spec.wk[0] is None and spec.wk[-1] is None
+    for layer in range(1, spec.n_layers - 1):
+        wk = spec.wk[layer]
+        assert wk.shape == (spec.in_pad[layer], spec.out_pad[layer]) and wk.is_contiguous()
+        assert torch.equal(wk.t(), spec.wp[layer])
+        t = np.asarray(jspec.w_prev_t[layer])
+        m = wk.t().numpy()
+        np.testing.assert_array_equal(m[: t.shape[0], : t.shape[1]], t)
+        assert not m[t.shape[0]:].any() and not m[:, t.shape[1]:].any()
+    for layer in range(spec.n_layers):
+        if spec.wx[layer] is None:
+            assert spec.wx4[layer] is None
+            continue
+        t = np.asarray(jspec.w_xyz_t[layer][:, :3])
+        x4 = spec.wx4[layer].numpy()
+        np.testing.assert_array_equal(x4[: t.shape[0], :3], t)
+        assert not x4[:, 3].any() and not x4[t.shape[0]:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_layer_norm_spec_plain_matches_pallas_interpret(dtype):
+    """A LayerNorm decoder on the wgmma (bf16, widths padded to 256) and f32
+    (float32, padded to 64) routes, true widths 200 and 181: the plain
+    version against the Pallas kernel. float32 within 1e-5 (two summation
+    orders); bf16 as the wgmma test above (a flipped bf16 rounding)."""
+    jdec, params, tdec = make_pair(LN_CFG, seed=5)
+    latent, xyz = inputs(n=300, seed=6)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    ref = np.asarray(fused_eval_points(jdec, _jnp(params), jnp.asarray(latent), jnp.asarray(xyz),
+                                       dtype=jdt, tile=256, interpret=True), np.float32)
+    spec = FusedDecoderSpec(tdec, dtype)
+    assert spec.route == ("wgmma" if dtype == torch.bfloat16 else "f32")
+    assert spec.out_true[:3] == [200, 181, 200] and all(ln is not None for ln in spec.ln[:3])
+    out = fused_eval_plain(spec, torch.tensor(latent), torch.tensor(xyz)).numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-4)
+    else:
+        np.testing.assert_allclose(out, ref, atol=2e-2)
+        assert float(np.abs(out - ref).mean()) < 2e-3
+
+
+def _repad(spec, width):
+    """A copy of a spec with every hidden width zero-padded to ``width``."""
+    wide = FusedDecoderSpec.__new__(FusedDecoderSpec)
+    wide.__dict__.update(spec.__dict__)
+
+    def pad(t, rows, cols=None):
+        z = torch.zeros(rows if cols is None else (rows, cols), dtype=t.dtype)
+        if cols is None:
+            z[: t.shape[0]] = t
+        else:
+            z[: t.shape[0], : t.shape[1]] = t
+        return z
+
+    last = spec.n_layers - 1
+    wide.wp = [None if w is None else pad(w, w.shape[0] if i == last else width, width)
+               for i, w in enumerate(spec.wp)]
+    wide.wx = [None if w is None else w if i == last else pad(w, width, 3) for i, w in enumerate(spec.wx)]
+    wide.bias = [b if i == last else pad(b, width) for i, b in enumerate(spec.bias)]
+    wide.wz = [None if z is None else z if i == last else pad(z, z.shape[0], width) for i, z in enumerate(spec.wz)]
+    wide.ln = [None if ln is None else (pad(ln[0], width), pad(ln[1], width)) for ln in spec.ln]
+    return wide
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_layer_norm_padding_is_exact_on_the_plain_version(dtype):
+    """Zero padding stays exact under LayerNorm: statistics over the true
+    width, zero scale and bias on the padded columns, so padding every
+    hidden width to 512 gives the same bits as the route's own padding, and
+    each padded LayerNorm output column is exactly 0."""
+    _, _, tdec = make_pair(LN_CFG, seed=7)
+    latent, xyz = (torch.tensor(a) for a in inputs(n=200, seed=8))
+    spec = FusedDecoderSpec(tdec, dtype)
+    wide = _repad(spec, 512)
+    assert torch.equal(fused_eval_plain(spec, latent, xyz), fused_eval_plain(wide, latent, xyz))
+    # one LayerNorm layer by hand, as fused_eval_plain computes it: padded columns are 0
+    h = fused_mlp._mm(xyz, wide.wx[0], dtype) + wide.latent_consts(latent)[0]
+    w = spec.out_true[0]
+    mean = h[:, :w].mean(dim=1, keepdim=True)
+    var = ((h[:, :w] - mean) ** 2).mean(dim=1, keepdim=True)
+    scale, bias = wide.ln[0]
+    out = torch.relu((h - mean) * torch.rsqrt(var + fused_mlp.LAYER_NORM_EPS) * scale + bias)
+    assert not out[:, w:].any() and out[:, :w].any()

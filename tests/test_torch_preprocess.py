@@ -60,15 +60,33 @@ def test_knn_host_route_equal_bits(k):
     np.testing.assert_array_equal(keep_t, keep_j)
 
 
+def _knn_near_ties(q, s, k):
+    """Queries whose k-th and (k+1)-th nearest surface points lie closer
+    together, in float64, than float32's rounding of the squared distance
+    |q|^2 + |s|^2 - 2 q.s^T can tell apart (4 ulps of its largest term).
+    On those the exact top-k of either route may swap the two, and with
+    them a vote: which one each route keeps depends on the BLAS kernel the
+    host's CPU selects for the product and on the order of its additions."""
+    qd, sd = q.astype(np.float64), s.astype(np.float64)
+    d2 = np.sort(((qd[:, None, :] - sd[None]) ** 2).sum(2), axis=1)
+    scale = (qd * qd).sum(1) + (sd * sd).sum(1).max()
+    return d2[:, k] - d2[:, k - 1] <= 4 * np.finfo(np.float32).eps * scale
+
+
 @pytest.mark.parametrize("k", [11, 1])
 def test_knn_tiled_route_on_cpu_matches_device_route(k):
     """The tiled route on CPU tensors against msd_tpu's force_device=True
-    (its jitted chunk with exact top_k on the CPU) at 2048 x 4096."""
+    (its jitted chunk with exact top_k on the CPU) at 2048 x 4096: keep
+    exactly and sdf within 1e-6 on every query without a near-tie at the
+    k-th neighbour (``_knn_near_ties``), and at most 1% of the queries
+    excluded (5 of 2048 at k = 11, 1 at k = 1)."""
     q, s, n = _vote_inputs(4096, 2048, seed=2)
     sdf_t, keep_t = tm.knn_sign_vote(q, s, n, num_votes=k, q_chunk=512, device="cpu", force_device=True)
     sdf_j, keep_j = jm.knn_sign_vote(q, s, n, num_votes=k, q_chunk=512, force_device=True)
-    np.testing.assert_array_equal(keep_t, keep_j)
-    np.testing.assert_allclose(sdf_t, sdf_j, rtol=0, atol=1e-6)
+    tie = _knn_near_ties(q, s, k)
+    assert tie.mean() <= 0.01, tie.sum()
+    np.testing.assert_array_equal(keep_t[~tie], keep_j[~tie])
+    np.testing.assert_allclose(sdf_t[~tie], sdf_j[~tie], rtol=0, atol=1e-6)
     assert keep_t.mean() > 0.9
 
 
