@@ -18,12 +18,18 @@ non-zero and prints no result. Phases, one JSON line each:
    create_mesh evaluates first at N=257. The same on the flagship-width
    LayerNorm decoder (``ln_decoder``: norm_layers 0-7, no weight norm,
    seeded LayerNorm affine), which takes the wgmma kernel's LayerNorm
-   instantiation in bf16 and the f32 kernel in float32. On every one of
-   those four specs also, in the same run: the mma_sync kernel on the same
-   spec and points (errors and time). On the bf16 flagship torch.matmul of
-   one bf16 512 x 512 product over 2^20 rows (a reference for the products
-   alone). Then the mma_sync route on its own configs, hidden widths over
-   512 (``WIDE_NET``), in both types (k1_wide), and every K1 kernel's
+   instantiation in bf16 and the f32 kernel in float32. On each of those
+   four specs also torch.matmul of the decoder's products alone at the same
+   points and operand type (TF32 off), at the kernel's padded shapes and at
+   the true widths: a reference, no epilogue. Then the
+   wide kernels (k1_wide): decoders with hidden widths over 512
+   (``WIDE_NET`` and the LayerNorm ``WIDE_LN_NET``) in both types, each
+   against its plain version, timed beside its bound and its products by
+   torch.matmul, with its launches by route (wgmma_wide, f32_wide); the
+   widest shapes the 10 MB weight cap admits at latent 256 (dims 2048 x 2
+   in bf16, 1408 x 2 in float32, one hidden layer of 16384 in bf16) against
+   their plain versions on fewer points; and ``create_mesh`` at N=129 of both wide decoders (bf16
+   and float32), the launches of the kernels line. Then every K1 kernel's
    registers, spills and shared memory (k1_kernels).
 4. serving: the port's main path as a user runs it. A seeded flagship
    checkpoint and two seeded ellipsoids (250k + 250k SdfSamples each, plus
@@ -337,13 +343,13 @@ TOL = {"float32": {"max": 1e-5}, "bfloat16": {"max": 1e-2, "mean": 1e-4, "sign":
 # summation orders round apart moves the later layers further than on the
 # flagship. Measured on an H100 (PERF.md) against the plain version at
 # 2^20 + 37 points: the wgmma kernel max 1.87e-2, mean 1.56e-4, sign
-# 0.99987; the mma_sync kernel on the same spec max 2.19e-2, mean 1.98e-4,
-# sign 0.99983, both over TOL["bfloat16"]. The limits keep a margin of
-# about 2x (1 - sign: 3.8x); besides, the LayerNorm kernel may be no
-# further from the plain version than LN_OLD_RATIO times the mma_sync
-# kernel's max and mean error on the same points.
+# 0.99987; the first (mma.sync) kernel on the same spec, since retired, max
+# 2.19e-2, mean 1.98e-4, sign 0.99983, both over TOL["bfloat16"]. The
+# limits keep a margin of about 2x (1 - sign: 3.8x); besides, a bf16
+# LayerNorm decoder's max and mean error may be no more than 1.5 times the
+# retired kernel's measured ones (LN_REF).
 TOL_LN = {"max": 4e-2, "mean": 3e-4, "sign": 0.9995}
-LN_OLD_RATIO = 1.5
+LN_REF = {"max": 1.5 * 2.19e-2, "mean": 1.5 * 1.98e-4}
 
 
 _LAST_PHASE = [time.time()]
@@ -481,14 +487,14 @@ def time_ms(fn, reps=10, warmup=2, device_only=False):
     return float(np.median(times))
 
 
-def k1_errors(spec, latent, xyz, tol, label, fn=None):
-    """Kernel (``fn``, default fused_eval) against the plain version on
-    ``xyz``; raises past ``tol``."""
+def k1_errors(spec, latent, xyz, tol, label):
+    """The kernel (fused_eval) against the plain version on ``xyz``; raises
+    past ``tol``."""
     import torch
 
     from msd_tpu_torch.ops.fused_mlp import fused_eval, fused_eval_plain
 
-    out = (fn or fused_eval)(spec, latent, xyz)
+    out = fused_eval(spec, latent, xyz)
     torch.cuda.synchronize()
     ref = fused_eval_plain(spec, latent, xyz)
     err = (out - ref).abs()
@@ -509,16 +515,16 @@ def k1_errors(spec, latent, xyz, tol, label, fn=None):
 # route number msd_fused_mlp_smem_bytes takes for each
 K1_KERNELS = {
     "fused_mlp_wgmma_kernelILb0E": ("wgmma", 1), "fused_mlp_wgmma_kernelILb1E": ("wgmma_ln", 1),
-    "fused_mlp_f32_kernel": ("f32", 2), "fused_mlp_kernelI13__nv_bfloat16Lb0E": ("mma_sync_bf16", 0),
-    "fused_mlp_kernelIfLb0E": ("mma_sync_f32", None),
+    "fused_mlp_f32_kernel": ("f32", 2), "fused_mlp_wgmma_wide_kernelILb0E": ("wgmma_wide", 3),
+    "fused_mlp_wgmma_wide_kernelILb1E": ("wgmma_wide_ln", 3), "fused_mlp_f32_wide_kernel": ("f32_wide", 4),
 }
 
 
 def k1_ptxas(log):
-    """Registers, spills and stack of K1's kernels (both wgmma
-    instantiations, f32, mma_sync in bf16 and float32), from nvcc's
-    ``-Xptxas -v`` log, with their dynamic shared memory at width 512. An
-    empty log (the library was built by an earlier run) reports nothing."""
+    """Registers, spills and stack of K1's kernels (both instantiations of
+    each wgmma kernel, both f32 kernels), from nvcc's ``-Xptxas -v`` log,
+    with their dynamic shared memory. An empty log (the library was built
+    by an earlier run) reports nothing."""
     from msd_tpu_torch.ops._build import load_library
 
     lib = load_library("fused_mlp")
@@ -530,8 +536,7 @@ def k1_ptxas(log):
             cur = next((v for k, v in K1_KERNELS.items() if k in ln), None)
             if cur:
                 name, route = cur
-                out[name] = {"ptxas": [], "dynamic_smem_bytes": None if route is None
-                             else lib.msd_fused_mlp_smem_bytes(route, 512)}
+                out[name] = {"ptxas": [], "dynamic_smem_bytes": lib.msd_fused_mlp_smem_bytes(route)}
                 cur = name
         elif cur and ("registers" in ln or "spill" in ln or "arning" in ln):
             out[cur]["ptxas"].append(ln.strip())
@@ -568,15 +573,14 @@ def ln_decoder(specs, seed, dev):
 def check_k1(decoder, latent, n_points, seed, dev, label="flagship"):
     """K1 against its plain version at the decoder's width, in bf16 (the
     wgmma route) and float32 (the f32 route), on ``n_points`` uniform points
-    (timed) and on the serving path's first corner lattice. On each spec
-    also the mma_sync kernel (the route of widths over 512) on the same
-    points, held to the same limits and timed in the same run; on the bf16
-    flagship a torch.matmul reference. Returns the per-dtype results."""
+    (timed) and on the serving path's first corner lattice; a bf16
+    LayerNorm decoder also within ``LN_REF``. On each spec the decoder's
+    products alone by torch.matmul (``k1_products``). Returns the
+    per-dtype results."""
     import torch
 
     from msd_tpu_torch import mesh
-    from msd_tpu_torch.ops import fused_mlp
-    from msd_tpu_torch.ops.fused_mlp import FusedDecoderSpec, fused_eval, fused_eval_plain
+    from msd_tpu_torch.ops.fused_mlp import FusedDecoderSpec, fused_eval
 
     g = torch.Generator(device=dev).manual_seed(seed)
     xyz = torch.rand(n_points, 3, generator=g, device=dev) * 2 - 1
@@ -592,92 +596,201 @@ def check_k1(decoder, latent, n_points, seed, dev, label="flagship"):
         r = {"decoder": label, "dtype": name, "route": spec.route, "tol": tol,
              **k1_errors(spec, latent, xyz, tol, f"{label} {name} uniform")}
         r[f"corner_lattice_{n_mesh}"] = k1_errors(spec, latent, corners, tol, f"{label} {name} corner lattice")
-        w_bytes = sum(t.numel() * t.element_size() for t in spec.wp + spec.wx if t is not None)
-        bytes_moved = n_points * 16 + w_bytes
-        t_flops = flops / PEAK_FLOPS[name] * 1e3
-        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        r.update({
-            "ms": time_ms(lambda: fused_eval(spec, latent, xyz)),
-            "plain_ms": time_ms(lambda: fused_eval_plain(spec, latent, xyz), reps=5, warmup=1),
-            "bound_ms": max(t_flops, t_bytes), "bound_by": "operations" if t_flops >= t_bytes else "bytes",
-            "flop": flops,
-        })
-        r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
-        r["mma_sync"] = k1_old(spec, latent, xyz, corners, flops, n_mesh, f"{label} {name}", tol)
-        if ln and any(r[k] > LN_OLD_RATIO * r["mma_sync"][k] for k in ("max_abs_err", "mean_abs_err")):
-            raise AssertionError(f"K1 {label} {name}: further from the plain version than {LN_OLD_RATIO} x the "
-                                 f"mma_sync kernel: {r['max_abs_err']}, {r['mean_abs_err']} against "
-                                 f"{r['mma_sync']['max_abs_err']}, {r['mma_sync']['mean_abs_err']}")
+        if ln:
+            k1_ln_ref(r, f"{label} {name}")
+        r.update(k1_timing(spec, decoder, latent, xyz, flops, reps=10, plain_reps=5))
         r["ms_again"] = time_ms(lambda: fused_eval(spec, latent, xyz))
-        if spec.route == "wgmma" and not any(spec.ln):
-            r.update(k1_matmul(xyz, flops, dev))
         phase("k1", **r)
         results[name] = r
     return results
 
 
-def k1_old(spec, latent, xyz, corners, flops, n_mesh, label, tol):
-    """The mma_sync kernel on a spec of another route, same points and run:
-    errors on both inputs (limits ``tol``) and its time."""
-    from msd_tpu_torch.ops import fused_mlp
+def k1_ln_ref(r, label):
+    """A bf16 LayerNorm decoder's errors against ``LN_REF``."""
+    if r["max_abs_err"] > LN_REF["max"] or r["mean_abs_err"] > LN_REF["mean"]:
+        raise AssertionError(f"K1 {label}: max {r['max_abs_err']} or mean {r['mean_abs_err']} abs err past "
+                             f"1.5 times the first kernel's ({LN_REF})")
+    r["ln_ref"] = LN_REF
 
-    def old(s, lat, x):
-        return fused_mlp._eval_mma_sync(s, lat, x)
 
-    r = k1_errors(spec, latent, xyz, tol, f"mma_sync {label} uniform", old)
-    r[f"corner_lattice_{n_mesh}"] = k1_errors(spec, latent, corners, tol, f"mma_sync {label} corner lattice", old)
-    r["ms"] = time_ms(lambda: old(spec, latent, xyz), reps=3, warmup=1)
+def k1_timing(spec, decoder, latent, xyz, flops, reps, plain_reps):
+    """The kernel's and the plain version's ms, the bound (operations or
+    bytes), achieved TFLOP/s and the products alone by torch.matmul."""
+    from msd_tpu_torch.ops.fused_mlp import fused_eval, fused_eval_plain
+
+    name = str(spec.dtype).split(".")[-1]
+    w_bytes = sum(t.numel() * t.element_size() for t in spec.wp + spec.wx if t is not None)
+    t_flops = flops / PEAK_FLOPS[name] * 1e3
+    t_bytes = (xyz.shape[0] * 16 + w_bytes) / HBM_BYTES_PER_S * 1e3
+    r = {
+        "ms": time_ms(lambda: fused_eval(spec, latent, xyz), reps=reps, warmup=1),
+        "plain_ms": time_ms(lambda: fused_eval_plain(spec, latent, xyz), reps=plain_reps, warmup=1),
+        "bound_ms": max(t_flops, t_bytes), "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+        "flop": flops,
+    }
     r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+    r.update(k1_products(decoder, spec, xyz.shape[0], xyz.device))
     return r
 
 
-def k1_matmul(xyz, flops, dev):
-    """torch.matmul of one bf16 [2^20, 512] x [512, 512] product, scaled by
-    the decoder's kernel weights over 512^2 (the products alone, no
-    epilogue): a reference for the bf16 flagship."""
+def k1_products(decoder, spec, n_points, dev):
+    """torch.matmul of each of the kernel's products alone (layers 1 to the
+    one before the last: the previous layer's output by this one's) over
+    ``n_points`` rows in the spec's operand type, float32 with TF32 off,
+    summed over the layers: a reference for the products, with no epilogue
+    and no layer chain. ``matmul_ref_ms`` times each product at the depth
+    and width the kernel computes (the spec's padded ``in_pad`` by
+    ``out_pad``: multiples of 256 in bf16, of 64 in float32), where cuBLAS
+    takes its aligned paths; ``matmul_true_ms`` at the true widths, where an
+    odd depth (the flagship's 253, ``WIDE_NET``'s 765) can put cuBLAS on a
+    slow path."""
+    def shapes_of(pairs):
+        out = {}
+        for k, n in pairs:
+            out[(k, n)] = out.get((k, n), 0) + 1
+        return out
+
+    padded = shapes_of(w.shape[::-1] for w in spec.wp[1:-1])
+    true = shapes_of(
+        (in_dim - (decoder.latent_size + 3 if layer in decoder.latent_in else 0), out_dim)
+        for layer, (in_dim, out_dim, _, _) in enumerate(decoder.layer_shapes[:-1]) if layer)
+    ref, ref_shapes = _matmul_ms(padded, spec.dtype, n_points, dev)
+    true_ms, true_shapes = _matmul_ms(true, spec.dtype, n_points, dev)
+    return {"matmul_ref_ms": ref, "matmul_shapes": ref_shapes, "matmul_true_ms": true_ms,
+            "matmul_true_shapes": true_shapes,
+            "matmul_note": "torch.matmul of each kernel product alone over the same points and operand type "
+                           "(TF32 off), summed; no epilogue, no layer chain; ref at the kernel's padded depth "
+                           "and width, true at the decoder's widths"}
+
+
+def _matmul_ms(shapes, dtype, n_points, dev):
+    """(summed ms, per shape) of [n_points, k] @ [k, n] for each (k, n)
+    of ``shapes``, times its count of layers, TF32 off."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(7)
-    a = torch.randn(2**20, 512, generator=g, device=dev).to(torch.bfloat16)
-    b = torch.randn(512, 512, generator=g, device=dev).to(torch.bfloat16)
-    mm = time_ms(lambda: a @ b)
-    products = flops / (2.0 * xyz.shape[0] * 512 * 512)
-    return {"matmul_512_ms": mm, "matmul_products": products,
-            "matmul_ref_ms": mm * xyz.shape[0] / 2**20 * products,
-            "matmul_note": "torch.matmul, one bf16 512x512 product over 2^20 rows, times the decoder's "
-                           "kernel weights over 512^2 (6.0 products); no epilogue, no layer chain"}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total, per_shape = 0.0, {}
+    try:
+        for (k, n), count in shapes.items():
+            a = torch.randn(n_points, k, generator=g, device=dev).to(dtype)
+            b = torch.randn(k, n, generator=g, device=dev).to(dtype)
+            ms = time_ms(lambda: a @ b, reps=5, warmup=1)
+            per_shape[f"{k}x{n}"] = {"ms": ms, "layers": count}
+            total += ms * count
+            del a, b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return total, per_shape
 
 
-# The config of the mma_sync route's own timing: hidden widths over 512
-# (tests/test_torch_cuda.py's "wide"), which no shipped config has
+# Decoders wider than 512, which no shipped config is: WIDE_NET
+# (tests/test_torch_cuda.py's "wide"), WIDE_LN_NET ("wide_layer_norm", its
+# LayerNorm scale and bias seeded as ln_decoder's), and the widest shapes
+# the 10 MB weight cap admits at latent 256, each in the operand type that
+# admits it
 WIDE_NET = dict(dims=[1024, 1024, 512], latent_in=[1], weight_norm=False, norm_layers=[])
+WIDE_LN_NET = dict(dims=[1000, 700], latent_in=[], weight_norm=False, norm_layers=[0, 1])
+WIDE_CAP_NETS = {
+    "dims_2048x2_bf16": (dict(dims=[2048, 2048], latent_in=[], weight_norm=False, norm_layers=[]), "bfloat16"),
+    "dims_1408x2_f32": (dict(dims=[1408, 1408], latent_in=[], weight_norm=False, norm_layers=[]), "float32"),
+    "dims_16384_bf16": (dict(dims=[16384], latent_in=[], weight_norm=False, norm_layers=[]), "bfloat16"),
+}
+
+
+def wide_decoder(latent_size, net, seed, dev):
+    """A seeded decoder of ``net``, LayerNorm scale in [0.5, 1.5] and bias
+    in +-0.1 where it has LayerNorm, then give_surface_."""
+    import torch
+
+    from msd_tpu_torch.models.deepsdf import DeepSDFDecoder, give_surface_
+
+    g = torch.Generator().manual_seed(seed)
+    dec = DeepSDFDecoder(latent_size, generator=g, **net)
+    with torch.no_grad():
+        for layer in net["norm_layers"]:
+            bn = getattr(dec, f"bn{layer}")
+            bn.weight.copy_(0.5 + torch.rand(bn.weight.shape, generator=g))
+            bn.bias.copy_(0.2 * torch.rand(bn.bias.shape, generator=g) - 0.1)
+    dec = dec.to(dev).eval()
+    give_surface_(dec, torch.zeros(latent_size))
+    return dec
+
+
+def routed(fn, route):
+    """``fn()`` with K1's launches counted by route around it; raises
+    unless every launch took ``route``. Returns (result, launches)."""
+    from msd_tpu_torch.ops import fused_mlp
+
+    fused_mlp.ROUTE_LAUNCHES = dict.fromkeys(fused_mlp.ROUTES, 0)
+    out = fn()
+    routes = dict(fused_mlp.ROUTE_LAUNCHES)
+    if routes[route] == 0 or any(v for k, v in routes.items() if k != route):
+        raise AssertionError(f"K1 launches by route {routes}: not all on {route}")
+    return out, routes[route]
 
 
 def check_k1_wide(latent_size, n_points, seed, dev):
-    """The mma_sync route on its own configs (hidden widths over 512), bf16
-    and float32: against the plain version on ``n_points`` uniform points,
-    timed beside its bound."""
+    """The wide kernels (hidden widths over 512): ``WIDE_NET`` and
+    ``WIDE_LN_NET`` in bf16 (wgmma route) and float32 (f32 route) against
+    their plain versions on ``n_points`` uniform points (TOL; a bf16
+    LayerNorm decoder TOL_LN and LN_REF), timed beside their bounds and
+    their products by torch.matmul; the ``WIDE_CAP_NETS`` on 2^16 + 37
+    points; then ``create_mesh`` at N=129 of each wide decoder in each type
+    with K1's launches by route (the kernels line's launches)."""
     import torch
 
-    from msd_tpu_torch.models.deepsdf import DeepSDFDecoder
-    from msd_tpu_torch.ops.fused_mlp import FusedDecoderSpec, fused_eval, fused_eval_plain
+    from msd_tpu_torch import mesh
+    from msd_tpu_torch.ops.fused_mlp import FusedDecoderSpec, fused_eval
 
-    dec = DeepSDFDecoder(latent_size, generator=torch.Generator().manual_seed(seed + 30), **WIDE_NET).to(dev).eval()
     g = torch.Generator(device=dev).manual_seed(seed)
     xyz = torch.rand(n_points, 3, generator=g, device=dev) * 2 - 1
     latent = 0.01 * torch.randn(latent_size, generator=g, device=dev)
-    flops = 2.0 * kernel_weights(dec) * n_points
-    out = {"net": WIDE_NET}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
+    out = {"nets": {"wide": WIDE_NET, "wide_ln": WIDE_LN_NET}}
+    decs = {"wide": wide_decoder(latent_size, WIDE_NET, seed + 30, dev),
+            "wide_ln": wide_decoder(latent_size, WIDE_LN_NET, seed + 31, dev)}
+    for label, dec in decs.items():
+        flops = 2.0 * kernel_weights(dec) * n_points
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            spec = FusedDecoderSpec(dec, dtype)
+            route = "wgmma_wide" if dtype == torch.bfloat16 else "f32_wide"
+            if spec.route != route:
+                raise AssertionError(f"K1 {label} {name}: route {spec.route}, not {route}")
+            ln = any(spec.ln) and dtype == torch.bfloat16
+            tol = TOL_LN if ln else TOL[name]
+            r, launches = routed(lambda: k1_errors(spec, latent, xyz, tol, f"{label} {name} uniform"), route)
+            r.update(route=route, launches=launches, tol=tol)
+            if ln:
+                k1_ln_ref(r, f"{label} {name}")
+            r.update(k1_timing(spec, dec, latent, xyz, flops, reps=5, plain_reps=3))
+            out[f"{label}_{name}"] = r
+    small = xyz[:2**16 + 37]
+    for label, (net, name) in WIDE_CAP_NETS.items():
+        dtype = getattr(torch, name)
+        dec = wide_decoder(latent_size, net, seed + 32, dev)
         spec = FusedDecoderSpec(dec, dtype)
-        if spec.route != "mma_sync":
-            raise AssertionError(f"K1 wide {name}: route {spec.route}, not mma_sync")
-        r = k1_errors(spec, latent, xyz, TOL[name], f"wide {name} uniform")
-        r.update(ms=time_ms(lambda: fused_eval(spec, latent, xyz), reps=5, warmup=1),
-                 plain_ms=time_ms(lambda: fused_eval_plain(spec, latent, xyz), reps=3, warmup=1),
-                 bound_ms=flops / PEAK_FLOPS[name] * 1e3, bound_by="operations")
-        out[name] = r
+        route = "wgmma_wide" if dtype == torch.bfloat16 else "f32_wide"
+        r, launches = routed(lambda: k1_errors(spec, latent, small, TOL[name], f"{label} uniform"), route)
+        r.update(net=net, route=route, launches=launches,
+                 ms=time_ms(lambda: fused_eval(spec, latent, small), reps=3, warmup=1))
+        out[label] = r
+        del dec, spec
+    meshes = {}
+    for label, dec in decs.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            route = "wgmma_wide" if dtype == torch.bfloat16 else "f32_wide"
+            t0 = time.perf_counter()
+            res, launches = routed(lambda: mesh.create_mesh(dec, latent, N=129, return_mesh=True,
+                                                             eval_dtype=dtype), route)
+            if res is False or not np.isfinite(np.asarray(res[0])).all():
+                raise AssertionError(f"K1 {label} {name}: create_mesh gave no finite surface")
+            verts, faces = res[:2]
+            meshes[f"{label}_{name}"] = {"N": 129, "seconds": time.perf_counter() - t0, "launches": launches,
+                                         "verts": int(verts.shape[0]), "faces": int(faces.shape[0])}
+    out["create_mesh"] = meshes
     return out
 
 
@@ -4313,8 +4426,15 @@ def main(argv=None):
         return {"max_abs_err": worst(r), **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                 "library_ms": None, "library_note": "no single PyTorch call computes the whole decoder",
                 "dtype": r["dtype"], "decoder": r["decoder"], "points": r["points"], "kernel_route": r["route"],
-                "ms_again": r["ms_again"], "mma_sync_ms": r["mma_sync"]["ms"],
-                "mma_sync_max_abs_err": worst(r["mma_sync"])}
+                "ms_again": r["ms_again"], "matmul_ref_ms": r["matmul_ref_ms"],
+                "matmul_true_ms": r["matmul_true_ms"]}
+
+    def wide_entry(key):  # a wide kernel: its launches in create_mesh of its decoder
+        r = k1_wide[key]
+        return {"launches": k1_wide["create_mesh"][key]["launches"], "max_abs_err": r["max_abs_err"],
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "matmul_ref_ms", "matmul_true_ms")},
+                "library_ms": None, "library_note": "no single PyTorch call computes the whole decoder",
+                "decoder": key, "points": r["points"], "kernel_route": r["route"]}
 
     b, a = k2["b"], k2["a"]
     autograd_step = {"autograd_step_ms": training["step_ms_by_path"]["autograd_b"],
@@ -4325,14 +4445,19 @@ def main(argv=None):
         "name": "fused_mlp", **k1_source, "launches": launches, "launches_stage2": k1_stage2,
         "launches_stage2_points": k1_points, "launches_serving_ranks": k1_ranks,
         "launches_streaming": k1_stream, "launches_figures": k1_figures, **k1_entry(bf16),
-        "route_launches": routes, "matmul_ref_ms": bf16["matmul_ref_ms"], "matmul_512_ms": bf16["matmul_512_ms"],
-        "mma_sync_wide": {name: {k: k1_wide[name][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
-                          for name in ("bfloat16", "float32")},
+        "route_launches": routes,
     }, {
         "name": "fused_mlp_wgmma_ln", **k1_source, "launches": k1_ln_launches, **k1_entry(ln),
     }, {
         "name": "fused_mlp_f32", **k1_source, "launches": k1_f32_launches, **k1_entry(f32),
         "layer_norm": k1_entry(k1_ln["float32"]),
+    }, {
+        "name": "fused_mlp_wgmma_wide", **k1_source, **wide_entry("wide_bfloat16"),
+    }, {
+        "name": "fused_mlp_wgmma_wide_ln", **k1_source, **wide_entry("wide_ln_bfloat16"),
+    }, {
+        "name": "fused_mlp_f32_wide", **k1_source, **wide_entry("wide_float32"),
+        "layer_norm": wide_entry("wide_ln_float32"),
     }, {
         "name": "fused_train", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_train.cu",
         "replaces": "msd_tpu/ops/fused_train.py:423", "launches": k2_launches + k2_gmm_launches,

@@ -12,36 +12,15 @@
 // the kernel (3.147 MFLOP per point) against 16 bytes of point I/O, so 2^20
 // points take at least 3.34 ms at the 989 TFLOP/s dense bf16 peak.
 //
-// Three routes, chosen by the decoder once (ops/fused_mlp.py, spec.route):
-//   wgmma     bf16 operands, hidden widths up to 512, with or without
-//             LayerNorm (every shipped config): fused_mlp_wgmma_kernel<LN>;
-//   f32       float32 operands, hidden widths up to 512, with or without
-//             LayerNorm: fused_mlp_f32_kernel;
-//   mma_sync  hidden widths over 512, either operand type: fused_mlp_kernel,
-//             described next (also callable on any spec, for measurements).
-//
-// mma_sync design. The TPU kernel kept all weights resident on chip; 3.15 MB of bf16
-// weights are far over a block's 227 KB of shared memory, but they sit in
-// the 50 MB L2 many times over. So:
-//   * one block owns a tile of BM points (64 for bf16, 32 for float32); the
-//     grid covers N and masks the ragged edge;
-//   * the tile's activations live in dynamic shared memory as two
-//     ping-pong buffers [BM][kmax+pad] of T; they never go to device memory.
-//     Only a decoder too wide for that (bf16 or float32 hidden widths over
-//     640) keeps them in a device scratch [2][n_pad][kmax] instead (GACT),
-//     staging each [BM x 64] activation tile into shared memory beside its
-//     weight tile;
-//   * per layer, the block walks BN-wide output tiles (128 for bf16, 64 for
-//     float32) and 64-deep K tiles, staging each [BN x 64] weight tile into
-//     shared memory with cp.async (STAGES tiles in flight) and
-//     accumulating in float32 registers: bf16 on mma.sync.m16n8k16 with
-//     ldmatrix fragment loads (a 32 x 32 block per warp), float32 on FMAs;
-//   * the xyz term (3 values) is added in the epilogue with FMAs;
-//   * LayerNorm layers run the layer's product three times (row mean, row
-//     variance, normalise + store), so no float32 copy of the layer is kept;
-//   * the last layer is a per-point dot product reduced with warp shuffles.
-// Hidden widths arrive zero-padded to multiples of BN (exact for ReLU
-// layers; LayerNorm statistics use the true width).
+// Four routes, one kernel each, chosen by the decoder once (ops/fused_mlp.py,
+// spec.route) by operand type and width, LayerNorm or not:
+//   wgmma       bf16, hidden widths up to 512 (every shipped config):
+//               fused_mlp_wgmma_kernel<LN>, activations in shared memory;
+//   wgmma_wide  bf16, wider: fused_mlp_wgmma_wide_kernel<LN>, activations
+//               streamed from a per-block device scratch;
+//   f32         float32 up to 512: fused_mlp_f32_kernel;
+//   f32_wide    float32, wider: fused_mlp_f32_wide_kernel (the same split).
+// A wide kernel takes a decoder with no hidden layer too.
 //
 // Plain C interface, loaded with ctypes (msd_tpu_torch/ops/_build.py).
 
@@ -54,374 +33,17 @@
 namespace {
 
 constexpr int MAX_LAYERS = 32;
-constexpr int BK = 64;  // K tile (the output tile, BN, is per operand type)
-constexpr int NTHREADS = 256;
 constexpr float LN_EPS = 1e-5f;
-constexpr int STAGES = 3;  // weight tiles in flight per block
-constexpr long long MAX_SMEM_BYTES = 232448;  // dynamic shared memory of one block on sm_90
-
-struct Params {
-  const float* xyz;  // [n, 3]
-  float* out;        // [n]
-  long long n;
-  int n_layers;
-  int kmax;  // widest padded hidden width (activation buffer width)
-  int use_tanh;
-  const void* wp[MAX_LAYERS];    // [out_pad, in_pad] T, or null (layer 0)
-  const void* wx[MAX_LAYERS];    // [out_pad, 3] T, or null
-  const float* cl[MAX_LAYERS];   // [out_pad] latent consts + bias
-  const float* lns[MAX_LAYERS];  // [out_pad] LayerNorm scale, or null
-  const float* lnb[MAX_LAYERS];  // [out_pad] LayerNorm bias, or null
-  void* scratch;                 // GACT only: activations [2][n_pad][kmax] of T
-  long long n_pad;               // n rounded up to the point tile
-  int in_pad[MAX_LAYERS];
-  int out_pad[MAX_LAYERS];
-  int out_true[MAX_LAYERS];
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <typename T> struct Tile;
-
-// bf16: 64-point tile, 128-wide output tiles; 8 warps as 2 (rows) x 4
-// (cols), each warp a 32 x 32 block = 2 x 4 m16n8 tensor-core tiles.
-template <> struct Tile<__nv_bfloat16> {
-  using T = __nv_bfloat16;
-  static constexpr int BM = 64, BN = 128, APAD = 8, WPAD = 8, NACC = 32;
-
-  // accumulator i = 16 m + 4 j + e -> (row, col) within the output tile
-  __device__ static void coord(int i, int& r, int& c) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    const int g = lane >> 2, t = lane & 3, m = i >> 4, j = (i >> 2) & 3, e = i & 3;
-    r = 32 * (w & 1) + 16 * m + g + ((e >> 1) << 3);
-    c = 32 * (w >> 1) + 8 * j + 2 * t + (e & 1);
-  }
-
-  // acc += act[:, k0:k0+BK] . wt^T, wt = [BN][BK] tile in shared memory
-  __device__ static void mac(float* acc, const T* act, int astride, int k0, const T* wt, int wstride) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    // ldmatrix.x4: lane l addresses row (l & 7) of 8x8 matrix l >> 3. A's
-    // four matrices are (rows 0-7 | 8-15) x (k 0-7 | 8-15) of 16 rows; B's
-    // are (k 0-7 | 8-15) x (n tile 2p | 2p+1).
-    const int li = lane >> 3, lr = lane & 7;
-    const T* A = act + (32 * (w & 1) + lr + 8 * (li & 1)) * astride + k0 + 8 * (li >> 1);
-    const T* B = wt + (32 * (w >> 1) + 8 * (li >> 1) + lr) * wstride + 8 * (li & 1);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4], b[2][4];
-      ldmatrix_x4(a[0], A + kk);
-      ldmatrix_x4(a[1], A + 16 * astride + kk);
-      ldmatrix_x4(b[0], B + kk);
-      ldmatrix_x4(b[1], B + 16 * wstride + kk);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          mma_bf16(acc + 16 * m + 8 * q, a[m], b[q][0], b[q][1]);
-          mma_bf16(acc + 16 * m + 8 * q + 4, a[m], b[q][2], b[q][3]);
-        }
-      }
-    }
-  }
-};
-
-// float32: 32-point tile; thread (tr, tc) owns rows 2tr, 2tr+1 and columns
-// tc + 16j (j < 4) of the 32 x 64 output tile.
-template <> struct Tile<float> {
-  using T = float;
-  static constexpr int BM = 32, BN = 64, APAD = 4, WPAD = 4, NACC = 8;
-
-  __device__ static void coord(int i, int& r, int& c) {
-    r = 2 * (threadIdx.x >> 4) + (i >> 2);
-    c = (threadIdx.x & 15) + 16 * (i & 3);
-  }
-
-  __device__ static void mac(float* acc, const T* act, int astride, int k0, const T* wt, int wstride) {
-    const int r0 = 2 * (threadIdx.x >> 4), tc = threadIdx.x & 15;
-    const T* A0 = act + r0 * astride + k0;
-    const T* A1 = A0 + astride;
-    const T* B = wt + tc * wstride;
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float x0 = A0[kk], x1 = A1[kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float b = B[16 * j * wstride + kk];
-        acc[j] = fmaf(x0, b, acc[j]);
-        acc[4 + j] = fmaf(x1, b, acc[4 + j]);
-      }
-    }
-  }
-};
-
-// Dynamic shared memory of one block: the activations (two [BM][kmax+pad]
-// buffers, or with GACT STAGES staged [BM][BK+pad] tiles), STAGES weight
-// tiles [BN][BK+pad], the tile's xyz [BM][4] and row statistics [2][BM].
-template <typename T, bool GACT>
-constexpr long long smem_bytes_t(int kmax) {
-  using TL = Tile<T>;
-  const long long act = GACT ? static_cast<long long>(STAGES) * TL::BM * (BK + TL::APAD)
-                             : 2LL * TL::BM * (kmax + TL::APAD);
-  return (act + static_cast<long long>(STAGES) * TL::BN * (BK + TL::WPAD)) * sizeof(T)
-       + TL::BM * 16 + 2LL * TL::BM * 4;
-}
-
-// Device scratch of a launch over n points: 0 when the activations fit in
-// shared memory, else two [n_pad][kmax] buffers of T.
-template <typename T>
-long long scratch_bytes_t(int kmax, long long n) {
-  if (smem_bytes_t<T, false>(kmax) <= MAX_SMEM_BYTES) return 0;
-  const long long n_pad = (n + Tile<T>::BM - 1) / Tile<T>::BM * Tile<T>::BM;
-  return 2LL * n_pad * kmax * sizeof(T);
-}
-
-// Stage W[n0:n0+BN, k0:k0+BK] (row length in_pad) into dst [BN][wstride].
-template <typename T>
-__device__ __forceinline__ void load_wtile(T* dst, const T* W, int in_pad, int n0, int k0, int wstride) {
-  constexpr int PER = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int CPR = BK / PER;        // chunks per row
-  for (int c = threadIdx.x; c < Tile<T>::BN * CPR; c += NTHREADS) {
-    const int r = c / CPR, q = c % CPR;
-    cp_async16(dst + r * wstride + q * PER, W + (size_t)(n0 + r) * in_pad + k0 + q * PER);
-  }
-}
-
-// Stage A[0:BM, k0:k0+BK] (row length kmax, device scratch) into dst [BM][sstride].
-template <typename T>
-__device__ __forceinline__ void load_atile(T* dst, const T* A, int kmax, int k0, int sstride) {
-  constexpr int PER = 16 / sizeof(T);
-  constexpr int CPR = BK / PER;
-  for (int c = threadIdx.x; c < Tile<T>::BM * CPR; c += NTHREADS) {
-    const int r = c / CPR, q = c % CPR;
-    cp_async16(dst + r * sstride + q * PER, A + (size_t)r * kmax + k0 + q * PER);
-  }
-}
-
-enum Mode { STORE = 0, ROW_SUM = 1, ROW_SQ = 2, NORM_STORE = 3 };
-
-template <typename T>
-__device__ __forceinline__ void epilogue(const float* acc, int n0, int mode, const Params& p, int l,
-                                         const float* xs, float* stat, T* outb, int astride) {
-  using TL = Tile<T>;
-  const T* wx = static_cast<const T*>(p.wx[l]);
-  const float* cl = p.cl[l];
-  const int out_true = p.out_true[l];
-#pragma unroll
-  for (int i = 0; i < TL::NACC; ++i) {
-    int r, c;
-    TL::coord(i, r, c);
-    c += n0;
-    float v = acc[i];
-    if (wx != nullptr) {
-      const float* x = xs + 4 * r;
-      v += x[0] * to_f(wx[3 * c]) + x[1] * to_f(wx[3 * c + 1]) + x[2] * to_f(wx[3 * c + 2]);
-    }
-    v += cl[c];
-    if (mode == ROW_SUM) {
-      if (c < out_true) atomicAdd(&stat[r], v);
-    } else if (mode == ROW_SQ) {
-      if (c < out_true) {
-        const float d = v - stat[r];
-        atomicAdd(&stat[TL::BM + r], d * d);
-      }
-    } else {
-      if (mode == NORM_STORE) v = (v - stat[r]) * stat[TL::BM + r] * p.lns[l][c] + p.lnb[l][c];
-      outb[r * astride + c] = from_f<T>(fmaxf(v, 0.0f));
-    }
-  }
-}
-
-template <typename T, bool GACT>
-__global__ void __launch_bounds__(NTHREADS) fused_mlp_kernel(const Params p) {
-  using TL = Tile<T>;
-  constexpr int BM = TL::BM, BN = TL::BN;
-  constexpr int sstride = BK + TL::APAD;  // GACT: staged activation tiles
-  extern __shared__ __align__(16) unsigned char smem[];
-  const long long base = static_cast<long long>(blockIdx.x) * BM;
-  const int wstride = BK + TL::WPAD;
-  // act[i]: this tile's rows of activation buffer i, row stride astride
-  T* act[2];
-  T* at0;  // GACT: STAGES activation tiles [BM][sstride]
-  T* wt0;  // STAGES weight tiles [BN][wstride]
-  int astride;
-  if constexpr (GACT) {
-    astride = p.kmax;
-    T* s = static_cast<T*>(p.scratch);
-    act[0] = s + base * p.kmax;
-    act[1] = s + (p.n_pad + base) * p.kmax;
-    at0 = reinterpret_cast<T*>(smem);
-    wt0 = at0 + STAGES * BM * sstride;
-  } else {
-    astride = p.kmax + TL::APAD;
-    act[0] = reinterpret_cast<T*>(smem);
-    act[1] = act[0] + BM * astride;
-    at0 = nullptr;
-    wt0 = act[1] + BM * astride;
-  }
-  float* xs = reinterpret_cast<float*>(wt0 + STAGES * BN * wstride);  // [BM][4]
-  float* stat = xs + 4 * BM;                                   // [2][BM]
-
-  for (int i = threadIdx.x; i < 4 * BM; i += NTHREADS) {
-    const int r = i >> 2, j = i & 3;
-    float x = 0.0f;
-    if (j < 3 && base + r < p.n) x = p.xyz[3 * (base + r) + j];
-    xs[i] = to_f(from_f<T>(x));  // xyz is rounded to the operand type
-  }
-  __syncthreads();
-
-  float acc[TL::NACC];
-  const int last = p.n_layers - 1;
-  for (int l = 0; l < last; ++l) {
-    const T* in = act[(l + 1) & 1];
-    T* outb = act[l & 1];
-    const T* Wp = static_cast<const T*>(p.wp[l]);
-    const int n_tiles = p.out_pad[l] / BN;
-    const int k_tiles = Wp != nullptr ? p.in_pad[l] / BK : 0;
-    const bool has_ln = p.lns[l] != nullptr;
-    const int npass = has_ln ? 3 : 1;
-    for (int pass = 0; pass < npass; ++pass) {
-      const int mode = !has_ln ? STORE : (pass == 0 ? ROW_SUM : (pass == 1 ? ROW_SQ : NORM_STORE));
-      if (mode == ROW_SUM || mode == ROW_SQ) {
-        for (int r = threadIdx.x; r < BM; r += NTHREADS) stat[(pass == 0 ? 0 : BM) + r] = 0.0f;
-        __syncthreads();
-      }
-      if (k_tiles == 0) {
-        for (int nt = 0; nt < n_tiles; ++nt) {
-#pragma unroll
-          for (int i = 0; i < TL::NACC; ++i) acc[i] = 0.0f;
-          epilogue<T>(acc, nt * BN, mode, p, l, xs, stat, outb, astride);
-        }
-      } else {
-        const int total = n_tiles * k_tiles;
-#pragma unroll
-        for (int i = 0; i < TL::NACC; ++i) acc[i] = 0.0f;
-        // STAGES-deep pipeline over the flattened (n tile, k tile) walk:
-        // tiles it+1 .. it+STAGES-1 are in flight while tile it computes
-        // (GACT: each stage also takes the tile's [BM x BK] activations)
-        for (int s = 0; s < STAGES - 1; ++s) {
-          if (s < total) {
-            load_wtile<T>(wt0 + s * BN * wstride, Wp, p.in_pad[l], (s / k_tiles) * BN, (s % k_tiles) * BK, wstride);
-            if constexpr (GACT) load_atile<T>(at0 + s * BM * sstride, in, p.kmax, (s % k_tiles) * BK, sstride);
-          }
-          cp_async_commit();
-        }
-        for (int it = 0; it < total; ++it) {
-          const int nt = it / k_tiles, kt = it % k_tiles;
-          cp_async_wait<STAGES - 2>();  // tile it has landed (this thread's copies)
-          __syncthreads();              // ... everyone's; and tile it-1's buffer is free
-          const int nx = it + STAGES - 1;
-          if (nx < total) {
-            load_wtile<T>(wt0 + (nx % STAGES) * BN * wstride, Wp, p.in_pad[l], (nx / k_tiles) * BN,
-                          (nx % k_tiles) * BK, wstride);
-            if constexpr (GACT)
-              load_atile<T>(at0 + (nx % STAGES) * BM * sstride, in, p.kmax, (nx % k_tiles) * BK, sstride);
-          }
-          cp_async_commit();
-          if constexpr (GACT)
-            TL::mac(acc, at0 + (it % STAGES) * BM * sstride, sstride, 0, wt0 + (it % STAGES) * BN * wstride, wstride);
-          else
-            TL::mac(acc, in, astride, kt * BK, wt0 + (it % STAGES) * BN * wstride, wstride);
-          if (kt == k_tiles - 1) {
-            epilogue<T>(acc, nt * BN, mode, p, l, xs, stat, outb, astride);
-#pragma unroll
-            for (int i = 0; i < TL::NACC; ++i) acc[i] = 0.0f;
-          }
-        }
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (mode == ROW_SUM || mode == ROW_SQ) {
-        const float inv = 1.0f / static_cast<float>(p.out_true[l]);
-        for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-          if (mode == ROW_SUM) stat[r] *= inv;  // mean
-          else stat[BM + r] = 1.0f / sqrtf(stat[BM + r] * inv + LN_EPS);  // rstd
-        }
-        __syncthreads();
-      }
-    }
-  }
-
-  // last layer: one output per point, a dot product over the input row
-  const T* in = act[(last + 1) & 1];
-  const T* w = static_cast<const T*>(p.wp[last]);
-  const T* wx = static_cast<const T*>(p.wx[last]);
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < BM; r += NTHREADS / 32) {
-    float s = 0.0f;
-    if (w != nullptr) {
-      for (int k = lane; k < p.in_pad[last]; k += 32) s += to_f(in[r * astride + k]) * to_f(w[k]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0 && base + r < p.n) {
-      float v = s;
-      if (wx != nullptr) v += xs[4 * r] * to_f(wx[0]) + xs[4 * r + 1] * to_f(wx[1]) + xs[4 * r + 2] * to_f(wx[2]);
-      v += p.cl[last][0];
-      if (p.use_tanh) v = tanhf(v);
-      p.out[base + r] = tanhf(v);
-    }
-  }
-}
-
-template <typename T, bool GACT>
-int launch_t(const Params& p, cudaStream_t stream) {
-  const long long smem = smem_bytes_t<T, GACT>(p.kmax);
-  cudaError_t e = cudaFuncSetAttribute(fused_mlp_kernel<T, GACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long blocks = p.n_pad / Tile<T>::BM;
-  if (blocks == 0) return 0;
-  fused_mlp_kernel<T, GACT><<<static_cast<unsigned>(blocks), NTHREADS, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch(Params& p, long long scratch_bytes, cudaStream_t stream) {
-  p.n_pad = (p.n + Tile<T>::BM - 1) / Tile<T>::BM * Tile<T>::BM;
-  const long long need = scratch_bytes_t<T>(p.kmax, p.n);
-  if (need == 0) return launch_t<T, false>(p, stream);
-  if (p.scratch == nullptr || scratch_bytes < need) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_t<T, true>(p, stream);
-}
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // The wgmma route: bf16, hidden widths padded to 256 or 512, LayerNorm or not.
 //
-// Why the mma_sync design stays far from the bound: a 64-point block streams all
-// 3.15 MB of bf16 weights from L2 (51.6 GB per 2^20 points) and ends every
-// 64-deep K tile in a block barrier. This design:
+// Why a 64-point block on mma.sync (this route's first design, since
+// retired) stays far from the bound: it streams all 3.15 MB of bf16 weights
+// from L2 (51.6 GB per 2^20 points) and ends every 64-deep K tile in a
+// block barrier. This design:
 //   * a block owns 128 points: two consumer warpgroups of 64 rows each run
 //     wgmma.mma_async m64n256k16 (bf16 in, float32 accumulators) on the
 //     same weight tile, so each weight byte read from L2 feeds 128 points;
@@ -941,11 +563,11 @@ int launch(const Params& p, long long grid, cudaStream_t stream) {
 // torch.float32): the counterparts of msd_tpu's eval_dtype).
 //
 // Bound on an H100: the FP32 FMA pipe (exact float32 products and sums, no
-// TF32), 67 TFLOP/s: 49.25 ms per 2^20 flagship points. Why fused_mlp_kernel's
-// float32 path stays far from it: a 32-point block streams every float32
-// weight from L2 (206 GB per 2^20 points), keeps 8 accumulators a thread (6
-// shared-memory loads per 8 FMAs) and ends every 64-deep K tile in a block
-// barrier. This design:
+// TF32), 67 TFLOP/s: 49.25 ms per 2^20 flagship points. Why the first
+// float32 design (since retired) stayed far from it: a 32-point block
+// streamed every float32 weight from L2 (206 GB per 2^20 points), kept 8
+// accumulators a thread (6 shared-memory loads per 8 FMAs) and ended every
+// 64-deep K tile in a block barrier. This design:
 //   * persistent blocks (one per SM) walk 64-point tiles. Eight warps:
 //     warp w owns rows 8w..8w+7 of the tile, lane l the columns
 //     4l + 128i (i < 4, four float4), so a 512-wide layer's output sits in
@@ -1261,61 +883,772 @@ int launch(const Params& p, cudaStream_t stream) {
 
 }  // namespace f32
 
+// ---------------------------------------------------------------------------
+// The wgmma route past 512: bf16, any hidden width (padded to a multiple of
+// 256), LayerNorm or not, and decoders with no hidden layer.
+//
+// Why the 512 design does not stretch: a warpgroup's 64 rows of bf16
+// activations take 128 bytes per unit of width in shared memory (128 KB at
+// 1024), and the block has 227 KB beside its weight ring. So both operands
+// stream here, and each layer is a chain of [128 x W_in] x [W_in x 256]
+// products, one per 256-wide N tile:
+//   * a block owns 128 points as in the 512 design (two consumer warpgroups
+//     of 64 rows share every weight tile; persistent blocks, one producer
+//     thread); the tile's activations live in the block's share of a device
+//     scratch, two ping-pong buffers of [W / 64 k-blocks][128 rows][64] bf16
+//     in the 128-byte swizzle a wgmma descriptor reads, so the K tile of the
+//     input that a weight tile multiplies is one contiguous 16 KB;
+//   * a ring stage holds a weight tile (32 KB) and that input K tile (16 KB),
+//     both copied by cp.async.bulk onto one mbarrier;
+//   * each N tile's epilogue (the xyz term, c_l, ReLU, bf16) stores straight
+//     into the other buffer; once a layer's outputs are all stored, every
+//     consumer thread fences them for the async proxy and arrives on the
+//     ``ready`` mbarrier, and only then does the producer copy the next
+//     layer's input (one wait per layer and point tile);
+//   * LayerNorm over any number of N tiles: each N tile's float32
+//     pre-LayerNorm values wait in a per-block float32 scratch (each thread
+//     reads back only what it wrote, coalesced as [float4 i][thread]) while
+//     the row's mean and sum of squared deviations merge tile by tile by
+//     Chan's formula; a second pass normalises, applies ReLU and stores or
+//     feeds the last layer's dot product. A layer without products (layer 0)
+//     is recomputed from xyz in the second pass instead of parked;
+//   * the last layer's dot product is fused into the epilogue of the layer
+//     before it, as in the 512 design; rows past n read xyz 0 and are not
+//     stored.
+// What bounds it: the bytes each SM pulls from L2. Every input K tile is
+// read once per N tile and every weight tile once per 128 points: 85 FLOP a
+// byte (the 512 design reads only weights there: 128). Tried on an H100 and
+// found to move the time little: every input K tile an L2 hit, L2 eviction
+// hints, and no wait for a layer's input before copying it (the first and
+// last give wrong results: bounds only). A third consumer warpgroup (192
+// points, 112 FLOP a byte) does not build: 512 threads leave ptxas 128
+// registers a thread, fewer than a 64 x 256 float32 accumulator takes
+// (setmaxnreg moves registers at run time, not in ptxas's budget).
+// The scratch (2 x 128 x W bf16 of activations, 128 x W float32 for
+// LayerNorm layers with products) is per block, so a launch whose scratch
+// would pass the wrapper's cap runs fewer persistent blocks.
+// Shared memory: 1024 (alignment) + 4 x 48 KB ring + the barriers.
+// ---------------------------------------------------------------------------
+
+namespace wgw {
+
+using wg::BM;
+using wg::TN;
+using wg::TK;
+using wg::THREADS;
+using wg::TILE_BYTES;
+using wg::KB_BYTES;
+using wg::bf16;
+using wg::acc_fence;
+using wg::bf;
+using wg::bulk_load;
+using wg::desc_k;
+using wg::mbar_arrive;
+using wg::mbar_expect_tx;
+using wg::mbar_init;
+using wg::mbar_wait;
+using wg::setmaxnreg_dec;
+using wg::setmaxnreg_inc;
+using wg::smem_u32;
+using wg::wgmma_commit;
+using wg::wgmma_fence;
+using wg::wgmma_m64n256k16;
+using wg::wgmma_wait;
+constexpr int STAGES = 4;
+constexpr int A_BYTES = BM * TK * 2;                   // an input K tile [128 rows][64] (16 KB)
+constexpr int STAGE_BYTES = TILE_BYTES + A_BYTES;      // weight tile + input K tile (48 KB)
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + (2 * STAGES + 1) * 8;
+constexpr int CONSUMERS = 256;                         // threads of the two consumer warpgroups
+constexpr long long PARK_TILE_BYTES = 2LL * 32 * 128 * 16;  // both warpgroups' float32 N tile
+
+struct Params {
+  const float* xyz;  // [n, 3]
+  float* out;        // [n]
+  long long n;
+  long long tiles;   // point tiles of BM
+  int n_layers, use_tanh;
+  const bf16* wt;                 // the hidden layers' weight tiles [TN][TK], swizzled, in consumption order
+  const bf16* wlast;              // [in_pad of the last layer]; null without a hidden layer
+  const float* wx[MAX_LAYERS];    // [out_pad][4] bf16-rounded xyz weights, or null
+  const float* cl[MAX_LAYERS];    // [out_pad] latent consts + bias
+  const float* lns[MAX_LAYERS];   // LN: [out_pad] LayerNorm scale (zero-padded), or null
+  const float* lnb[MAX_LAYERS];   // LN: [out_pad] LayerNorm bias (zero-padded), or null
+  unsigned char* act;             // [grid][2][act_kb][BM][TK] bf16 swizzled, or null
+  long long act_buf;              // bytes of one activation buffer (act_kb * A_BYTES)
+  float4* park;                   // LN: [grid][2 warpgroups][park_nt][32][128] float4, or null
+  int park_nt;                    // N tiles of the widest parked layer
+  int in_pad[MAX_LAYERS];         // 0 for layer 0
+  int out_pad[MAX_LAYERS];        // multiples of 256; 1 for the last layer
+  int out_true[MAX_LAYERS];       // true widths (LayerNorm statistics)
+};
+
+// the bf16-rounded xyz of a row (0 past the end)
+__device__ __forceinline__ void load_xyz(const Params& p, long long row, float* x) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) x[j] = row < p.n ? bf(__float2bfloat16_rn(p.xyz[3 * row + j])) : 0.0f;
+}
+
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+template <bool LN>
+__global__ void __launch_bounds__(THREADS, 1) fused_mlp_wgmma_wide_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = ring + STAGES * STAGE_BYTES;  // full[s], empty[s], then ready
+  const uint32_t ready = bars + 16 * STAGES;          // a layer's outputs are stored
+  unsigned char* const act = p.act == nullptr ? nullptr : p.act + 2 * p.act_buf * blockIdx.x;
+  const int last = p.n_layers - 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (STAGES + s), 2);  // both consumer warpgroups
+    }
+    mbar_init(ready, CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0, rph = 0;
+      for (long long tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const unsigned char* w = reinterpret_cast<const unsigned char*>(p.wt);
+        for (int layer = 1; layer < last; ++layer) {
+          mbar_wait(ready, rph);  // the layer's input is stored
+          rph ^= 1;
+          const unsigned char* in = act + ((layer - 1) & 1) * p.act_buf;
+          const int nt_n = p.out_pad[layer] / TN, kt_n = p.in_pad[layer] / TK;
+          for (int nt = 0; nt < nt_n; ++nt) {
+            for (int kt = 0; kt < kt_n; ++kt) {
+              mbar_wait(bars + 8 * (STAGES + s), ph ^ 1);
+              mbar_expect_tx(bars + 8 * s, STAGE_BYTES);
+              bulk_load(ring + s * STAGE_BYTES, w, TILE_BYTES, bars + 8 * s);
+              bulk_load(ring + s * STAGE_BYTES + TILE_BYTES, in + static_cast<size_t>(kt) * A_BYTES, A_BYTES,
+                        bars + 8 * s);
+              w += TILE_BYTES;
+              if (++s == STAGES) {
+                s = 0;
+                ph ^= 1;
+              }
+            }
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x & 127, w = t >> 5, q = t & 3, g = (t & 31) >> 2;
+    // this thread's first row of a k-block (the other is 8 further), its
+    // 4-byte column pair q of 16-byte chunk 0 before the swizzle
+    const size_t row_off = static_cast<size_t>(64 * c + 16 * w + g) * 128 + 4 * q;
+    // the bf16 pair (j, h) of k-block kb of an activation buffer: chunk j % 8
+    // swizzled by the row's low three bits, which are g for both rows
+    auto pair = [&](unsigned char* buf, int kb, int j, int h) {
+      return reinterpret_cast<__nv_bfloat162*>(buf + static_cast<size_t>(kb) * A_BYTES + row_off + 8 * h * 128 +
+                                               (((j & 7) ^ g) << 4));
+    };
+    float4* const park =
+        LN && p.park != nullptr ? p.park + (static_cast<size_t>(blockIdx.x) * 2 + c) * p.park_nt * 32 * 128 + t
+                                : nullptr;
+    int s = 0;
+    uint32_t ph = 0;
+
+    // acc = one N tile: the input K tiles against the weight tiles, read
+    // from the ring in order; each slot is released once its products are
+    // done, one stage's products staying in flight (kt_n 0: acc = 0)
+    auto mma = [&](float(&acc)[128], int kt_n) {
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+      int prev = 0;
+      for (int kt = 0; kt < kt_n; ++kt) {
+        mbar_wait(bars + 8 * s, ph);
+        wgmma_fence();
+        const uint32_t slot = ring + s * STAGE_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < TK / 16; ++kk)
+          wgmma_m64n256k16(acc, desc_k(slot + TILE_BYTES + c * KB_BYTES + 32 * kk), desc_k(slot + 32 * kk));
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (kt > 0 && t == 0) mbar_arrive(bars + 8 * (STAGES + prev));
+        prev = s;
+        if (++s == STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (kt_n > 0 && t == 0) mbar_arrive(bars + 8 * (STAGES + prev));
+      acc_fence(acc);
+    };
+
+    // N tile nt of ``layer`` in float32, in place: the products plus the
+    // xyz term and c_l
+    auto xyz_cl = [&](float(&acc)[128], int layer, int nt, long long row) {
+      const float* wx = p.wx[layer];
+      float x[2][3];
+      if (wx != nullptr) {
+        load_xyz(p, row, x[0]);
+        load_xyz(p, row + 8, x[1]);
+      }
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j) {
+        const int col = nt * TN + 8 * j + 2 * q;
+        const float2 cc = __ldg(reinterpret_cast<const float2*>(p.cl[layer] + col));
+        float4 w0 = make_float4(0.f, 0.f, 0.f, 0.f), w1 = w0;
+        if (wx != nullptr) {
+          w0 = __ldg(reinterpret_cast<const float4*>(wx) + col);
+          w1 = __ldg(reinterpret_cast<const float4*>(wx) + col + 1);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (wx != nullptr) {
+            v0 += x[h][0] * w0.x + x[h][1] * w0.y + x[h][2] * w0.z;
+            v1 += x[h][0] * w1.x + x[h][1] * w1.y + x[h][2] * w1.z;
+          }
+          acc[4 * j + 2 * h] = v0 + cc.x;
+          acc[4 * j + 2 * h + 1] = v1 + cc.y;
+        }
+      }
+    };
+
+    for (long long tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const long long row = tile * BM + 64 * c + 16 * w + g;  // and row + 8
+      float dot[2] = {0.0f, 0.0f};
+      for (int layer = 0; layer < last; ++layer) {
+        const int nt_n = p.out_pad[layer] / TN, kt_n = p.in_pad[layer] / TK;
+        const bool to_dot = layer == last - 1;
+        unsigned char* const out = to_dot ? nullptr : act + (layer & 1) * p.act_buf;
+        // takes N tile nt's bf16 pair (j, h): into the last layer's dot
+        // product, or stored as the next layer's input
+        auto emit = [&](int nt, int j, int h, __nv_bfloat162 v) {
+          if (to_dot) {
+            const __nv_bfloat162 wl = *reinterpret_cast<const __nv_bfloat162*>(p.wlast + nt * TN + 8 * j + 2 * q);
+            dot[h] += bf(v.x) * bf(wl.x) + bf(v.y) * bf(wl.y);
+          } else {
+            *pair(out, 4 * nt + (j >> 3), j, h) = v;
+          }
+        };
+        float acc[128];
+        bool ln = false;
+        if constexpr (LN) ln = p.lns[layer] != nullptr;
+        if (!ln) {
+          for (int nt = 0; nt < nt_n; ++nt) {
+            mma(acc, kt_n);
+            xyz_cl(acc, layer, nt, row);
+#pragma unroll
+            for (int j = 0; j < TN / 8; ++j) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                emit(nt, j, h, __floats2bfloat162_rn(fmaxf(acc[4 * j + 2 * h], 0.0f),
+                                                     fmaxf(acc[4 * j + 2 * h + 1], 0.0f)));
+            }
+          }
+        } else {
+          // each N tile's row mean and sum of squared deviations over its
+          // columns below the true width (two passes, reduced over the quad
+          // that holds a row), merged into the row's by Chan's formula; every
+          // N tile before the last lies wholly inside the true width
+          const int out_true = p.out_true[layer];
+          float mean[2] = {0.0f, 0.0f}, m2[2] = {0.0f, 0.0f};
+          for (int nt = 0; nt < nt_n; ++nt) {
+            mma(acc, kt_n);
+            xyz_cl(acc, layer, nt, row);
+            const int valid = min(TN, out_true - nt * TN);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float sum = 0.0f;
+#pragma unroll
+              for (int i = 0; i < 64; ++i)
+                if (8 * (i >> 1) + 2 * q + (i & 1) < valid) sum += acc[4 * (i >> 1) + 2 * h + (i & 1)];
+              sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+              sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+              const float mt = sum / static_cast<float>(valid);
+              float d2 = 0.0f;
+#pragma unroll
+              for (int i = 0; i < 64; ++i) {
+                if (8 * (i >> 1) + 2 * q + (i & 1) < valid) {
+                  const float d = acc[4 * (i >> 1) + 2 * h + (i & 1)] - mt;
+                  d2 += d * d;
+                }
+              }
+              d2 += __shfl_xor_sync(0xffffffffu, d2, 1);
+              d2 += __shfl_xor_sync(0xffffffffu, d2, 2);
+              if (nt == 0) {
+                mean[h] = mt;
+                m2[h] = d2;
+              } else {
+                const float na = static_cast<float>(nt * TN), nb = static_cast<float>(valid), nn = na + nb;
+                const float delta = mt - mean[h];
+                mean[h] += delta * (nb / nn);
+                m2[h] += d2 + delta * delta * (na * nb / nn);
+              }
+            }
+            if (kt_n > 0) {
+#pragma unroll
+              for (int i = 0; i < 32; ++i)
+                park[(nt * 32 + i) * 128] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+            }
+          }
+          float rstd[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) rstd[h] = rsqrtf(m2[h] / static_cast<float>(out_true) + LN_EPS);
+          for (int nt = 0; nt < nt_n; ++nt) {
+            if (kt_n > 0) {
+#pragma unroll
+              for (int i = 0; i < 32; ++i) {
+                const float4 v = park[(nt * 32 + i) * 128];
+                acc[4 * i] = v.x, acc[4 * i + 1] = v.y, acc[4 * i + 2] = v.z, acc[4 * i + 3] = v.w;
+              }
+            } else {
+#pragma unroll
+              for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+              xyz_cl(acc, layer, nt, row);
+            }
+#pragma unroll
+            for (int j = 0; j < TN / 8; ++j) {
+              const int col = nt * TN + 8 * j + 2 * q;
+              const float2 sc = __ldg(reinterpret_cast<const float2*>(p.lns[layer] + col));
+              const float2 sh = __ldg(reinterpret_cast<const float2*>(p.lnb[layer] + col));
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float v0 = (acc[4 * j + 2 * h] - mean[h]) * rstd[h] * sc.x + sh.x;
+                const float v1 = (acc[4 * j + 2 * h + 1] - mean[h]) * rstd[h] * sc.y + sh.y;
+                emit(nt, j, h, __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f)));
+              }
+            }
+          }
+        }
+        if (!to_dot) {  // the next layer's input is stored: the producer may copy it
+          fence_proxy_async_global();
+          mbar_arrive(ready);
+        }
+      }
+      // last layer: the quad of threads holding a row sums its dot product
+      const float* wxl = p.wx[last];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = dot[h];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        const long long r = row + 8 * h;
+        if (q == 0 && r < p.n) {
+          if (wxl != nullptr) {
+            float x[3];
+            load_xyz(p, r, x);
+            v += x[0] * wxl[0] + x[1] * wxl[1] + x[2] * wxl[2];
+          }
+          v += p.cl[last][0];
+          if (p.use_tanh) v = tanhf(v);
+          p.out[r] = tanhf(v);
+        }
+      }
+    }
+  }
+}
+
+template <bool LN>
+int launch(const Params& p, long long grid, cudaStream_t stream) {
+  cudaError_t e =
+      cudaFuncSetAttribute(fused_mlp_wgmma_wide_kernel<LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fused_mlp_wgmma_wide_kernel<LN><<<static_cast<unsigned>(grid), THREADS, SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgw
+
+// ---------------------------------------------------------------------------
+// The f32 route past 512: float32 operands, any hidden width (padded to a
+// multiple of 64), LayerNorm or not, and decoders with no hidden layer.
+//
+// Why the 512 design does not stretch: a 512-wide output already takes 128
+// float32 registers a thread, and the [64][W] float32 activations outgrow
+// shared memory past 512 (256 KB at 1024). So here:
+//   * persistent blocks walk 64-point tiles as in the 512 design, but with a
+//     producer warpgroup (one thread issues the copies; setmaxnreg gives its
+//     registers away) and eight consumer warps: warp w owns rows 8w..8w+7,
+//     lane l the columns 4l + 128i (i < 4) of a pass of at most 512 outputs,
+//     so a layer W wide runs ceil(W / 512) passes, each a [64 x W_in] x
+//     [W_in x 512] product with 128 accumulators a thread;
+//   * the tile's activations live in the block's share of a device scratch,
+//     two ping-pong buffers of [W / 16 K tiles][64 rows][16] float32, so the
+//     K tile of the input that a weight tile multiplies is one contiguous
+//     4 KB; the weights are laid out once per spec pass-major
+//     (ops/fused_mlp.py, f32_pass_weights: per pass [in_pad][pass width]),
+//     so a 16-deep weight K tile is one contiguous copy of at most 32 KB;
+//   * a ring stage holds a weight K tile and the input K tile beside it,
+//     both copied by cp.async.bulk onto one mbarrier; the consumers' inner
+//     loop is the 512 design's (8 float4 activation broadcasts and 16 float4
+//     weights per 512 FMAs, the float4 column count a compile-time constant);
+//   * each pass's epilogue (the xyz term, c_l, ReLU) stores float4 straight
+//     into the other buffer; once a layer is stored, every consumer thread
+//     fences it for the async proxy and arrives on the ``ready`` mbarrier
+//     before the producer copies it back as the next layer's input;
+//   * LayerNorm over any number of passes: each pass's float32 pre-LayerNorm
+//     values wait in the output buffer itself, at their final place (each
+//     lane reads back only what it wrote), while each row's mean and sum of
+//     squared deviations merge pass by pass by Chan's formula (warp
+//     shuffles); a second pass normalises, applies ReLU and stores in place
+//     or feeds the last layer's dot product. A layer without products
+//     (layer 0) is recomputed in the second pass instead of parked.
+// What bounds it: the FP32 FMA pipe, as in the 512 design; beside it each
+// input K tile is read once per pass from L2 and the layer boundary waits
+// for the copies of the next input. The scratch (2 x 64 x W float32) is per
+// block, so a launch whose scratch would pass the wrapper's cap runs fewer
+// persistent blocks.
+// Shared memory: 4 x 36 KB ring + xyz + the barriers.
+// ---------------------------------------------------------------------------
+
+namespace f32w {
+
+using f32::comp;
+using f32::warp_sum;
+using wg::bulk_load;
+using wg::mbar_arrive;
+using wg::mbar_expect_tx;
+using wg::mbar_init;
+using wg::mbar_wait;
+using wg::setmaxnreg_dec;
+using wg::setmaxnreg_inc;
+using wg::smem_u32;
+using wgw::fence_proxy_async_global;
+constexpr int BM = 64;                              // points per tile
+constexpr int PASS = 512;                           // outputs per pass
+constexpr int TK = 16;                              // K rows per weight tile
+constexpr int STAGES = 4;                           // stages in the ring
+constexpr int WARPS = 8;                            // consumer warps, 8 rows each
+constexpr int THREADS = 128 + 32 * WARPS;           // producer warpgroup + consumers
+constexpr int W_FLOATS = TK * PASS;                 // a weight K tile of a pass (at most 32 KB)
+constexpr int A_FLOATS = BM * TK;                   // an input K tile [64 rows][16] (4 KB)
+constexpr int STAGE_FLOATS = W_FLOATS + A_FLOATS;
+constexpr int SMEM = (STAGES * STAGE_FLOATS + BM * 4) * 4 + (2 * STAGES + 1) * 8;
+
+struct Params {
+  const float* xyz;  // [n, 3]
+  float* out;        // [n]
+  long long n;
+  long long tiles;   // point tiles of BM
+  int n_layers, use_tanh;
+  const float* wk[MAX_LAYERS];   // pass-major: per pass [in_pad][pass width]; null for layer 0 and the last
+  const float* wx[MAX_LAYERS];   // [out_pad][4] xyz weights, or null
+  const float* cl[MAX_LAYERS];   // [out_pad] latent consts + bias
+  const float* lns[MAX_LAYERS];  // [out_pad] LayerNorm scale (zero-padded), or null
+  const float* lnb[MAX_LAYERS];  // [out_pad] LayerNorm bias (zero-padded), or null
+  const float* wlast;            // [in_pad of the last layer]; null without a hidden layer
+  float* act;                    // [grid][2][act_kt][BM][TK], or null
+  long long act_buf;             // floats of one activation buffer (act_kt * A_FLOATS)
+  int in_pad[MAX_LAYERS];        // 0 for layer 0
+  int out_pad[MAX_LAYERS];       // multiples of 64; 1 for the last layer
+  int out_true[MAX_LAYERS];      // true widths (LayerNorm statistics)
+};
+
+__global__ void __launch_bounds__(THREADS, 1) fused_mlp_f32_wide_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) unsigned char f32w_smem[];
+  float* const ring = reinterpret_cast<float*>(f32w_smem);
+  float* const xs = ring + STAGES * STAGE_FLOATS;     // [BM][4]
+  const uint32_t ring_s = smem_u32(ring);
+  const uint32_t bars = smem_u32(xs + BM * 4);        // full[s], empty[s], then ready
+  const uint32_t ready = bars + 16 * STAGES;          // a layer's outputs are stored
+  float* const act = p.act == nullptr ? nullptr : p.act + 2 * p.act_buf * blockIdx.x;
+  const int last = p.n_layers - 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (STAGES + s), WARPS);
+    }
+    mbar_init(ready, 32 * WARPS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0, rph = 0;
+      for (long long tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        for (int layer = 1; layer < last; ++layer) {
+          mbar_wait(ready, rph);  // the layer's input is stored
+          rph ^= 1;
+          const float* in = act + ((layer - 1) & 1) * p.act_buf;
+          const float* w = p.wk[layer];
+          const int out_pad = p.out_pad[layer], kt_n = p.in_pad[layer] / TK;
+          for (int col0 = 0; col0 < out_pad; col0 += PASS) {
+            const int pw = min(PASS, out_pad - col0);
+            for (int kt = 0; kt < kt_n; ++kt) {
+              mbar_wait(bars + 8 * (STAGES + s), ph ^ 1);
+              mbar_expect_tx(bars + 8 * s, (TK * pw + A_FLOATS) * 4);
+              bulk_load(ring_s + s * STAGE_FLOATS * 4, w, TK * pw * 4, bars + 8 * s);
+              bulk_load(ring_s + (s * STAGE_FLOATS + W_FLOATS) * 4, in + static_cast<size_t>(kt) * A_FLOATS,
+                        A_FLOATS * 4, bars + 8 * s);
+              w += TK * pw;
+              if (++s == STAGES) {
+                s = 0;
+                ph ^= 1;
+              }
+            }
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int warp = (threadIdx.x >> 5) - 4, lane = threadIdx.x & 31;
+    float* const xw = xs + 32 * warp;  // this warp's rows' xyz, [8][4]
+    int s = 0;
+    uint32_t ph = 0;
+    for (long long tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const long long row0 = tile * BM + 8 * warp;
+      __syncwarp();  // the previous tile's last reads of xw are done
+      if (lane < 24) {
+        const int r = lane / 3, j = lane % 3;
+        xw[4 * r + j] = row0 + r < p.n ? p.xyz[3 * (row0 + r) + j] : 0.0f;
+      }
+      __syncwarp();
+      float dot[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) dot[r] = 0.0f;
+      for (int layer = 0; layer < last; ++layer) {
+        const int out_pad = p.out_pad[layer], kt_n = p.in_pad[layer] / TK;
+        const bool to_dot = layer == last - 1, ln = p.lns[layer] != nullptr;
+        // the output buffer: the next layer's input, or (the layer before
+        // the last, with LayerNorm and products) where its values wait
+        float* const out = act == nullptr ? nullptr : act + (layer & 1) * p.act_buf + 8 * warp * TK;
+        float acc[8][16];
+        bool on[4];
+
+        // the products of the pass at col0, pw wide, at a compile-time count
+        // of float4 columns per lane (ceil(pw / 128)) with no branch inside.
+        // A lane past pw in the last float4 column multiplies neighbouring
+        // ring floats into accumulators that nothing reads.
+        auto products = [&](auto nch_c, int pw) {
+          constexpr int NCH = decltype(nch_c)::value;
+          for (int kt = 0; kt < kt_n; ++kt) {
+            mbar_wait(bars + 8 * s, ph);
+            const float* wt = ring + s * STAGE_FLOATS + 4 * lane;
+            const float* a = ring + s * STAGE_FLOATS + W_FLOATS + 8 * warp * TK;
+#pragma unroll
+            for (int k4 = 0; k4 < TK; k4 += 4) {
+              float4 av[8];
+#pragma unroll
+              for (int r = 0; r < 8; ++r) av[r] = *reinterpret_cast<const float4*>(a + r * TK + k4);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                const float* wrow = wt + (k4 + kk) * pw;
+#pragma unroll
+                for (int i = 0; i < NCH; ++i) {
+                  const float4 wv = *reinterpret_cast<const float4*>(wrow + 128 * i);
+#pragma unroll
+                  for (int r = 0; r < 8; ++r) {
+                    const float x = comp(av[r], kk);
+                    acc[r][4 * i] = fmaf(x, wv.x, acc[r][4 * i]);
+                    acc[r][4 * i + 1] = fmaf(x, wv.y, acc[r][4 * i + 1]);
+                    acc[r][4 * i + 2] = fmaf(x, wv.z, acc[r][4 * i + 2]);
+                    acc[r][4 * i + 3] = fmaf(x, wv.w, acc[r][4 * i + 3]);
+                  }
+                }
+              }
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bars + 8 * (STAGES + s));
+            if (++s == STAGES) {
+              s = 0;
+              ph ^= 1;
+            }
+          }
+        };
+        // acc = the pass at col0, pw wide, in float32: the products plus the
+        // xyz term and c_l
+        auto pre = [&](int col0, int pw) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) on[i] = 128 * i + 4 * lane < pw;
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int e = 0; e < 16; ++e) acc[r][e] = 0.0f;
+          if (kt_n > 0) {
+            switch ((pw + 127) / 128) {
+              case 1: products(std::integral_constant<int, 1>(), pw); break;
+              case 2: products(std::integral_constant<int, 2>(), pw); break;
+              case 3: products(std::integral_constant<int, 3>(), pw); break;
+              default: products(std::integral_constant<int, 4>(), pw); break;
+            }
+          }
+          const float* wx = p.wx[layer];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (!on[i]) continue;
+            const int col = col0 + 128 * i + 4 * lane;
+            const float4 cc = __ldg(reinterpret_cast<const float4*>(p.cl[layer] + col));
+            float4 w4[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              w4[e] = wx != nullptr ? __ldg(reinterpret_cast<const float4*>(wx) + col + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              const float x0 = xw[4 * r], x1 = xw[4 * r + 1], x2 = xw[4 * r + 2];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                float v = acc[r][4 * i + e];
+                if (wx != nullptr) v += x0 * w4[e].x + x1 * w4[e].y + x2 * w4[e].z;
+                acc[r][4 * i + e] = v + comp(cc, e);
+              }
+            }
+          }
+        };
+        // float4 (r, i) of the pass at col0 in the output buffer
+        auto slot = [&](int col0, int r, int i) {
+          const int col = col0 + 128 * i + 4 * lane;
+          return reinterpret_cast<float4*>(out + static_cast<size_t>(col >> 4) * A_FLOATS + r * TK + (col & 15));
+        };
+        // ReLU, then the last layer's dot product or the store
+        auto emit = [&](int col0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (!on[i]) continue;
+            float4 wl = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (to_dot) wl = __ldg(reinterpret_cast<const float4*>(p.wlast + col0 + 128 * i + 4 * lane));
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              const float4 v = make_float4(fmaxf(acc[r][4 * i], 0.0f), fmaxf(acc[r][4 * i + 1], 0.0f),
+                                           fmaxf(acc[r][4 * i + 2], 0.0f), fmaxf(acc[r][4 * i + 3], 0.0f));
+              if (to_dot)
+                dot[r] += v.x * wl.x + v.y * wl.y + v.z * wl.z + v.w * wl.w;
+              else
+                *slot(col0, r, i) = v;
+            }
+          }
+        };
+
+        if (!ln) {
+          for (int col0 = 0; col0 < out_pad; col0 += PASS) {
+            pre(col0, min(PASS, out_pad - col0));
+            emit(col0);
+          }
+        } else {
+          // each pass's row mean and sum of squared deviations over its
+          // columns below the true width (two passes over the registers,
+          // warp shuffles), merged into the row's by Chan's formula; every
+          // pass before the last lies wholly inside the true width
+          const int out_true = p.out_true[layer];
+          float mean[8], m2[8];
+          for (int col0 = 0; col0 < out_pad; col0 += PASS) {
+            pre(col0, min(PASS, out_pad - col0));
+            const int valid = min(PASS, out_true - col0);
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              float sum = 0.0f;
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  if (on[i] && 128 * i + 4 * lane + e < valid) sum += acc[r][4 * i + e];
+              const float mt = warp_sum(sum) / static_cast<float>(valid);
+              float d2 = 0.0f;
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  if (on[i] && 128 * i + 4 * lane + e < valid) {
+                    const float d = acc[r][4 * i + e] - mt;
+                    d2 += d * d;
+                  }
+              d2 = warp_sum(d2);
+              if (col0 == 0) {
+                mean[r] = mt;
+                m2[r] = d2;
+              } else {
+                const float na = static_cast<float>(col0), nb = static_cast<float>(valid), nn = na + nb;
+                const float delta = mt - mean[r];
+                mean[r] += delta * (nb / nn);
+                m2[r] += d2 + delta * delta * (na * nb / nn);
+              }
+            }
+            if (kt_n > 0) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                if (!on[i]) continue;
+#pragma unroll
+                for (int r = 0; r < 8; ++r)
+                  *slot(col0, r, i) = make_float4(acc[r][4 * i], acc[r][4 * i + 1], acc[r][4 * i + 2], acc[r][4 * i + 3]);
+              }
+            }
+          }
+          float rstd[8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) rstd[r] = rsqrtf(m2[r] / static_cast<float>(out_true) + LN_EPS);
+          for (int col0 = 0; col0 < out_pad; col0 += PASS) {
+            const int pw = min(PASS, out_pad - col0);
+            if (kt_n > 0) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                on[i] = 128 * i + 4 * lane < pw;
+                if (!on[i]) continue;
+#pragma unroll
+                for (int r = 0; r < 8; ++r) {
+                  const float4 v = *slot(col0, r, i);
+                  acc[r][4 * i] = v.x, acc[r][4 * i + 1] = v.y, acc[r][4 * i + 2] = v.z, acc[r][4 * i + 3] = v.w;
+                }
+              }
+            } else {
+              pre(col0, pw);
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (!on[i]) continue;
+              const int col = col0 + 128 * i + 4 * lane;
+              const float4 sc = __ldg(reinterpret_cast<const float4*>(p.lns[layer] + col));
+              const float4 sh = __ldg(reinterpret_cast<const float4*>(p.lnb[layer] + col));
+#pragma unroll
+              for (int r = 0; r < 8; ++r)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  acc[r][4 * i + e] = (acc[r][4 * i + e] - mean[r]) * rstd[r] * comp(sc, e) + comp(sh, e);
+            }
+            emit(col0);
+          }
+        }
+        if (!to_dot) {  // the next layer's input is stored: the producer may copy it
+          fence_proxy_async_global();
+          mbar_arrive(ready);
+        }
+      }
+      // the last layer: one output per row, a dot product over the layer before
+      const float* wxl = p.wx[last];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        float v = warp_sum(dot[r]);
+        if (lane == r && row0 + r < p.n) {
+          if (wxl != nullptr) v += xw[4 * r] * wxl[0] + xw[4 * r + 1] * wxl[1] + xw[4 * r + 2] * wxl[2];
+          v += p.cl[last][0];
+          if (p.use_tanh) v = tanhf(v);
+          p.out[row0 + r] = tanhf(v);
+        }
+      }
+    }
+  }
+}
+
+int launch(const Params& p, long long grid, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(fused_mlp_f32_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fused_mlp_f32_wide_kernel<<<static_cast<unsigned>(grid), THREADS, SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32w
+
 }  // namespace
 
 extern "C" {
-
-// Bytes of device scratch msd_fused_mlp_forward needs for n points at this
-// width: 0 when a tile's activations fit in shared memory; -1 for a bad dtype.
-long long msd_fused_mlp_scratch_bytes(int dtype, int kmax, long long n) {
-  if (dtype == 0) return scratch_bytes_t<__nv_bfloat16>(kmax, n);
-  if (dtype == 1) return scratch_bytes_t<float>(kmax, n);
-  return -1;
-}
-
-// dtype: 0 = bf16 operands, 1 = float32 operands. Pointer arrays are host
-// arrays of device pointers, one per layer. scratch holds scratch_bytes
-// bytes of device memory (msd_fused_mlp_scratch_bytes; may be null when
-// that is 0). Returns a cudaError_t code.
-int msd_fused_mlp_forward(int dtype, int n_layers, const void* xyz, void* out, long long n,
-                          const void* const* wp, const void* const* wx, const void* const* cl,
-                          const void* const* lns, const void* const* lnb, const int* in_pad,
-                          const int* out_pad, const int* out_true, int kmax, int use_tanh,
-                          void* scratch, long long scratch_bytes, void* stream) {
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int bn = dtype == 0 ? Tile<__nv_bfloat16>::BN : Tile<float>::BN;
-  if (n_layers < 1 || n_layers > MAX_LAYERS || kmax < bn || kmax % bn != 0 || n < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.xyz = static_cast<const float*>(xyz);
-  p.out = static_cast<float*>(out);
-  p.n = n;
-  p.n_layers = n_layers;
-  p.kmax = kmax;
-  p.use_tanh = use_tanh;
-  p.scratch = scratch;
-  for (int l = 0; l < n_layers; ++l) {
-    const bool last = l == n_layers - 1;
-    if (cl[l] == nullptr || (lns[l] == nullptr) != (lnb[l] == nullptr) || (last && lns[l] != nullptr))
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (wp[l] != nullptr && (in_pad[l] % BK != 0 || in_pad[l] > kmax || in_pad[l] < BK))
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (!last && (out_pad[l] % bn != 0 || out_pad[l] > kmax || out_true[l] > out_pad[l]))
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (last && out_pad[l] != 1) return static_cast<int>(cudaErrorInvalidValue);
-    p.wp[l] = wp[l];
-    p.wx[l] = wx[l];
-    p.cl[l] = static_cast<const float*>(cl[l]);
-    p.lns[l] = static_cast<const float*>(lns[l]);
-    p.lnb[l] = static_cast<const float*>(lnb[l]);
-    p.in_pad[l] = in_pad[l];
-    p.out_pad[l] = out_pad[l];
-    p.out_true[l] = out_true[l];
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<__nv_bfloat16>(p, scratch_bytes, s);
-  return launch<float>(p, scratch_bytes, s);
-}
 
 // The wgmma route. wt: the hidden layers' weight tiles, wtiles of them
 // ([256][64] bf16 each, 128-byte swizzled, in the order of the layers, N
@@ -1385,6 +1718,86 @@ long long msd_fused_mlp_wgmma_scratch_bytes(long long n) {
   return grid * wg::SCRATCH_PER_BLOCK;
 }
 
+// Device scratch one block of a wide kernel needs (msd_fused_mlp_wgmma_wide
+// with dtype 0, msd_fused_mlp_f32_wide with dtype 1): the two activation
+// buffers of its point tile, as wide as the widest layer whose output a
+// later layer's products read (and, in float32, the layer before the last
+// when it has LayerNorm and products: its values wait there), and in bf16
+// the float32 values of the widest LayerNorm layer with products. -1 for a
+// bad dtype. The per-layer arrays are those of the launch.
+long long msd_fused_mlp_wide_scratch_per_block(int dtype, int n_layers, const int* in_pad, const int* out_pad,
+                                               const void* const* lns) {
+  if (dtype != 0 && dtype != 1) return -1;
+  const int last = n_layers - 1;
+  long long act = 0, park = 0;
+  for (int l = 0; l < last; ++l) {
+    const bool parked = lns[l] != nullptr && in_pad[l] > 0;
+    if (l < last - 1 || (dtype == 1 && parked)) act = out_pad[l] > act ? out_pad[l] : act;
+    if (dtype == 0 && parked) park = out_pad[l] > park ? out_pad[l] : park;
+  }
+  if (dtype == 1) return 2 * act * f32w::BM * 4;
+  return 2 * (act / wg::TK) * wgw::A_BYTES + park / wg::TN * wgw::PARK_TILE_BYTES;
+}
+
+// The wgmma route past 512 (and with no hidden layer). Arguments as
+// msd_fused_mlp_wgmma, but hidden out_pad is any multiple of 256 (1 for the
+// last layer), wlast is null exactly when n_layers is 1, and the launch runs
+// ``grid`` persistent blocks (at most one per point tile of 128) with
+// scratch_bytes of device scratch, at least grid times
+// msd_fused_mlp_wide_scratch_per_block(0, ...) (null when that is 0).
+int msd_fused_mlp_wgmma_wide(int n_layers, const void* xyz, void* out, long long n, const void* wt, int wtiles,
+                             const void* wlast, const void* const* wx, const void* const* cl,
+                             const void* const* lns, const void* const* lnb, const int* in_pad,
+                             const int* out_pad, const int* out_true, int use_tanh, long long grid, void* scratch,
+                             long long scratch_bytes, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (n_layers < 1 || n_layers > MAX_LAYERS || n < 0 || (wlast == nullptr) != (n_layers == 1) || in_pad[0] != 0 ||
+      out_pad[n_layers - 1] != 1 || wtiles < 0 || (wtiles > 0) != (wt != nullptr) || grid < 1)
+    return bad;
+  wgw::Params p;
+  p.xyz = static_cast<const float*>(xyz);
+  p.out = static_cast<float*>(out);
+  p.n = n;
+  p.n_layers = n_layers;
+  p.use_tanh = use_tanh;
+  p.wt = static_cast<const __nv_bfloat16*>(wt);
+  p.wlast = static_cast<const __nv_bfloat16*>(wlast);
+  long long tiles = 0;
+  bool ln = false;
+  int act_kb = 0, park_nt = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const bool last = l == n_layers - 1;
+    if (cl[l] == nullptr || (l > 0 && in_pad[l] != out_pad[l - 1])) return bad;
+    if ((lns[l] == nullptr) != (lnb[l] == nullptr) || (last && lns[l] != nullptr)) return bad;
+    if (!last && (out_pad[l] < wg::TN || out_pad[l] % wg::TN != 0)) return bad;
+    if (!last && (out_true[l] < 1 || out_true[l] > out_pad[l] || out_true[l] <= out_pad[l] - wg::TN)) return bad;
+    if (!last) tiles += static_cast<long long>(out_pad[l] / wg::TN) * (in_pad[l] / wg::TK);
+    if (l < n_layers - 2) act_kb = out_pad[l] / wg::TK > act_kb ? out_pad[l] / wg::TK : act_kb;
+    if (lns[l] != nullptr && in_pad[l] > 0) park_nt = out_pad[l] / wg::TN > park_nt ? out_pad[l] / wg::TN : park_nt;
+    ln = ln || lns[l] != nullptr;
+    p.wx[l] = static_cast<const float*>(wx[l]);
+    p.cl[l] = static_cast<const float*>(cl[l]);
+    p.lns[l] = static_cast<const float*>(lns[l]);
+    p.lnb[l] = static_cast<const float*>(lnb[l]);
+    p.in_pad[l] = in_pad[l];
+    p.out_pad[l] = out_pad[l];
+    p.out_true[l] = out_true[l];
+  }
+  if (tiles != wtiles) return bad;
+  const long long per_block = msd_fused_mlp_wide_scratch_per_block(0, n_layers, in_pad, out_pad, lns);
+  if ((per_block > 0 && scratch == nullptr) || scratch_bytes < grid * per_block) return bad;
+  unsigned char* const s = static_cast<unsigned char*>(scratch);
+  p.act_buf = static_cast<long long>(act_kb) * wgw::A_BYTES;
+  p.act = act_kb > 0 ? s : nullptr;
+  p.park_nt = park_nt;
+  p.park = park_nt > 0 ? reinterpret_cast<float4*>(s + grid * 2 * p.act_buf) : nullptr;
+  if (n == 0) return 0;
+  p.tiles = (n + wgw::BM - 1) / wgw::BM;
+  if (grid > p.tiles) grid = p.tiles;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return ln ? wgw::launch<true>(p, grid, st) : wgw::launch<false>(p, grid, st);
+}
+
 // The f32 route. wk: per layer the [in_pad][out_pad] float32 weights of the
 // previous layer's output, K-major (null for layer 0 and the last layer);
 // wlast: the last layer's [in_pad] float32 weights; wx: per layer
@@ -1429,11 +1842,64 @@ int msd_fused_mlp_f32(int n_layers, const void* xyz, void* out, long long n, con
   return f32::launch(p, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of one block: route 0 the mma_sync kernel (bf16,
-// activations in shared memory) at hidden width kmax, route 1 the wgmma
-// kernel, route 2 the f32 kernel.
-long long msd_fused_mlp_smem_bytes(int route, int kmax) {
-  return route == 1 ? wg::SMEM : route == 2 ? f32::SMEM : smem_bytes_t<__nv_bfloat16, false>(kmax);
+// The f32 route past 512 (and with no hidden layer). Arguments as
+// msd_fused_mlp_f32, but wk holds each hidden layer's weights pass-major
+// (per 512-wide pass [in_pad][pass width]), hidden out_pad is any multiple
+// of 64 (1 for the last layer), wlast is null exactly when n_layers is 1,
+// and the launch runs ``grid`` persistent blocks (at most one per point
+// tile of 64) with scratch_bytes of device scratch, at least grid times
+// msd_fused_mlp_wide_scratch_per_block(1, ...) (null when that is 0).
+int msd_fused_mlp_f32_wide(int n_layers, const void* xyz, void* out, long long n, const void* const* wk,
+                           const void* wlast, const void* const* wx, const void* const* cl, const void* const* lns,
+                           const void* const* lnb, const int* in_pad, const int* out_pad, const int* out_true,
+                           int use_tanh, long long grid, void* scratch, long long scratch_bytes, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (n_layers < 1 || n_layers > MAX_LAYERS || n < 0 || (wlast == nullptr) != (n_layers == 1) || in_pad[0] != 0 ||
+      wk[0] != nullptr || out_pad[n_layers - 1] != 1 || grid < 1)
+    return bad;
+  f32w::Params p;
+  p.xyz = static_cast<const float*>(xyz);
+  p.out = static_cast<float*>(out);
+  p.n = n;
+  p.n_layers = n_layers;
+  p.use_tanh = use_tanh;
+  p.wlast = static_cast<const float*>(wlast);
+  for (int l = 0; l < n_layers; ++l) {
+    const bool last = l == n_layers - 1;
+    if (cl[l] == nullptr || (l > 0 && in_pad[l] != out_pad[l - 1])) return bad;
+    if ((lns[l] == nullptr) != (lnb[l] == nullptr) || (last && lns[l] != nullptr)) return bad;
+    if (!last && (out_pad[l] < 64 || out_pad[l] % 64 != 0)) return bad;
+    if (!last && (out_true[l] < 1 || out_true[l] > out_pad[l] || out_true[l] <= out_pad[l] - 64)) return bad;
+    if (!last && l > 0 && wk[l] == nullptr) return bad;
+    p.wk[l] = last ? nullptr : static_cast<const float*>(wk[l]);
+    p.wx[l] = static_cast<const float*>(wx[l]);
+    p.cl[l] = static_cast<const float*>(cl[l]);
+    p.lns[l] = static_cast<const float*>(lns[l]);
+    p.lnb[l] = static_cast<const float*>(lnb[l]);
+    p.in_pad[l] = in_pad[l];
+    p.out_pad[l] = out_pad[l];
+    p.out_true[l] = out_true[l];
+  }
+  const long long per_block = msd_fused_mlp_wide_scratch_per_block(1, n_layers, in_pad, out_pad, lns);
+  if ((per_block > 0 && scratch == nullptr) || scratch_bytes < grid * per_block) return bad;
+  p.act = per_block > 0 ? static_cast<float*>(scratch) : nullptr;
+  p.act_buf = per_block / 8;  // floats of one buffer: per_block is two of them in bytes
+  if (n == 0) return 0;
+  p.tiles = (n + f32w::BM - 1) / f32w::BM;
+  if (grid > p.tiles) grid = p.tiles;
+  return f32w::launch(p, grid, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of one block: route 1 the wgmma kernel, 2 the f32
+// kernel, 3 the wide wgmma kernel, 4 the wide f32 kernel; -1 otherwise.
+long long msd_fused_mlp_smem_bytes(int route) {
+  switch (route) {
+    case 1: return wg::SMEM;
+    case 2: return f32::SMEM;
+    case 3: return wgw::SMEM;
+    case 4: return f32w::SMEM;
+    default: return -1;
+  }
 }
 
 const char* msd_cuda_error_string(int code) {

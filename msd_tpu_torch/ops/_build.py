@@ -30,12 +30,6 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "fused_mlp": {
-        "msd_fused_mlp_forward": (
-            ctypes.c_int,
-            [ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_longlong,
-             _PP, _PP, _PP, _PP, _PP, _PI, _PI, _PI, ctypes.c_int, ctypes.c_int,
-             _P, ctypes.c_longlong, _P],
-        ),
         "msd_fused_mlp_wgmma": (
             ctypes.c_int,
             [ctypes.c_int, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _PP, _PP, _PP, _PP, _PI, _PI, _PI,
@@ -46,8 +40,18 @@ _SIGNATURES = {
             ctypes.c_int,
             [ctypes.c_int, _P, _P, ctypes.c_longlong, _PP, _P, _PP, _PP, _PP, _PP, _PI, _PI, _PI, ctypes.c_int, _P],
         ),
-        "msd_fused_mlp_scratch_bytes": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]),
-        "msd_fused_mlp_smem_bytes": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_int]),
+        "msd_fused_mlp_wgmma_wide": (
+            ctypes.c_int,
+            [ctypes.c_int, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _PP, _PP, _PP, _PP, _PI, _PI, _PI,
+             ctypes.c_int, ctypes.c_longlong, _P, ctypes.c_longlong, _P],
+        ),
+        "msd_fused_mlp_f32_wide": (
+            ctypes.c_int,
+            [ctypes.c_int, _P, _P, ctypes.c_longlong, _PP, _P, _PP, _PP, _PP, _PP, _PI, _PI, _PI, ctypes.c_int,
+             ctypes.c_longlong, _P, ctypes.c_longlong, _P],
+        ),
+        "msd_fused_mlp_wide_scratch_per_block": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_int, _PI, _PI, _PP]),
+        "msd_fused_mlp_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
         "msd_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "fused_train": {

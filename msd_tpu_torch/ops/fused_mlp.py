@@ -15,31 +15,33 @@ the kernel, 3.147 MFLOP per point against 16 bytes of point I/O, so 2^20
 points need at least 3.34 ms at the dense bf16 tensor-core peak of
 989 TFLOP/s, and 49.25 ms at the 67 TFLOP/s float32 FMA peak. The TPU
 kernel kept every weight resident on chip; 3.15 MB of bf16 weights do not
-fit a block's 227 KB of shared memory, so the Hopper kernels keep a tile of
-points' activations in shared memory instead and stream weight tiles from
-the (L2-resident) weights; activations never touch device memory. The
-decoder picks one of three routes, once, when its ``FusedDecoderSpec`` is
-built (``spec.route``):
+fit a block's 227 KB of shared memory, so the Hopper kernels stream weight
+tiles from the (L2-resident) weights past a tile of points' activations.
+The decoder picks one of four routes, each one kernel, once, when its
+``FusedDecoderSpec`` is built (``spec.route``, ``route_for``), by operand
+type and by width:
 
-* ``"wgmma"``: bf16 operands, hidden widths up to 512, with or without
-  LayerNorm (every shipped config). 128-point blocks on ``wgmma``, the
-  weights laid out here once (``wtiles``) and copied in 32 KB tiles through
-  an mbarrier ring. A LayerNorm layer 512 wide keeps its first N tile's
-  float32 values in a device scratch (``wgmma_scratch_bytes``) until the
-  row statistics exist.
-* ``"f32"``: float32 operands, hidden widths up to 512, with or without
-  LayerNorm. 64-point blocks on exact float32 FMAs, each warp 8 rows by the
-  whole layer width, the weights laid out here once K-major (``wk``) and
-  copied in 16-deep K tiles through an mbarrier ring.
-* ``"mma_sync"``: hidden widths over 512, either operand type. 64-point
-  (bf16) or 32-point (float32) blocks on ``mma.sync.m16n8k16`` or FMAs
-  with ``cp.async`` weight tiles; decoders with hidden widths over 640 keep
-  the activations in a device scratch, which ``fused_eval`` allocates at
-  the size the kernel asks for. ``_eval_mma_sync`` runs it on any spec
-  (for measurements).
+* ``"wgmma"``: bf16 operands, with or without LayerNorm, hidden widths up
+  to 512 (every shipped config): 128-point blocks on ``wgmma``, the
+  activations in shared memory, the weights laid out here once
+  (``wtiles``) and copied in 32 KB tiles through an mbarrier ring. A
+  LayerNorm layer 512 wide keeps its first N tile's float32 values in a
+  device scratch (``wgmma_scratch_bytes``) until the row statistics exist.
+* ``"wgmma_wide"``: bf16 operands, a hidden layer wider than 512 or none:
+  the same blocks and weight tiles, each beside the K tile of the
+  activations it multiplies, which live in a per-block device scratch
+  (``wide_scratch_per_block``).
+* ``"f32"``: float32 operands, with or without LayerNorm, hidden widths up
+  to 512: 64-point blocks on exact float32 FMAs, each warp 8 rows by the
+  whole layer width, the activations in shared memory, the weights laid
+  out here once K-major (``wk``) and copied in 16-deep K tiles through an
+  mbarrier ring.
+* ``"f32_wide"``: float32 operands, wider decoders: 512 outputs per pass,
+  the weights pass-major (``f32_pass_weights``), the activations in a
+  per-block device scratch.
 
 A failed build or launch raises on every route; nothing retries on another
-one.
+kernel or route.
 
 On a CPU tensor ``fused_eval`` computes the plain PyTorch version
 (``fused_eval_plain``) with the same rounding points. On a CUDA tensor it
@@ -57,24 +59,31 @@ from msd_tpu_torch.models.common import LAYER_NORM_EPS
 from msd_tpu_torch.models.deepsdf import DeepSDFDecoder
 from msd_tpu_torch.ops._build import KernelError
 
-# Output tile of the mma_sync kernel per operand type: every hidden width
-# is zero-padded to a multiple of it (the f32 route pads float32 to it too).
-TILE_N = {torch.bfloat16: 128, torch.float32: 64}
-# The wgmma route: hidden widths padded to multiples of its 256-wide N tile,
-# at most WGMMA_MAX_WIDTH; weight tiles of [WGMMA_TILE_N][WGMMA_TILE_K].
-WGMMA_TILE_N, WGMMA_TILE_K, WGMMA_MAX_WIDTH = 256, 64, 512
-ROUTES = ("wgmma", "f32", "mma_sync")
+# The wgmma route: hidden widths padded to multiples of its 256-wide N tile;
+# weight tiles of [WGMMA_TILE_N][WGMMA_TILE_K]; the wide kernel's blocks
+# hold WGMMA_WIDE_BM points.
+WGMMA_TILE_N, WGMMA_TILE_K, WGMMA_WIDE_BM = 256, 64, 128
+# The f32 route: hidden widths padded to multiples of 64; the wide kernel
+# computes F32_PASS outputs per pass; 64-point blocks.
+F32_TILE_N, F32_PASS, F32_BM = 64, 512, 64
+# Widest hidden layer of the kernels that keep the activations in shared
+# memory; a wider decoder, or one with no hidden layer, takes a "_wide" route.
+NARROW_MAX_WIDTH = 512
+ROUTES = ("wgmma", "wgmma_wide", "f32", "f32_wide")
+WGMMA_ROUTES = ("wgmma", "wgmma_wide")
 # Weight bytes above which the config is refused, as the TPU kernel does
 # (``msd_tpu/ops/fused_mlp.py:98``).
 MAX_WEIGHT_BYTES = 10 * 1024 * 1024
-# Most device scratch one launch takes (wide decoders only); larger point
-# sets are split over several launches.
+# Most device scratch one launch of a wide kernel takes. That scratch is
+# per persistent block, so past the cap a launch runs fewer blocks (at least
+# one) over all its points.
 SCRATCH_CAP_BYTES = 2**28
 
 # Kernel launches on CUDA tensors (comparisons with the plain version
 # included); callers reset it to 0 to count the launches of a run.
 LAUNCHES = 0
-# The same launches by route; callers reset it with ``dict.fromkeys(ROUTES, 0)``.
+# The same launches by route, that is by kernel; callers reset it with
+# ``dict.fromkeys(ROUTES, 0)``.
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -90,13 +99,13 @@ def _round_up(x: int, m: int) -> int:
 
 
 def route_for(decoder, dtype: torch.dtype) -> str:
-    """The kernel route of a decoder at an operand type: with hidden widths
-    up to ``WGMMA_MAX_WIDTH`` (LayerNorm or not), "wgmma" for bf16 operands
-    and "f32" for float32; wider decoders "mma_sync"."""
+    """The route, that is the kernel, of a decoder at an operand type,
+    LayerNorm or not: "wgmma" for bf16 operands and "f32" for float32, with
+    "_wide" where a hidden layer is wider than ``NARROW_MAX_WIDTH`` or
+    there is none."""
     hidden = [out_dim for (_, out_dim, _, _) in decoder.layer_shapes][:-1]
-    if not hidden or any(w > WGMMA_MAX_WIDTH for w in hidden):
-        return "mma_sync"
-    return "wgmma" if dtype == torch.bfloat16 else "f32"
+    wide = not hidden or max(hidden) > NARROW_MAX_WIDTH
+    return ("wgmma" if dtype == torch.bfloat16 else "f32") + ("_wide" if wide else "")
 
 
 def swizzle128(tiles: torch.Tensor) -> torch.Tensor:
@@ -108,6 +117,14 @@ def swizzle128(tiles: torch.Tensor) -> torch.Tensor:
     idx = torch.arange(8, device=tiles.device)[None, :] ^ (r % 8)[:, None]  # [rows, 8]
     chunks = tiles.reshape(*tiles.shape[:-1], 8, 8)
     return chunks[..., r[:, None], idx, :].reshape(tiles.shape)
+
+
+def f32_pass_weights(wp: torch.Tensor) -> torch.Tensor:
+    """A layer's [out_pad, in_pad] float32 weights as the wide f32 kernel
+    reads them: for each pass of ``F32_PASS`` outputs (the last one
+    narrower), those rows transposed K-major, [in_pad][pass width], the
+    passes one after another in one flat buffer."""
+    return torch.cat([wp[c:c + F32_PASS].t().reshape(-1) for c in range(0, wp.shape[0], F32_PASS)])
 
 
 def wgmma_tiles(wp: torch.Tensor) -> torch.Tensor:
@@ -122,8 +139,8 @@ def wgmma_tiles(wp: torch.Tensor) -> torch.Tensor:
 
 class FusedDecoderSpec:
     """Per-layer weight splits for the fused kernel, zero-padded to the
-    route's output tile (``WGMMA_TILE_N`` on the wgmma route, else
-    ``TILE_N``; both multiples of the 64-deep K tile).
+    route's output tile (``WGMMA_TILE_N`` on the wgmma route,
+    ``F32_TILE_N`` on the f32 route; both multiples of the 64-deep K tile).
 
     Layer l holds ``wp`` [out_pad, in_pad] (None for layer 0), ``wx``
     [out_pad, 3] (layer 0 and ``latent_in`` layers, else None), ``wz``
@@ -132,12 +149,13 @@ class FusedDecoderSpec:
     or None. Padded rows and columns are zero, which is exact for ReLU
     layers; LayerNorm uses the true width ``out_true`` (its padded scale and
     bias are zero, so padded columns stay zero). The last layer has out_pad
-    1. ``route`` names the kernel (``route_for``); on the wgmma route
+    1. ``route`` names the route (``route_for``); on the two wgmma routes
     ``wtiles`` holds the hidden layers' ``wgmma_tiles`` of ``wp`` (layers 1
-    to n_layers - 2) in one bf16 buffer, ``n_wtiles`` of them; on the f32
-    route ``wk`` holds each hidden layer's ``wp`` transposed, K-major
-    [in_pad, out_pad] (None for layer 0 and the last layer); on both ``wx4``
-    holds each layer's ``wx`` as float32 [out_pad, 4] (or None). Raises
+    to n_layers - 2) in one bf16 buffer, ``n_wtiles`` of them; on route
+    f32 ``wk`` holds each hidden layer's ``wp`` transposed, K-major
+    [in_pad, out_pad], on f32_wide its ``f32_pass_weights`` (None for layer
+    0 and the last layer); on all ``wx4`` holds each layer's ``wx`` as float32 [out_pad, 4] (or
+    None). ``kmax`` is the widest padded hidden width. Raises
     UnsupportedConfig for the configs the TPU kernel refuses too (another
     decoder than ``DeepSDFDecoder``, ``xyz_in_all``, weights over
     ``MAX_WEIGHT_BYTES``), and ValueError for an operand type other than bfloat16 or float32."""
@@ -151,7 +169,7 @@ class FusedDecoderSpec:
             raise UnsupportedConfig("fused kernel: xyz_in_all not supported")
         self.dtype = dtype
         self.route = route_for(decoder, dtype)
-        tile_n = WGMMA_TILE_N if self.route == "wgmma" else TILE_N[dtype]
+        tile_n = WGMMA_TILE_N if self.route in WGMMA_ROUTES else F32_TILE_N
         self.use_tanh = decoder.use_tanh
         self.n_layers = decoder.num_layers - 1
         L = decoder.latent_size
@@ -201,16 +219,16 @@ class FusedDecoderSpec:
         if weight_bytes > MAX_WEIGHT_BYTES:
             raise UnsupportedConfig(f"fused kernel: weights too large ({weight_bytes} B)")
         self.kmax = max([tile_n] + self.out_pad[:-1])
-        self.wtiles, self.n_wtiles, self.wk, self.wx4 = None, 0, None, None
-        if self.route == "wgmma":
+        self.wtiles, self.n_wtiles, self.wk = None, 0, None
+        if self.route in WGMMA_ROUTES:
             tiles = [wgmma_tiles(w) for w in self.wp[1:-1]]
             self.n_wtiles = sum(t.shape[0] for t in tiles)
             self.wtiles = torch.cat([t.reshape(-1) for t in tiles]) if tiles else None
-        if self.route == "f32":
-            self.wk = [None if w is None else w.t().contiguous() for w in self.wp[:-1]] + [None]
-        if self.route != "mma_sync":
-            self.wx4 = [None if w is None else torch.nn.functional.pad(w.float(), (0, 1)).contiguous()
-                        for w in self.wx]
+        else:
+            lay = f32_pass_weights if self.route == "f32_wide" else (lambda w: w.t().contiguous())
+            self.wk = [None if w is None else lay(w) for w in self.wp[:-1]] + [None]
+        self.wx4 = [None if w is None else torch.nn.functional.pad(w.float(), (0, 1)).contiguous()
+                    for w in self.wx]
 
     def latent_consts(self, latent: torch.Tensor):
         """Per-layer [out_pad] float32: z @ W_z + b (bias folded in)."""
@@ -261,6 +279,14 @@ def _ints(values):
     return (ctypes.c_int * len(values))(*values)
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def fused_eval(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
     """xyz [n, 3] float32 -> sdf [n] float32 through K1.
 
@@ -271,11 +297,9 @@ def fused_eval(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) 
         return fused_eval_plain(spec, latent, xyz)
     if xyz.device.type != "cuda":
         raise ValueError(f"fused_eval: unsupported device {xyz.device}")
-    if spec.route == "wgmma":
+    if spec.route in WGMMA_ROUTES:
         return _eval_wgmma(spec, latent, xyz)
-    if spec.route == "f32":
-        return _eval_f32(spec, latent, xyz)
-    return _eval_mma_sync(spec, latent, xyz)
+    return _eval_f32(spec, latent, xyz)
 
 
 def _check(spec: FusedDecoderSpec, xyz: torch.Tensor) -> torch.Tensor:
@@ -317,10 +341,42 @@ def wgmma_scratch_bytes(spec: FusedDecoderSpec, n: int) -> int:
     return need
 
 
+def wide_scratch_per_block(spec: FusedDecoderSpec) -> int:
+    """Device scratch one persistent block of a wide kernel needs
+    (``msd_fused_mlp_wide_scratch_per_block``): two activation buffers of
+    its point tile, as wide as the widest hidden layer whose output a later
+    layer's products read (on the f32 route also the layer before the last
+    when it has LayerNorm and products: its values wait there for the row
+    statistics), and on the wgmma route the float32 values of the widest
+    LayerNorm layer with products."""
+    from msd_tpu_torch.ops._build import load_library
+
+    return load_library("fused_mlp").msd_fused_mlp_wide_scratch_per_block(
+        _DTYPE_CODE[spec.dtype], spec.n_layers, _ints(spec.in_pad), _ints(spec.out_pad), _ln_ptrs(spec)[0])
+
+
+def wide_grid(tiles: int, per_block: int, sms: int) -> int:
+    """Persistent blocks of a wide kernel's launch over ``tiles`` point
+    tiles on a card with ``sms`` SMs: one per SM, or fewer when there are
+    fewer tiles, or when their scratch (``per_block`` bytes each) would pass
+    ``SCRATCH_CAP_BYTES`` (at least one)."""
+    blocks = min(sms, tiles)
+    return max(1, min(blocks, SCRATCH_CAP_BYTES // per_block)) if per_block else blocks
+
+
+def _wide_launch(spec: FusedDecoderSpec, n: int, device):
+    """(blocks, scratch tensor or None, its bytes) of a wide launch."""
+    per_block = wide_scratch_per_block(spec)
+    bm = WGMMA_WIDE_BM if spec.route == "wgmma_wide" else F32_BM
+    grid = wide_grid(-(-n // bm), per_block, _sms(device))
+    need = grid * per_block
+    return grid, torch.empty(need, dtype=torch.uint8, device=device) if need else None, need
+
+
 def _eval_wgmma(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
-    """The wgmma route on a CUDA tensor."""
+    """The wgmma and wgmma_wide routes on a CUDA tensor."""
     xyz = _check(spec, xyz)
-    if spec.route != "wgmma":
+    if spec.route not in WGMMA_ROUTES:
         raise ValueError(f"fused_eval: a {spec.route} spec has no wgmma weight tiles")
     from msd_tpu_torch.ops._build import load_library
 
@@ -330,26 +386,27 @@ def _eval_wgmma(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor)
     out = torch.empty(n, dtype=torch.float32, device=xyz.device)
     if n == 0:
         return out
-    need = wgmma_scratch_bytes(spec, n)
-    scratch = torch.empty(need, dtype=torch.uint8, device=xyz.device) if need else None
     wx, cl, (lns, lnb) = _ptrs(spec.wx4), _ptrs(consts), _ln_ptrs(spec)  # alive until the call returns
-    rc = lib.msd_fused_mlp_wgmma(
-        spec.n_layers, xyz.data_ptr(), out.data_ptr(), n,
-        None if spec.wtiles is None else spec.wtiles.data_ptr(), spec.n_wtiles, spec.wp[-1].data_ptr(),
-        wx, cl, lns, lnb, _ints(spec.in_pad), _ints(spec.out_pad), _ints(spec.out_true), int(spec.use_tanh),
-        None if scratch is None else scratch.data_ptr(), need,
-        torch.cuda.current_stream(xyz.device).cuda_stream,
-    )
+    layers = (wx, cl, lns, lnb, _ints(spec.in_pad), _ints(spec.out_pad), _ints(spec.out_true), int(spec.use_tanh))
+    head = (spec.n_layers, xyz.data_ptr(), out.data_ptr(), n, _ptr(spec.wtiles), spec.n_wtiles, _ptr(spec.wp[-1]))
+    stream = torch.cuda.current_stream(xyz.device).cuda_stream
+    if spec.route == "wgmma_wide":
+        grid, scratch, need = _wide_launch(spec, n, xyz.device)
+        rc = lib.msd_fused_mlp_wgmma_wide(*head, *layers, grid, _ptr(scratch), need, stream)
+    else:
+        need = wgmma_scratch_bytes(spec, n)
+        scratch = torch.empty(need, dtype=torch.uint8, device=xyz.device) if need else None
+        rc = lib.msd_fused_mlp_wgmma(*head, *layers, _ptr(scratch), need, stream)
     if rc != 0:
-        _raise(lib, rc, "wgmma")
-    _count("wgmma")
+        _raise(lib, rc, spec.route)
+    _count(spec.route)
     return out
 
 
 def _eval_f32(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
-    """The f32 route on a CUDA tensor."""
+    """The f32 and f32_wide routes on a CUDA tensor."""
     xyz = _check(spec, xyz)
-    if spec.route != "f32":
+    if spec.route in WGMMA_ROUTES:
         raise ValueError(f"fused_eval: a {spec.route} spec has no K-major float32 weights")
     from msd_tpu_torch.ops._build import load_library
 
@@ -360,47 +417,15 @@ def _eval_f32(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) -
     if n == 0:
         return out
     wk, wx, cl, (lns, lnb) = _ptrs(spec.wk), _ptrs(spec.wx4), _ptrs(consts), _ln_ptrs(spec)
-    rc = lib.msd_fused_mlp_f32(
-        spec.n_layers, xyz.data_ptr(), out.data_ptr(), n, wk, spec.wp[-1].data_ptr(), wx, cl, lns, lnb,
-        _ints(spec.in_pad), _ints(spec.out_pad), _ints(spec.out_true), int(spec.use_tanh),
-        torch.cuda.current_stream(xyz.device).cuda_stream,
-    )
-    if rc != 0:
-        _raise(lib, rc, "f32")
-    _count("f32")
-    return out
-
-
-def _eval_mma_sync(spec: FusedDecoderSpec, latent: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
-    """The mma_sync route on a CUDA tensor (any spec: those of the other
-    routes too, for measurements)."""
-    xyz = _check(spec, xyz)
-    from msd_tpu_torch.ops._build import load_library
-
-    lib = load_library("fused_mlp")
-    code = _DTYPE_CODE[spec.dtype]
-    n = xyz.shape[0]
-    consts = spec.latent_consts(latent.to(xyz.device))
-    out = torch.empty(n, dtype=torch.float32, device=xyz.device)
-    # keep every array alive until the launch calls return
-    arrays = (
-        _ptrs(spec.wp), _ptrs(spec.wx), _ptrs(consts), *_ln_ptrs(spec),
-        _ints(spec.in_pad), _ints(spec.out_pad), _ints(spec.out_true),
-    )
-    chunk = max(n, 1)
-    need = lib.msd_fused_mlp_scratch_bytes(code, spec.kmax, chunk)
-    if need > SCRATCH_CAP_BYTES:
-        chunk = max(1, chunk * SCRATCH_CAP_BYTES // need)
-        need = lib.msd_fused_mlp_scratch_bytes(code, spec.kmax, chunk)
-    scratch = torch.empty(need, dtype=torch.uint8, device=xyz.device) if need else None
+    args = (spec.n_layers, xyz.data_ptr(), out.data_ptr(), n, wk, _ptr(spec.wp[-1]), wx, cl, lns, lnb,
+            _ints(spec.in_pad), _ints(spec.out_pad), _ints(spec.out_true), int(spec.use_tanh))
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    for start in range(0, n, chunk):
-        size = min(chunk, n - start)
-        rc = lib.msd_fused_mlp_forward(
-            code, spec.n_layers, xyz[start].data_ptr(), out[start].data_ptr(), size, *arrays,
-            spec.kmax, int(spec.use_tanh), None if scratch is None else scratch.data_ptr(), need, stream,
-        )
-        if rc != 0:
-            _raise(lib, rc, "mma_sync")
-        _count("mma_sync")
+    if spec.route == "f32_wide":
+        grid, scratch, need = _wide_launch(spec, n, xyz.device)
+        rc = lib.msd_fused_mlp_f32_wide(*args, grid, _ptr(scratch), need, stream)
+    else:
+        rc = lib.msd_fused_mlp_f32(*args, stream)
+    if rc != 0:
+        _raise(lib, rc, spec.route)
+    _count(spec.route)
     return out

@@ -266,7 +266,8 @@ def run_ranks(fn, world_size: int, args=(), backend: str = "gloo", devices=None,
             # ends them and raises
             while not ctx.join(max(0.0, deadline - time.monotonic()), grace_period=5.0):
                 if time.monotonic() >= deadline:
-                    raise TimeoutError(f"ranks still running after {timeout} s")
+                    alive = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
+                    raise TimeoutError(f"ranks {alive} still running after {timeout} s")
         except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
             raised = []
             for r, path in enumerate(ctx.error_files):

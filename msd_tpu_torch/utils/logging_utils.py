@@ -73,7 +73,19 @@ class _NullWriter:
 def open_summary_writer(log_dir: str):
     """A TensorBoard writer on ``log_dir`` (tensorboardX, else
     torch.utils.tensorboard), imported here; without either, a stand-in
-    that writes nothing (the trainers' Logs.pth keeps every history)."""
+    that writes nothing (the trainers' Logs.pth keeps every history).
+
+    The writer's event files are closed at process exit before
+    multiprocessing's own exit finalizers run, or when the writer is
+    collected. tensorboardX closes them from ``atexit``, which in a spawned
+    process (a rank of ``run_ranks``) comes after those finalizers have
+    closed the event queue; its logger thread then dies with events unread,
+    and closing puts a stop event into the full queue and waits for room
+    forever, so the rank never exits. The finalizer holds the writer's dict
+    of event files, not the writer, so a writer closed and dropped (a
+    search trial's) leaves nothing behind."""
+    import multiprocessing.util
+
     try:
         from tensorboardX import SummaryWriter
     except ImportError:
@@ -82,4 +94,12 @@ def open_summary_writer(log_dir: str):
         except ImportError:
             logging.warning("no tensorboardX or tensorboard package: no TensorBoard event files are written")
             return _NullWriter()
-    return SummaryWriter(log_dir=log_dir)
+    writer = SummaryWriter(log_dir=log_dir)
+    # above the event queue's own finalizer (exit priority 10); closing a file twice is a no-op
+    multiprocessing.util.Finalize(writer, _close_files, args=(writer.all_writers,), exitpriority=100)
+    return writer
+
+
+def _close_files(files):
+    for f in list(files.values()):
+        f.close()

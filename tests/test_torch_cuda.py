@@ -21,8 +21,8 @@ from msd_tpu_torch.ops.fused_mlp import FusedDecoderSpec, fused_eval, fused_eval
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LATENT = 16
-# the fused configs of tests/test_torch_decoder.py, and two wider than a
-# tile's activations in shared memory hold (the kernel's scratch variant)
+# the fused configs of tests/test_torch_decoder.py, and two wider than 512
+# (the wide kernels: activations in a per-block device scratch)
 CONFIGS = {
     "flagship_shape": dict(dims=[64] * 8, latent_in=[4], weight_norm=True, norm_layers=[]),
     "weight_norm": dict(dims=[32, 32, 32], latent_in=[2], weight_norm=True, norm_layers=[0, 1, 2]),
@@ -94,28 +94,54 @@ def test_kernel_matches_plain_flagship_width(dtype, dev):
     assert float((out - ref).abs().max()) <= TOL[dtype]
 
 
+# the wide kernels' device scratch per block at LATENT 16, (bf16, float32)
+# bytes: two activation buffers of the point tile (128 rows in bf16, 64 in
+# float32) as wide as the widest output a later layer's products read; bf16
+# parks a LayerNorm layer with products as float32 beside them, float32 in
+# the activation buffer (the layer before the last: one more width to hold)
+WIDE_SCRATCH = {
+    "wide": (2 * 128 * 1024 * 2, 2 * 64 * 1024 * 4),
+    "wide_layer_norm": (2 * 128 * 1024 * 2 + 128 * 768 * 4, 2 * 64 * 1024 * 4),
+    "wide_ln_1100": (2 * 128 * 768 * 2 + 128 * 1280 * 4, 2 * 64 * 1152 * 4),
+    "no_hidden": (0, 0),
+}
+
+
 def test_scratch_only_past_shared_memory(dev):
+    """Decoders up to 512 wide keep their activations in shared memory (no
+    wide kernel); a wide one's device scratch per block is as the layout
+    needs; a bad operand type is refused."""
     from msd_tpu_torch.ops._build import load_library
 
+    for dtype in (torch.bfloat16, torch.float32):
+        assert not FusedDecoderSpec(_decoder(CONFIGS["flagship_shape"], dev), dtype).route.endswith("_wide")
+        for name, want in WIDE_SCRATCH.items():
+            spec = FusedDecoderSpec(_decoder(WIDE_CFGS[name], dev), dtype)
+            assert spec.route.endswith("_wide")
+            assert fused_mlp.wide_scratch_per_block(spec) == want[dtype == torch.float32]
     lib = load_library("fused_mlp")
-    for code in (0, 1):  # bf16, float32
-        assert lib.msd_fused_mlp_scratch_bytes(code, 512, 2**20) == 0  # flagship width
-        assert lib.msd_fused_mlp_scratch_bytes(code, 768, 2**20) == 2 * 2**20 * 768 * (2 if code == 0 else 4)
-    assert lib.msd_fused_mlp_scratch_bytes(2, 512, 10) == -1
+    assert lib.msd_fused_mlp_wide_scratch_per_block(2, 1, fused_mlp._ints([0]), fused_mlp._ints([1]),
+                                                    fused_mlp._ptrs([None])) == -1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_wide_launches_split_by_scratch(dtype, dev, monkeypatch):
+    """Past ``SCRATCH_CAP_BYTES`` a wide launch runs fewer persistent blocks
+    over all its points: still one launch, the same bits (points are
+    independent), down to a single block."""
     spec = FusedDecoderSpec(_decoder(CONFIGS["wide"], dev), dtype)
-    latent, xyz = _inputs(3001, dev, seed=9)
+    latent, xyz = _inputs(30001, dev, seed=9)
     whole = fused_eval(spec, latent, xyz)
-    # 1 MiB of scratch: 255 points a launch at bf16, 127 at float32 (kmax 1024)
-    monkeypatch.setattr(fused_mlp, "SCRATCH_CAP_BYTES", 2**20)
-    launches = fused_mlp.LAUNCHES
-    split = fused_eval(spec, latent, xyz)
-    torch.cuda.synchronize()
-    assert fused_mlp.LAUNCHES - launches == (12 if dtype == torch.bfloat16 else 24)
-    assert torch.equal(split, whole)  # points are independent: same bits
+    per_block = fused_mlp.wide_scratch_per_block(spec)
+    tiles = -(-xyz.shape[0] // (128 if dtype == torch.bfloat16 else 64))
+    for cap, blocks in ((3 * per_block, 3), (per_block - 1, 1)):
+        monkeypatch.setattr(fused_mlp, "SCRATCH_CAP_BYTES", cap)
+        assert fused_mlp.wide_grid(tiles, per_block, fused_mlp._sms(dev)) == blocks
+        launches = _routes()
+        split = fused_eval(spec, latent, xyz)
+        torch.cuda.synchronize()
+        assert _routes() == dict(launches, **{spec.route: launches[spec.route] + 1})
+        assert torch.equal(split, whole)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -138,11 +164,15 @@ def test_cuda_tensor_never_falls_back(dtype, dev, monkeypatch):
     assert _routes() == before
 
 
-# K1's routes: widths up to 512 take "wgmma" in bf16 and "f32" in float32,
-# LayerNorm or not; wider decoders "mma_sync"
-ROUTE_BF16 = {"flagship_shape": "wgmma", "weight_norm": "wgmma", "layer_norm": "wgmma", "use_tanh": "wgmma",
-              "wide": "mma_sync", "wide_layer_norm": "mma_sync"}
-ROUTE_F32 = {name: "f32" if route == "wgmma" else route for name, route in ROUTE_BF16.items()}
+# K1's routes: every decoder takes "wgmma" in bf16 and "f32" in float32,
+# LayerNorm or not, "wgmma_wide" and "f32_wide" wider than 512
+ROUTE_BF16 = dict(dict.fromkeys(CONFIGS, "wgmma"), wide="wgmma_wide", wide_layer_norm="wgmma_wide")
+ROUTE_F32 = dict(dict.fromkeys(CONFIGS, "f32"), wide="f32_wide", wide_layer_norm="f32_wide")
+# a wide LayerNorm decoder past 512 and past 1024 (true widths 581 and 1100)
+WIDE_LN = dict(dims=[600, 1100], latent_in=[1], weight_norm=False, norm_layers=[0, 1])
+# the wide kernels' configs: CONFIGS' two, WIDE_LN, and no hidden layer
+WIDE_CFGS = {"wide": CONFIGS["wide"], "wide_layer_norm": CONFIGS["wide_layer_norm"], "wide_ln_1100": WIDE_LN,
+             "no_hidden": dict(dims=[], latent_in=[])}
 WGMMA_NS = [0, 1, 37, 127, 128, 129, 1000, 2**16 + 37]
 
 
@@ -251,9 +281,6 @@ def test_new_routes_flagship_width(ln, dtype, dev):
     assert torch.equal(out, again)
     ref = fused_eval_plain(spec, latent, xyz)
     assert float((out - ref).abs().max()) <= TOL[dtype]
-    # the mma_sync kernel on the same spec (the measurement hook) agrees too
-    old = fused_mlp._eval_mma_sync(spec, latent, xyz)
-    assert float((old - ref).abs().max()) <= TOL[dtype]
 
 
 def test_wgmma_layer_norm_scratch_sized_and_reused(dev):
@@ -296,8 +323,7 @@ def test_route_by_config(name, dtype, dev):
     again = fused_eval(spec, latent, xyz)
     torch.cuda.synchronize()
     assert _routes() == dict(before, **{route: before[route] + 2})
-    if route != "mma_sync":  # mma_sync's LayerNorm layers sum row statistics with atomics
-        assert torch.equal(out, again)
+    assert torch.equal(out, again)
     assert float((out - fused_eval_plain(spec, latent, xyz)).abs().max()) <= TOL[dtype]
 
 
@@ -311,13 +337,10 @@ def test_wgmma_flagship_spec(dev):
     out = fused_eval(spec, latent, xyz)
     again = fused_eval(spec, latent, xyz)
     torch.cuda.synchronize()
-    assert _routes()["wgmma"] == before["wgmma"] + 2 and _routes()["mma_sync"] == before["mma_sync"]
+    assert _routes() == dict(before, wgmma=before["wgmma"] + 2)
     assert torch.equal(out, again)
     ref = fused_eval_plain(spec, latent, xyz)
     assert float((out - ref).abs().max()) <= TOL[torch.bfloat16]
-    # the mma_sync kernel on the same spec (the measurement hook) agrees too
-    old = fused_mlp._eval_mma_sync(spec, latent, xyz)
-    assert float((old - ref).abs().max()) <= TOL[torch.bfloat16]
 
 
 def test_wgmma_failure_raises_and_never_switches_route(dev, monkeypatch):
@@ -335,8 +358,15 @@ def test_wgmma_failure_raises_and_never_switches_route(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fused_eval(spec, latent, xyz)
     assert _routes() == before
+    monkeypatch.undo()
+    # a wide spec takes the wgmma_wide route, counted there
+    wide = FusedDecoderSpec(_decoder(CONFIGS["wide"], dev), torch.bfloat16)
+    out = fused_mlp._eval_wgmma(wide, latent, xyz)
+    torch.cuda.synchronize()
+    assert _routes() == dict(before, wgmma_wide=before["wgmma_wide"] + 1)
+    assert float((out - fused_eval_plain(wide, latent, xyz)).abs().max()) <= TOL[torch.bfloat16]
     with pytest.raises(ValueError, match="no wgmma weight tiles"):
-        fused_mlp._eval_wgmma(FusedDecoderSpec(_decoder(CONFIGS["wide"], dev), torch.bfloat16), latent, xyz)
+        fused_mlp._eval_wgmma(FusedDecoderSpec(_decoder(CONFIGS["wide"], dev), torch.float32), latent, xyz)
 
 
 def test_f32_failure_raises_and_never_switches_route(dev, monkeypatch):
@@ -354,8 +384,13 @@ def test_f32_failure_raises_and_never_switches_route(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fused_eval(spec, latent, xyz)
     assert _routes() == before
-    with pytest.raises(ValueError, match="no K-major float32 weights"):
-        fused_mlp._eval_f32(FusedDecoderSpec(_decoder(CONFIGS["wide"], dev), torch.float32), latent, xyz)
+    monkeypatch.undo()
+    # a wide spec takes the f32_wide route, counted there
+    wide = FusedDecoderSpec(_decoder(CONFIGS["wide"], dev), torch.float32)
+    out = fused_mlp._eval_f32(wide, latent, xyz)
+    torch.cuda.synchronize()
+    assert _routes() == dict(before, f32_wide=before["f32_wide"] + 1)
+    assert float((out - fused_eval_plain(wide, latent, xyz)).abs().max()) <= TOL[torch.float32]
     with pytest.raises(ValueError, match="no K-major float32 weights"):
         fused_mlp._eval_f32(FusedDecoderSpec(_decoder(CONFIGS["layer_norm"], dev), torch.bfloat16), latent, xyz)
 
@@ -373,8 +408,85 @@ def test_create_mesh_on_gpu_launches_kernel(dev):
     before = _routes()
     gpu = mesh.create_mesh(dec.to(dev), torch.zeros(LATENT), N=129, return_mesh=True, eval_dtype=torch.float32)
     after = _routes()
-    assert after["f32"] > before["f32"] and all(after[r] == before[r] for r in ("wgmma", "mma_sync"))
+    assert after["f32"] > before["f32"] and after["wgmma"] == before["wgmma"]
     assert abs(gpu[0].shape[0] - cpu[0].shape[0]) <= 0.001 * cpu[0].shape[0]
+
+
+# decoders wider than 512 (the wide kernels), and the widest shapes the 10 MB
+# weight cap admits at latent 256, in the operand type that admits them
+WIDE_NS = [1, 37, 63, 64, 65, 127, 128, 129, 1000, 2**16 + 37]
+WIDE_CAP = {
+    "dims_2048x2_bf16": (dict(dims=[2048, 2048], latent_in=[]), torch.bfloat16),
+    "dims_1408x2_f32": (dict(dims=[1408, 1408], latent_in=[]), torch.float32),
+    "dims_16384_bf16": (dict(dims=[16384], latent_in=[]), torch.bfloat16),
+    "wide_bf16": (CONFIGS["wide"], torch.bfloat16),
+    "wide_f32": (CONFIGS["wide"], torch.float32),
+}
+
+
+@pytest.mark.parametrize("n", WIDE_NS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(WIDE_CFGS))
+def test_wide_kernel_ragged_n(name, dtype, n, dev):
+    """The wide kernels on ragged point counts (within one 64- or 128-point
+    tile, across tiles, fewer tiles than SMs and more): each launch counted
+    on its route, equal bits twice, within TOL of the plain version."""
+    spec = FusedDecoderSpec(_decoder(WIDE_CFGS[name], dev), dtype)
+    route = "wgmma_wide" if dtype == torch.bfloat16 else "f32_wide"
+    assert spec.route == route
+    _route_case(spec, n, route, dev, seed=n % 7)
+
+
+@pytest.mark.parametrize("name", list(WIDE_CAP))
+def test_wide_kernel_admissible_shapes(name, dev):
+    """The widest shapes the weight cap admits (latent 256) and WIDE_NET, on
+    2^16 + 37 points against the plain version, counted on their route."""
+    cfg, dtype = WIDE_CAP[name]
+    dec = DeepSDFDecoder(256, generator=torch.Generator().manual_seed(5), **cfg).to(dev).eval()
+    give_surface_(dec, torch.zeros(256))
+    spec = FusedDecoderSpec(dec, dtype)
+    assert spec.route == ("wgmma_wide" if dtype == torch.bfloat16 else "f32_wide")
+    g = torch.Generator(device=dev).manual_seed(3)
+    latent = 0.01 * torch.randn(256, generator=g, device=dev)
+    xyz = torch.rand(2**16 + 37, 3, generator=g, device=dev) * 2 - 1
+    before = _routes()
+    out = fused_eval(spec, latent, xyz)
+    torch.cuda.synchronize()
+    assert _routes() == dict(before, **{spec.route: before[spec.route] + 1})
+    assert torch.isfinite(out).all()
+    assert float((out - fused_eval_plain(spec, latent, xyz)).abs().max()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wide_failure_raises_and_never_switches_route(dtype, dev, monkeypatch):
+    """A wide launch the library refuses (too little scratch) raises a
+    KernelError and counts nothing; it never falls back to the plain
+    version or to the narrow kernel."""
+    from msd_tpu_torch.ops._build import KernelError
+
+    spec = FusedDecoderSpec(_decoder(CONFIGS["wide_layer_norm"], dev), dtype)
+    latent, xyz = _inputs(300, dev)
+    before = _routes()
+    monkeypatch.setattr(fused_mlp, "wide_scratch_per_block", lambda s: 0)
+    with pytest.raises(KernelError, match=f"{spec.route} kernel launch failed"):
+        fused_eval(spec, latent, xyz)
+    assert _routes() == before
+
+
+def test_create_mesh_wide_on_gpu(dev):
+    """create_mesh of a wide decoder launches the wide kernels, in bf16 and
+    in float32, and meshes like the CPU does."""
+    dec = _decoder(CONFIGS["wide"], dev)
+    cpu = mesh.create_mesh(dec.cpu(), torch.zeros(LATENT), N=129, return_mesh=True)
+    dec = dec.to(dev)
+    for dtype, route in ((torch.bfloat16, "wgmma_wide"), (torch.float32, "f32_wide")):
+        before = _routes()
+        gpu = mesh.create_mesh(dec, torch.zeros(LATENT), N=129, return_mesh=True, eval_dtype=dtype)
+        after = _routes()
+        assert after[route] > before[route] and all(after[r] == before[r] for r in after if r != route)
+        assert gpu is not False and gpu[1].shape[0] > 0
+        if dtype == torch.float32:
+            assert abs(gpu[0].shape[0] - cpu[0].shape[0]) <= 0.001 * cpu[0].shape[0]
 
 
 def _ellipsoid_decoder(dev, steps=300):

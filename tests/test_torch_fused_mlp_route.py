@@ -1,9 +1,10 @@
-"""K1's routes in msd_tpu_torch on the CPU: which configs take the wgmma,
-f32 and mma_sync routes, the weights the wgmma and f32 kernels read (laid
-out once per spec), inverted and held against msd_tpu's FusedDecoderSpec
-weights, and the plain version of wgmma- and f32-route specs, LayerNorm
-ones included, against msd_tpu's Pallas kernel (interpret mode). The
-kernels themselves run in tests/test_torch_cuda.py, on a GPU."""
+"""K1's routes in msd_tpu_torch on the CPU: which configs take the wgmma
+and f32 routes, the weights the wgmma and f32 kernels read (laid out once
+per spec), inverted and held against msd_tpu's FusedDecoderSpec weights,
+and the plain version of wgmma- and f32-route specs, LayerNorm ones
+included, against msd_tpu's Pallas kernel (interpret mode). Decoders wider
+than 512 are in tests/test_torch_fused_mlp_wide.py. The kernels themselves
+run in tests/test_torch_cuda.py, on a GPU."""
 
 import json
 import os
@@ -72,7 +73,7 @@ def test_route_by_config(name, dtype):
     spec = FusedDecoderSpec(tdec, dtype)
     route = ROUTE_BF16[name] if dtype == torch.bfloat16 else "f32"
     assert spec.route == route_for(tdec, dtype) == route
-    tile = 256 if route == "wgmma" else fused_mlp.TILE_N[dtype]
+    tile = 256 if route == "wgmma" else fused_mlp.F32_TILE_N
     assert all(o % tile == 0 for o in spec.out_pad[:-1]) and spec.out_pad[-1] == 1
     assert (spec.wtiles is not None) == (route == "wgmma" and spec.n_layers > 2)
     assert (spec.wk is not None) == (route == "f32")
@@ -86,13 +87,15 @@ def test_route_flagship_and_wide():
     assert FusedDecoderSpec(dec, torch.float32).route == "f32"
     from msd_tpu_torch.models.deepsdf import DeepSDFDecoder
 
-    for dtype, narrow in ((torch.bfloat16, "wgmma"), (torch.float32, "f32")):
-        assert route_for(DeepSDFDecoder(8, dims=[513, 64]), dtype) == "mma_sync"  # over 512
-        assert route_for(DeepSDFDecoder(8, dims=[512, 64]), dtype) == narrow
+    for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "f32")):
+        over = DeepSDFDecoder(8, dims=[513, 64])
+        assert route_for(over, dtype) == route + "_wide"  # over 512: the wide kernel
+        at = DeepSDFDecoder(8, dims=[512, 64])
+        assert route_for(at, dtype) == route
         ln = DeepSDFDecoder(8, dims=[512, 512], norm_layers=[0, 1], weight_norm=False)
-        assert route_for(ln, dtype) == narrow
+        assert route_for(ln, dtype) == route
         wide_ln = DeepSDFDecoder(8, dims=[1000, 700], norm_layers=[0, 1], weight_norm=False)
-        assert route_for(wide_ln, dtype) == "mma_sync"
+        assert route_for(wide_ln, dtype) == route + "_wide"
 
 
 def test_swizzle128_is_its_own_inverse_and_matches_the_address_rule():

@@ -92,13 +92,17 @@ def profiled_rank(group, exp):
 
 
 def test_profiled_epoch_over_ranks_writes_a_file_per_rank(tmp_path):
+    """Each of 2 gloo ranks writes its own trace, with events. The main
+    rank's TensorBoard writer stays open when its ``train`` returns; the
+    rank still exits (``open_summary_writer``; tests/test_torch_summary_writer.py)."""
     exp = stage1_experiment(tmp_path, NumEpochs=1, ProfileEpochs=[1])
     run_ranks(profiled_rank, 2, (exp,), devices=cpus(2), timeout=TIMEOUT)
-    names = [os.path.basename(p).split(".")[0] for p in traces(exp)]
-    assert sorted(names) == ["rank0", "rank1"]
-    for path in traces(exp):
+    paths = traces(exp)
+    names = [os.path.basename(p).split(".")[0] for p in paths]
+    assert sorted(names) == ["rank0", "rank1"], f"traces found: {paths}"
+    for path in paths:
         with open(path) as f:
-            assert json.load(f)["traceEvents"]
+            assert json.load(f)["traceEvents"], f"{path}: no trace events"
 
 
 def test_profile_without_device_activity_raises(tmp_path):
