@@ -1,0 +1,29 @@
+"""On the card: sound runs of the program read under every limit of their
+cell, and the control (the reference in the precision below the one the
+configuration states, put in the program's place) reads over at least one
+on every seed. At the published widths, with fewer scenes and samples than
+the cells run. Skips without a card; run on the
+card with ``python -m pytest portbench/tests -m cuda``."""
+
+import pytest
+import torch
+
+from portbench import catalog
+from portbench.readings import read_seed
+
+CARD_SIZE = {
+    "stage1.flagship": {"traffic": {"scenes": 128, "rows_per_scene": 100000}},
+    "serve.flagship-b8": {"traffic": {"rows_per_shape": 100000, "sample_sets": 1}},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", sorted(CARD_SIZE))
+def test_program_passes_and_control_fails(cell):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    limits = catalog.workload(cell)["limits"]
+    rows = [read_seed(cell, 2**31 + s, True, "cuda", overrides=CARD_SIZE[cell]) for s in (5, 6, 7)]
+    for row in rows:
+        assert all(row["program"][k] <= limits[k] for k in limits), row
+    assert all(any(row["control"][k] > limits[k] for k in limits) for row in rows), rows
