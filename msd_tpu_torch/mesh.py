@@ -42,7 +42,6 @@ import logging
 import math
 import os
 import tempfile
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
@@ -56,6 +55,7 @@ from msd_tpu_torch.models.deepsdf import decode_sdf
 from msd_tpu_torch.native import load_native
 from msd_tpu_torch.ops.fused_mlp import FusedDecoderSpec, UnsupportedConfig, fused_eval
 from msd_tpu_torch.ops.marching_cubes import _FLIP_TABLE, marching_tetrahedra, marching_tetrahedra_blocks
+from msd_tpu_torch.utils.spans import span
 
 # Fixed sparse-refinement block size (msd_tpu/mesh.py SPARSE_BLOCK).
 SPARSE_BLOCK = 4
@@ -748,8 +748,9 @@ class PointEvaluator:
 
         Yields decoded (values float32 [n, 125], abi rows [n, 3]); returns
         (max_blocks upper bound, iterator). ``stats`` gathers
-        ``crossing_blocks``, ``t_mask`` (seconds waiting for headers),
-        ``t_fetch`` (for value rows), ``bytes_fetched``,
+        ``crossing_blocks``, ``t_crossing`` (seconds waiting for headers, in
+        ``mesh.crossing`` spans), ``t_fetch`` (for value rows, in
+        ``mesh.fetch`` spans), ``bytes_fetched``,
         ``evaluated_stream``, ``exact_slabs``, ``dedup``, ``dedup_slabs``
         and ``dedup_retries``."""
         A = abi.shape[0] if abi is not None else int(num_blocks)
@@ -833,9 +834,9 @@ class PointEvaluator:
             return K, Km, 0, 2 if codec == "packed" else 1
 
         def read_header(header_res):
-            t0 = time.time()
-            icn = header_res()
-            add("t_mask", time.time() - t0)
+            with span("mesh.crossing") as sp:
+                icn = header_res()
+            add("t_crossing", sp.seconds)
             return icn
 
         def it():
@@ -888,9 +889,9 @@ class PointEvaluator:
                 add("crossing_blocks", int(K))
                 if not K:
                     continue
-                t0 = time.time()
-                vals = resolve()
-                add("t_fetch", time.time() - t0)
+                with span("mesh.fetch") as sp:
+                    vals = resolve()
+                add("t_fetch", sp.seconds)
                 yield vals, abi_x
 
         return A, it()
@@ -1145,22 +1146,30 @@ def _create_mesh_streaming_impl(latent, N, evaluator: PointEvaluator, safety, cl
     Under a group this runs on the main rank (``create_mesh``): after its
     refinement on its own card it broadcasts the route, device or host, and
     on the host route every rank joins ``_sparse_active4``'s lattice call
-    (``_follow_stream``); everything else runs here alone."""
+    (``_follow_stream``); everything else runs here alone.
+
+    Spans (``utils/spans.py``): ``mesh.refine``; ``mesh.stream`` around
+    ``mesh.crossing`` (waits for slab headers), ``mesh.fetch`` (for value
+    rows) and ``mesh.mesher_wait`` (for the worker); ``mesh.mesher`` in the
+    worker around each ``mt_add_blocks``; ``mesh.finish`` (the finish view
+    and the vertex and face copies); ``mesh.ply`` (the spilled PLY's
+    write). ``LAST_STREAMING_STATS``' seconds come from them: ``t_refine``,
+    ``t_stream``, ``t_crossing``, ``t_fetch``, ``t_mesher`` (the main
+    thread's waits for the worker, not the worker's work) and ``t_ply``."""
     lib = load_native()
     latent = torch.as_tensor(latent, dtype=torch.float32, device=evaluator.device).reshape(-1)
     LAST_STREAMING_STATS.clear()
-    t0 = time.time()
     abi4 = abi4_dev = abi4_resolver = None
-    refined = evaluator.refine_active4_device(latent, N, safety, clamp_dist, async_fetch=True)
-    refine = "device" if refined is not None else "host"
-    if evaluator.group is not None:
-        LAST_STREAMING_STATS["broadcast_bytes"] = evaluator.group.broadcast_pickled(("route", refine))[1]
-    if refined is not None:
-        abi4_resolver, A4, evaluated, abi4_dev = refined
-    else:
-        abi4, evaluated = _sparse_active4(latent, N, evaluator, safety, clamp_dist)
-        A4 = abi4.shape[0]
-    t_refine = time.time() - t0
+    with span("mesh.refine") as refine_span:
+        refined = evaluator.refine_active4_device(latent, N, safety, clamp_dist, async_fetch=True)
+        refine = "device" if refined is not None else "host"
+        if evaluator.group is not None:
+            LAST_STREAMING_STATS["broadcast_bytes"] = evaluator.group.broadcast_pickled(("route", refine))[1]
+        if refined is not None:
+            abi4_resolver, A4, evaluated, abi4_dev = refined
+        else:
+            abi4, evaluated = _sparse_active4(latent, N, evaluator, safety, clamp_dist)
+            A4 = abi4.shape[0]
     stream_stats: dict = {}
     cls = _refine_class(N, safety, clamp_dist)
     max_blocks, value_iter = evaluator.stream_crossing_values(
@@ -1173,7 +1182,7 @@ def _create_mesh_streaming_impl(latent, N, evaluator: PointEvaluator, safety, cl
         active_blocks=int(A4),
         evaluated=int(evaluated + A4 * pts_per),
         total=int(N**3),
-        t_refine=round(t_refine, 3),
+        t_refine=refine_span.seconds,
         hybrid=False,
         value_codec=value_codec,
         refine=refine,  # device, or host where a device cap overflowed
@@ -1197,35 +1206,34 @@ def _create_mesh_streaming_impl(latent, N, evaluator: PointEvaluator, safety, cl
                 logging.warning("PLY spill unavailable; writing the PLY after meshing")
 
         def mesh_chunk(vals, bases):
-            lib.mt_add_blocks(handle, vals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                              bases.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), vals.shape[0], SPARSE_BLOCK)
+            with span("mesh.mesher"):
+                lib.mt_add_blocks(handle, vals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                                  bases.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), vals.shape[0], SPARSE_BLOCK)
+
+        def wait(fut):
+            with span("mesh.mesher_wait") as sp:
+                fut.result()
+            return sp.ns
 
         # one worker: mt_add_blocks calls stay sequential on one builder
-        t0 = time.time()
-        t_mesher = t_prep = 0.0
-        with ThreadPoolExecutor(max_workers=1) as pool:
+        wait_ns = 0
+        with span("mesh.stream") as stream_span, ThreadPoolExecutor(max_workers=1) as pool:
             fut = None
             for vals, chunk in value_iter:
-                tp = time.time()
                 vals = np.ascontiguousarray(vals, np.float32)
                 bases = np.ascontiguousarray(chunk.astype(np.int32) * SPARSE_BLOCK)
-                t_prep += time.time() - tp
                 if fut is not None:
-                    tm = time.time()
-                    fut.result()
-                    t_mesher += time.time() - tm
+                    wait_ns += wait(fut)
                 fut = pool.submit(mesh_chunk, vals, bases)
             if fut is not None:
-                tm = time.time()
-                fut.result()
-                t_mesher += time.time() - tm
+                wait_ns += wait(fut)
         crossing = int(stream_stats.get("crossing_blocks", 0))
         LAST_STREAMING_STATS.update(
-            t_mesher=round(t_mesher, 3), t_prep=round(t_prep, 3), t_stream=round(time.time() - t0, 3),
+            t_mesher=wait_ns * 1e-9, t_stream=stream_span.seconds,
             crossing_blocks=crossing,
             evaluated=int(evaluated + stream_stats.get("evaluated_stream", A4 * pts_per)),
-            t_crossing=round(stream_stats.get("t_mask", 0.0), 3),
-            t_fetch=round(stream_stats.get("t_fetch", 0.0), 3),
+            t_crossing=stream_stats.get("t_crossing", 0.0),
+            t_fetch=stream_stats.get("t_fetch", 0.0),
             bytes_fetched=int(stream_stats.get("bytes_fetched", 0)),
             exact_slabs=int(stream_stats.get("exact_slabs", 0)),
             dedup=bool(stream_stats.get("dedup", False)),
@@ -1237,31 +1245,25 @@ def _create_mesh_streaming_impl(latent, N, evaluator: PointEvaluator, safety, cl
         if crossing == 0:
             raise ValueError("Surface level must be within volume data range.")
 
-        t0 = time.time()
-        out_verts = ctypes.POINTER(ctypes.c_float)()
-        out_faces = ctypes.POINTER(ctypes.c_int32)()
-        nv, nf = ctypes.c_int64(), ctypes.c_int64()
-        # zero-copy views of the builder's buffers, valid until mt_destroy
-        lib.mt_finish_view(handle, ctypes.byref(out_verts), ctypes.byref(nv), ctypes.byref(out_faces),
-                           ctypes.byref(nf))
-        LAST_STREAMING_STATS["t_fin_view"] = round(time.time() - t0, 3)
-        if nv.value == 0:
-            raise ValueError("Surface level must be within volume data range.")
-        verts = faces = None
-        if want_mesh:
-            t1 = time.time()
-            verts = np.ctypeslib.as_array(out_verts, shape=(nv.value, 3)) * np.float32(voxel_size) - np.float32(1.0)
-            LAST_STREAMING_STATS["t_fin_verts"] = round(time.time() - t1, 3)
-            t1 = time.time()
-            faces = np.ctypeslib.as_array(out_faces, shape=(nf.value, 3)).copy()
-            LAST_STREAMING_STATS["t_fin_faces"] = round(time.time() - t1, 3)
+        with span("mesh.finish"):
+            out_verts = ctypes.POINTER(ctypes.c_float)()
+            out_faces = ctypes.POINTER(ctypes.c_int32)()
+            nv, nf = ctypes.c_int64(), ctypes.c_int64()
+            # zero-copy views of the builder's buffers, valid until mt_destroy
+            lib.mt_finish_view(handle, ctypes.byref(out_verts), ctypes.byref(nv), ctypes.byref(out_faces),
+                               ctypes.byref(nf))
+            if nv.value == 0:
+                raise ValueError("Surface level must be within volume data range.")
+            verts = faces = None
+            if want_mesh:
+                verts = np.ctypeslib.as_array(out_verts, shape=(nv.value, 3)) * np.float32(voxel_size) - np.float32(1.0)
+                faces = np.ctypeslib.as_array(out_faces, shape=(nf.value, 3)).copy()
         ply_written = False
         if spill_ply:
-            t1 = time.time()
-            ply_written = lib.mt_ply_stream_finish(handle, ply_path.encode()) == 0
-            LAST_STREAMING_STATS["t_ply"] = round(time.time() - t1, 3)
-        LAST_STREAMING_STATS.update(t_finish=round(time.time() - t0, 3), num_verts=int(nv.value),
-                                    num_faces=int(nf.value))
+            with span("mesh.ply") as sp:
+                ply_written = lib.mt_ply_stream_finish(handle, ply_path.encode()) == 0
+            LAST_STREAMING_STATS["t_ply"] = sp.seconds
+        LAST_STREAMING_STATS.update(num_verts=int(nv.value), num_faces=int(nf.value))
         if verts is None:
             return None, None, ply_written
         return verts.astype(np.float32, copy=False), faces, ply_written
@@ -1414,70 +1416,71 @@ def create_mesh(
     leaves the other cards free.) A second broadcast hands every rank the
     main rank's outcome, which each returns, or raises where the main rank
     raised (``_lead_stream``, ``_follow_stream``). Unstreamed, every rank
-    runs every ``eval_points`` call and only the main rank writes."""
-    start = time.time()
-    if evaluator is None:
-        evaluator = PointEvaluator(decoder, dtype=eval_dtype, max_batch=max_batch)
-    if sparse:
-        N = _snap_n(N)
-    b, route = mesh_route(N, evaluator, sparse, clamp_dist, sparse_safety)
-    stream = route == "streamed"
-    group = evaluator.group if stream else None
-    if group is not None and not group.is_main:
-        return _follow_stream(latent_vec, N, evaluator, sparse_safety, clamp_dist)
+    runs every ``eval_points`` call and only the main rank writes.
 
-    def run():  # the whole call in this process (the main rank's, over a group)
-        voxel_size = 2.0 / (N - 1)
-        ply_done = False
-        try:
-            if stream:
-                # the mesher spills the PLY as it meshes when no offset/scale
-                # transform follows; verts/faces are made only when wanted
-                spill_path = None
-                if filename and scale is None and offset is None:
-                    os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
-                    spill_path = filename + ".ply"
-                want_mesh = bool(return_mesh) or spill_path is None
-                verts, faces, ply_done = _create_mesh_streaming(
-                    latent_vec, N, evaluator, sparse_safety, clamp_dist, voxel_size,
-                    value_codec=value_codec, ply_path=spill_path, want_mesh=want_mesh,
-                )
-                if not want_mesh and not ply_done:
-                    # the spill failed (e.g. tmpfs full): mesh again into memory
+    The call is one ``mesh.create_mesh`` span (``utils/spans.py``); a PLY
+    written after meshing is a ``mesh.ply`` span."""
+    with span("mesh.create_mesh"):
+        if evaluator is None:
+            evaluator = PointEvaluator(decoder, dtype=eval_dtype, max_batch=max_batch)
+        if sparse:
+            N = _snap_n(N)
+        b, route = mesh_route(N, evaluator, sparse, clamp_dist, sparse_safety)
+        stream = route == "streamed"
+        group = evaluator.group if stream else None
+        if group is not None and not group.is_main:
+            return _follow_stream(latent_vec, N, evaluator, sparse_safety, clamp_dist)
+
+        def run():  # the whole call in this process (the main rank's, over a group)
+            voxel_size = 2.0 / (N - 1)
+            ply_done = False
+            try:
+                if stream:
+                    # the mesher spills the PLY as it meshes when no offset/scale
+                    # transform follows; verts/faces are made only when wanted
+                    spill_path = None
+                    if filename and scale is None and offset is None:
+                        os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+                        spill_path = filename + ".ply"
+                    want_mesh = bool(return_mesh) or spill_path is None
                     verts, faces, ply_done = _create_mesh_streaming(
                         latent_vec, N, evaluator, sparse_safety, clamp_dist, voxel_size,
-                        value_codec=value_codec, ply_path=None, want_mesh=True,
+                        value_codec=value_codec, ply_path=spill_path, want_mesh=want_mesh,
                     )
-                logging.debug("[create_mesh] streaming mesh takes: %f", time.time() - start)
-            elif route == "sparse":
-                verts, faces = _create_mesh_sparse(latent_vec, N, b, sparse_safety, evaluator)
-            else:
-                sdf_grid = eval_grid_dense(decoder, latent_vec, N, max_batch, evaluator)
-                logging.debug("[create_mesh] sampling takes: %f", time.time() - start)
-                verts, faces = marching_tetrahedra(
-                    sdf_grid, level=0.0, spacing=(voxel_size,) * 3, origin=(-1.0, -1.0, -1.0)
-                )
-        except ValueError as e:
-            logging.error("[create_mesh] Caught marching cubes error: %s.", e)
-            return False
+                    if not want_mesh and not ply_done:
+                        # the spill failed (e.g. tmpfs full): mesh again into memory
+                        verts, faces, ply_done = _create_mesh_streaming(
+                            latent_vec, N, evaluator, sparse_safety, clamp_dist, voxel_size,
+                            value_codec=value_codec, ply_path=None, want_mesh=True,
+                        )
+                elif route == "sparse":
+                    verts, faces = _create_mesh_sparse(latent_vec, N, b, sparse_safety, evaluator)
+                else:
+                    sdf_grid = eval_grid_dense(decoder, latent_vec, N, max_batch, evaluator)
+                    verts, faces = marching_tetrahedra(
+                        sdf_grid, level=0.0, spacing=(voxel_size,) * 3, origin=(-1.0, -1.0, -1.0)
+                    )
+            except ValueError as e:
+                logging.error("[create_mesh] Caught marching cubes error: %s.", e)
+                return False
 
-        # apply additional offset and scale (ref: deep_sdf/mesh.py:132-136)
-        if scale is not None or offset is not None:
-            pts = verts.astype(np.float64)
-            if scale is not None:
-                pts = pts / scale
-            if offset is not None:
-                pts = pts - offset
-            verts = pts.astype(np.float32)
+            # apply additional offset and scale (ref: deep_sdf/mesh.py:132-136)
+            if scale is not None or offset is not None:
+                pts = verts.astype(np.float64)
+                if scale is not None:
+                    pts = pts / scale
+                if offset is not None:
+                    pts = pts - offset
+                verts = pts.astype(np.float32)
 
-        if filename and not ply_done and (evaluator.group is None or evaluator.group.is_main):
-            t0 = time.time()
-            os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
-            save_ply(filename + ".ply", verts, faces)
-            if stream:
-                LAST_STREAMING_STATS["t_ply"] = round(time.time() - t0, 3)
-        if return_mesh:
-            return verts, faces
-        return True
+            if filename and not ply_done and (evaluator.group is None or evaluator.group.is_main):
+                with span("mesh.ply") as sp:
+                    os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+                    save_ply(filename + ".ply", verts, faces)
+                if stream:
+                    LAST_STREAMING_STATS["t_ply"] = sp.seconds
+            if return_mesh:
+                return verts, faces
+            return True
 
-    return run() if group is None else _lead_stream(group, run)
+        return run() if group is None else _lead_stream(group, run)

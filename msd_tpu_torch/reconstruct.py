@@ -27,7 +27,6 @@ import json
 import logging
 import os
 import random
-import time
 
 import numpy as np
 import torch
@@ -43,6 +42,7 @@ from msd_tpu_torch.parallel import init_group_from_env
 from msd_tpu_torch.train.reconstruct import reconstruct, reconstruct_batch
 from msd_tpu_torch.utils import add_common_args, configure_logging
 from msd_tpu_torch.utils import checkpoint as ckpt
+from msd_tpu_torch.utils import spans
 
 
 def _parser():
@@ -67,7 +67,10 @@ def _parser():
 
 def main(argv=None, group=None):
     """Run the CLI; returns one summary dict per reconstructed shape
-    (losses, phase times, points evaluated, mesh size, K1 launches).
+    (losses, phase times, points evaluated, mesh size, K1 launches). The
+    times are the program's spans (``utils/spans.py``): ``t_reconstruct``
+    the ``fit`` span (a ``--batch`` fit's over its shapes), ``t_mesh`` the
+    ``mesh.create_mesh`` span.
 
     ``group``: a ``DataParallelGroup`` to fit ``--batch`` over (each rank
     on ``group.device``; see the module's docstring). Without one, a
@@ -135,12 +138,11 @@ def _run(args, group):
 
     def save_outputs(npz, hist, t_fit, latent, mesh_filename, latent_filename):
         launches0, evaluated0 = fused_mlp.LAUNCHES, evaluator.n_evaluated
-        start = time.time()
         res = mesh.create_mesh(
             decoder, latent, mesh_filename, N=args.mesh_resolution, max_batch=int(2**18),
             return_mesh=True, evaluator=evaluator,
         )
-        t_mesh = time.time() - start
+        t_mesh = spans.last("mesh.create_mesh").seconds
         torch.save(latent.detach().cpu().reshape(1, -1)[None, ...].clone(), latent_filename)
         n = mesh._snap_n(args.mesh_resolution)
         k = max(1, len(hist) // 10)
@@ -164,11 +166,10 @@ def _run(args, group):
             for npz, _, _ in batch:
                 pos, neg = read_sdf_samples(npz)
                 shapes.append((remove_nans(pos), remove_nans(neg)))
-            start = time.time()
             hists, latents = reconstruct_batch(
                 decoder, int(args.iterations), latent_size, shapes, 0.01, 0.1, group=group, **fit_kw
             )
-            t_fit = (time.time() - start) / len(batch)
+            t_fit = spans.last("fit").seconds / len(batch)
             if not main_rank:
                 continue
             for (npz, mesh_filename, latent_filename), hist, latent in zip(batch, hists, latents):
@@ -177,12 +178,11 @@ def _run(args, group):
         for npz, mesh_filename, latent_filename in work:
             logging.info("reconstructing %s", npz)
             pos, neg = read_sdf_samples(npz)
-            start = time.time()
             hist, latent = reconstruct(
                 decoder, int(args.iterations), latent_size, [remove_nans(pos), remove_nans(neg)],
                 0.01, 0.1, **fit_kw,
             )
-            save_outputs(npz, hist, time.time() - start, latent, mesh_filename, latent_filename)
+            save_outputs(npz, hist, spans.last("fit").seconds, latent, mesh_filename, latent_filename)
     return summary
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from msd_tpu_torch.utils.optim import project_code_bound
+from msd_tpu_torch.utils.spans import span
 
 
 class ReconstructConfig(NamedTuple):
@@ -158,7 +159,13 @@ def reconstruct_batch(
     fitting that slice with ``seed + start``. No collective runs during the
     fit; at the end every rank gathers every shape's losses and latents and
     returns what one process returns, in shape order. Every rank calls it
-    with the same arguments."""
+    with the same arguments.
+
+    Spans (``utils/spans.py``): ``fit`` around the call, ``fit.upload``
+    (the shapes to the device), ``fit.iterations`` (the loop; no span per
+    iteration: the loop runs behind a full launch queue, where a host span
+    would read the device's pace) and ``fit.fetch`` (the losses to the
+    host)."""
     cfg = ReconstructConfig(
         num_iterations=int(num_iterations),
         latent_size=int(latent_size),
@@ -172,16 +179,18 @@ def reconstruct_batch(
         dist_weight=float(dist_weight) if dist_weight else 0.0,
         dist_type=str(dist_type),
     )
-    dev = next(decoder.parameters()).device
-    part = slice(0, len(test_sdfs)) if group is None else group.row_slice(len(test_sdfs))
-    if part.stop > part.start:
-        hist, latents = _fit_batch(decoder, cfg, test_sdfs, part, stat, dist_mean, dist_std, int(seed), dev)
-    else:
-        hist = torch.zeros(0, cfg.num_iterations, device=dev)
-        latents = torch.zeros(0, cfg.latent_size, device=dev)
-    if group is not None:
-        hist, latents = group.all_gather_rows(hist), group.all_gather_rows(latents)
-    hist = hist.cpu().numpy()
+    with span("fit"):
+        dev = next(decoder.parameters()).device
+        part = slice(0, len(test_sdfs)) if group is None else group.row_slice(len(test_sdfs))
+        if part.stop > part.start:
+            hist, latents = _fit_batch(decoder, cfg, test_sdfs, part, stat, dist_mean, dist_std, int(seed), dev)
+        else:
+            hist = torch.zeros(0, cfg.num_iterations, device=dev)
+            latents = torch.zeros(0, cfg.latent_size, device=dev)
+        if group is not None:
+            hist, latents = group.all_gather_rows(hist), group.all_gather_rows(latents)
+        with span("fit.fetch"):
+            hist = hist.cpu().numpy()
     return (hist if return_loss_hist else hist[:, -1]), latents
 
 
@@ -190,15 +199,16 @@ def _fit_batch(decoder, cfg: ReconstructConfig, test_sdfs, part: slice, stat, di
     device: (loss history [S, iters], latents [S, L]) on ``dev``."""
     latent_size = cfg.latent_size
     pos, neg = [], []
-    for si in range(part.start, part.stop):
-        p, n = test_sdfs[si]
-        if p.shape[0] == 0 or n.shape[0] == 0:
-            raise ValueError(
-                f"reconstruct shape {si} needs both sample signs: "
-                f"got {p.shape[0]} pos / {n.shape[0]} neg"
-            )
-        pos.append(torch.as_tensor(np.asarray(p, np.float32), device=dev))
-        neg.append(torch.as_tensor(np.asarray(n, np.float32), device=dev))
+    with span("fit.upload"):
+        for si in range(part.start, part.stop):
+            p, n = test_sdfs[si]
+            if p.shape[0] == 0 or n.shape[0] == 0:
+                raise ValueError(
+                    f"reconstruct shape {si} needs both sample signs: "
+                    f"got {p.shape[0]} pos / {n.shape[0]} neg"
+                )
+            pos.append(torch.as_tensor(np.asarray(p, np.float32), device=dev))
+            neg.append(torch.as_tensor(np.asarray(n, np.float32), device=dev))
     gens = [torch.Generator(device=dev).manual_seed(seed + i) for i in range(part.start, part.stop)]
     S = len(gens)
 
@@ -228,7 +238,7 @@ def _fit_batch(decoder, cfg: ReconstructConfig, test_sdfs, part: slice, stat, di
     m = torch.zeros_like(latent)
     v = torch.zeros_like(latent)
     hist = torch.empty(cfg.num_iterations, S, device=dev)
-    with _frozen(decoder):
+    with _frozen(decoder), span("fit.iterations"):
         for it in range(cfg.num_iterations):
             batch = torch.stack([draw(i) for i in range(S)])
             latent, m, v, hist[it] = reconstruct_step(decoder, cfg, latent, m, v, it, batch, dm, ds)

@@ -100,6 +100,7 @@ from msd_tpu_torch.parallel import pad_to_multiple
 from msd_tpu_torch.utils import checkpoint as ckpt
 from msd_tpu_torch.utils.logging_utils import open_summary_writer
 from msd_tpu_torch.utils.optim import GroupAdam, project_code_bound
+from msd_tpu_torch.utils.spans import span
 
 # MatmulPrecision spec values that keep the bf16 products K2 computes in
 # (msd_tpu/train/stage1.py:64-70); every other value runs float32 autograd.
@@ -422,26 +423,30 @@ class Stage1Trainer:
             xyz = data_c[:3].permute(1, 2, 0).contiguous()
             gt = data_c[3]
             if self.use_fused:
-                total, sdf, eik = fused_sdf_loss(
-                    self.decoder, lat_rows, xyz, gt, self.clamp_dist, self.use_eikonal, num_total,
-                    dtype=self.k2_dtype, eik_points=self.eikonal_num_points, scene_weights=weights,
-                    n_real=bs, group=self.group,
-                )
+                with span("stage1.k2"):
+                    total, sdf, eik = fused_sdf_loss(
+                        self.decoder, lat_rows, xyz, gt, self.clamp_dist, self.use_eikonal, num_total,
+                        dtype=self.k2_dtype, eik_points=self.eikonal_num_points, scene_weights=weights,
+                        n_real=bs, group=self.group,
+                    )
             else:
-                total, sdf, eik = self._autograd_losses(lat_rows, xyz, gt, num_total, weights)
-            if self.do_code_regularization:
-                # over the per-point rows (ref: train_deep_sdf.py:609-616):
-                # P copies of each real scene's row
-                reg = code_regularization(lat_rows[:bs], num_total / P, self.code_reg_lambda, epoch)
-                aux["reg"] = aux["reg"] + reg.detach()
-                if not sum_after or self.group.is_main:
-                    total = total + reg
-            if iso and (not sum_after or self.group.is_main):
-                iso_total, iso_aux = self._isometry_losses(lat_rows[:bs], xyz[:bs], gt[:bs], gen, rng)
-                total = total + iso_total
-                for k, v in iso_aux.items():
-                    aux[k] = aux[k] + v
-            total.backward()
+                with span("stage1.loss"):
+                    total, sdf, eik = self._autograd_losses(lat_rows, xyz, gt, num_total, weights)
+            with span("stage1.regularisers"):
+                if self.do_code_regularization:
+                    # over the per-point rows (ref: train_deep_sdf.py:609-616):
+                    # P copies of each real scene's row
+                    reg = code_regularization(lat_rows[:bs], num_total / P, self.code_reg_lambda, epoch)
+                    aux["reg"] = aux["reg"] + reg.detach()
+                    if not sum_after or self.group.is_main:
+                        total = total + reg
+                if iso and (not sum_after or self.group.is_main):
+                    iso_total, iso_aux = self._isometry_losses(lat_rows[:bs], xyz[:bs], gt[:bs], gen, rng)
+                    total = total + iso_total
+                    for k, v in iso_aux.items():
+                        aux[k] = aux[k] + v
+            with span("stage1.backward"):
+                total.backward()
             aux["sdf"] = aux["sdf"] + sdf
             aux["eikonal"] = aux["eikonal"] + eik
         if sum_after:
@@ -449,12 +454,14 @@ class Stage1Trainer:
                                    + [self.latents.grad, aux["sdf"], aux["eikonal"]] + [aux[k] for k in iso_keys])
         if self.use_covariance or self.use_gmm_prior:
             # after the sum over ranks: every rank adds the same term once
-            lb_total, lb_aux = self._latent_batch_losses(scene_idx)
-            if lb_total.requires_grad:
-                lb_total.backward()
+            with span("stage1.regularisers"):
+                lb_total, lb_aux = self._latent_batch_losses(scene_idx)
+                if lb_total.requires_grad:
+                    lb_total.backward()
             aux.update(lb_aux)
         lrs = {"net": lr_net, "lat": lr_lat, "gmm": lr_lat}
-        norms = self.optimizer.step({g: lrs[g] for g in self.optimizer.groups}, max_norm=self.grad_clip)
+        with span("stage1.optimizer"):
+            norms = self.optimizer.step({g: lrs[g] for g in self.optimizer.groups}, max_norm=self.grad_clip)
         if "net" in norms:
             aux["net_grad_norm"] = norms["net"]
         aux["total"] = aux["sdf"] + aux["eikonal"] + aux["reg"]
@@ -471,38 +478,49 @@ class Stage1Trainer:
     def train_epoch(self, epoch: int, batch_split: int = 1, rng: np.random.Generator | None = None):
         """Run one epoch; returns its mean metrics (host floats), with the
         post-epoch mean latent magnitude and parameter norms (``pm_*``)
-        fetched in the same transfer."""
-        rng = rng or np.random.default_rng(epoch)
-        lr_net = float(self.lr_schedules[0].get_learning_rate(epoch, self.loss_log_epoch))
-        lr_lat = float(self.lr_schedules[1].get_learning_rate(epoch, self.loss_log_epoch))
-        B = self.scene_per_batch
-        nb = self.num_scenes // B
-        if nb == 0:
-            raise RuntimeError(f"ScenesPerBatch={B} > num_scenes={self.num_scenes}")
-        perm = rng.permutation(self.num_scenes)
-        dev = self.device
-        idx_all = torch.as_tensor(perm[: nb * B].reshape(nb, B), device=dev)
-        pos, pc, neg, nc = self.dataset.device_arrays(dev)
-        steps = []
-        for i in range(nb):
-            self.global_batch_idx += 1
-            gen = torch.Generator(device=dev).manual_seed(step_seed(self.seed, self.global_batch_idx))
-            batch = sample_sdf_batch(pos, pc, neg, nc, idx_all[i], self.num_samp_per_scene, gen)
-            steps.append(self.step(idx_all[i], batch, epoch, lr_net, lr_lat, batch_split, gen))
-        keys = sorted(steps[0])
-        extra = {"lat_mag_post": torch.linalg.vector_norm(self.latents.detach(), dim=1).mean()}
-        extra.update({"pm_" + k: v for k, v in self._param_norms().items()})
-        packed = torch.cat([
-            torch.stack([torch.stack([s[k] for s in steps]) for k in keys]).reshape(-1),
-            torch.stack(list(extra.values())),
-        ]).cpu().numpy()
-        per_step = packed[: len(keys) * nb].reshape(len(keys), nb)
-        self.loss_log.extend(float(v) for v in per_step[keys.index("total")])
-        mean = {k: float(np.mean(per_step[j])) for j, k in enumerate(keys)}
-        mean.update({k: float(v) for k, v in zip(extra, packed[len(keys) * nb:])})
-        self.loss_log_epoch.append(mean["total"])
-        self.lr_log.append([lr_net, lr_lat])
-        return mean
+        fetched in the same transfer.
+
+        Spans (``utils/spans.py``): ``stage1.epoch``; per step
+        ``stage1.step`` around ``stage1.sample`` and ``step``'s
+        ``stage1.k2`` (``stage1.loss`` on the autograd path),
+        ``stage1.regularisers``, ``stage1.backward`` and
+        ``stage1.optimizer``; ``stage1.fetch``, the packing and the one
+        copy to the host, where the epoch waits for the card."""
+        with span("stage1.epoch"):
+            rng = rng or np.random.default_rng(epoch)
+            lr_net = float(self.lr_schedules[0].get_learning_rate(epoch, self.loss_log_epoch))
+            lr_lat = float(self.lr_schedules[1].get_learning_rate(epoch, self.loss_log_epoch))
+            B = self.scene_per_batch
+            nb = self.num_scenes // B
+            if nb == 0:
+                raise RuntimeError(f"ScenesPerBatch={B} > num_scenes={self.num_scenes}")
+            perm = rng.permutation(self.num_scenes)
+            dev = self.device
+            idx_all = torch.as_tensor(perm[: nb * B].reshape(nb, B), device=dev)
+            pos, pc, neg, nc = self.dataset.device_arrays(dev)
+            steps = []
+            for i in range(nb):
+                with span("stage1.step"):
+                    self.global_batch_idx += 1
+                    with span("stage1.sample"):
+                        gen = torch.Generator(device=dev).manual_seed(step_seed(self.seed, self.global_batch_idx))
+                        batch = sample_sdf_batch(pos, pc, neg, nc, idx_all[i], self.num_samp_per_scene, gen)
+                    steps.append(self.step(idx_all[i], batch, epoch, lr_net, lr_lat, batch_split, gen))
+            with span("stage1.fetch"):
+                keys = sorted(steps[0])
+                extra = {"lat_mag_post": torch.linalg.vector_norm(self.latents.detach(), dim=1).mean()}
+                extra.update({"pm_" + k: v for k, v in self._param_norms().items()})
+                packed = torch.cat([
+                    torch.stack([torch.stack([s[k] for s in steps]) for k in keys]).reshape(-1),
+                    torch.stack(list(extra.values())),
+                ]).cpu().numpy()
+            per_step = packed[: len(keys) * nb].reshape(len(keys), nb)
+            self.loss_log.extend(float(v) for v in per_step[keys.index("total")])
+            mean = {k: float(np.mean(per_step[j])) for j, k in enumerate(keys)}
+            mean.update({k: float(v) for k, v in zip(extra, packed[len(keys) * nb:])})
+            self.loss_log_epoch.append(mean["total"])
+            self.lr_log.append([lr_net, lr_lat])
+            return mean
 
     # ------------------------------------------------------------------
     def train(self, start_epoch: int = 1, num_epochs: int | None = None, batch_split: int = 1, eval_hooks=True):
