@@ -31,12 +31,24 @@ non-zero and prints no result. Phases, one JSON line each:
    their plain versions on fewer points; and ``create_mesh`` at N=129 of both wide decoders (bf16
    and float32), the launches of the kernels line. Then every K1 kernel's
    registers, spills and shared memory (k1_kernels).
+3a. fit: the serving fit's fused float32 kernels (csrc/fused_fit.cu,
+   ops/fused_fit.py) against the fit's autograd route, the plain version
+   and a float64 autograd reference at 8 x 8000, 1 x 8000 and 8 x 4000
+   seeded ellipsoid rows on the flagship (``check_fit``): per-shape loss
+   and latent gradient errors (``fused_fit.FIT_TOL``), each shape's gradient alone
+   and among 8 bit for bit, launches per call by kernel; ms per loss and
+   gradient on both routes and on the plain version, ms per reconstruct
+   iteration, device ms by kernel (torch.profiler), the products alone on
+   one stream (``products_ms``) and their TFLOP/s on the real count against
+   their FP32 bound and torch.matmul of the same products (``library_ms``);
+   100 iterations of ``reconstruct_batch``, all on the kernel route
+   (``reconstruct.FIT_ITERATIONS``).
 4. serving: the port's main path as a user runs it. A seeded flagship
    checkpoint and two seeded ellipsoids (250k + 250k SdfSamples each, plus
    SurfaceSamples) are written to a temporary experiment; then
    ``python -m msd_tpu_torch.reconstruct`` (800 iterations x 8000 samples,
    mesh resolution 256, snapped to 257) and ``msd_tpu_torch.evaluate`` run
-   in process. The weights are seeded, not trained, so the Chamfer is not a
+   in process; every fit iteration takes the kernel route. The weights are seeded, not trained, so the Chamfer is not a
    quality figure. Every K1 launch there must take the wgmma route. Then
    one reconstructed latent is meshed twice more at N=257, through the
    kernel and through the plain version on the card: active blocks of each
@@ -315,6 +327,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import copy
 import functools
 import json
 import logging
@@ -1450,6 +1463,182 @@ def check_k2d(decoder, seed, dev):
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
     phase("k2d", **r)
+    return r
+
+
+def fit_inputs(latent_size, S, n, seed, dev):
+    """(latent [S, 1, L], batch [S, n, 4]): seeded latents near 0 and n
+    rows of each of S seeded ellipsoids, half positive, half negative."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(S):
+        pos, neg, _ = ellipsoid_samples(rng.uniform(0.35, 0.75, 3), n, rng)
+        rows.append(np.concatenate([pos[: n // 2], neg[: n - n // 2]]))
+    latent = torch.tensor(0.01 * rng.standard_normal((S, 1, latent_size)), dtype=torch.float32, device=dev)
+    return latent, torch.tensor(np.stack(rows), device=dev)
+
+
+def fit_product_flops(decoder, points):
+    """Operations of the fit's per-point products (forward and backward of
+    every hidden layer past the first, at the true widths) over ``points``."""
+    outs = [o for _, o, _, _ in decoder.layer_shapes]
+    return 4.0 * points * sum(outs[l - 1] * outs[l] for l in range(1, len(outs) - 1))
+
+
+def autograd_fit_grads(decoder, latent, batch, clamp):
+    """(per-shape loss, latent gradient) of the fit's autograd route."""
+    import torch
+
+    from msd_tpu_torch.train import reconstruct
+
+    lat = latent.detach().requires_grad_(True)
+    loss = reconstruct.autograd_l1(decoder, lat, batch, clamp)
+    return loss.detach(), torch.autograd.grad(loss.sum(), lat)[0]
+
+
+def check_fit(decoder, seed, dev, n=8000, reps=20):
+    """The fused fit (ops/fused_fit.py) against the autograd route at the
+    serving fit's shapes: per-shape loss and latent gradient at 8 x n and
+    1 x n, and at 8 x n / 2 (the half batch: rows padded past a tile), each
+    shape's gradient alone and among 8 bit for bit; then both routes' ms per
+    loss-and-gradient and per reconstruct iteration, the kernels' device
+    time by name (torch.profiler), the products' TFLOP/s on the real count
+    and torch.matmul of the same products (the yardstick)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from msd_tpu_torch.ops import fused_fit
+    from msd_tpu_torch.train import reconstruct
+
+    clamp = 0.1
+    if fused_fit.route(decoder, torch.zeros(1, device=dev)) != "kernel":
+        raise AssertionError("fused fit: the flagship decoder does not take the kernel route")
+    plan = fused_fit.plan_for(decoder)
+
+    def kernel(lat, batch):
+        lat = lat.detach().requires_grad_(True)
+        loss = fused_fit.fit_loss(plan, lat, batch, clamp)
+        (g,) = torch.autograd.grad(loss.sum(), lat)
+        return loss.detach(), g
+
+    def autograd(lat, batch):
+        return autograd_fit_grads(decoder, lat, batch, clamp)
+
+    def plain(lat, batch):  # the plain version's arithmetic on the card
+        loss, state = fused_fit.forward_plain(plan, lat.reshape(len(lat), -1), batch, clamp)
+        return loss, fused_fit.backward_plain(plan, state, torch.ones_like(loss)).reshape(lat.shape)
+
+    def errors(lat, batch):
+        lk, gk = kernel(lat, batch)
+        la, ga = autograd(lat, batch)
+        torch.cuda.synchronize()
+        return {"loss_rel": float(((lk - la).abs() / la.abs()).max()),
+                "grad_rel": float(max((gk[s] - ga[s]).norm() / ga[s].norm() for s in range(len(lat)))),
+                "loss": lk.tolist()}
+
+    latent, batch = fit_inputs(decoder.latent_size, 8, n, seed + 5, dev)
+    dec64 = copy.deepcopy(decoder).double()
+    l64, g64 = (t.float() for t in autograd_fit_grads(dec64, latent.double(), batch.double(), clamp))
+    del dec64
+    fused_fit.reset_launches()
+    lk, gk = kernel(latent, batch)
+    la, ga = autograd(latent, batch)
+    vs64 = {name: {"loss_rel": float(((l - l64).abs() / l64.abs()).max()),
+                   "grad_rel": float(max((g[s] - g64[s]).norm() / g64[s].norm() for s in range(8)))}
+            for name, (l, g) in (("kernel", (lk, gk)), ("autograd", (la, ga)))}
+    fused_fit.reset_launches()
+    r = {"points_per_shape": n, "padded_rows": fused_fit.padded_rows(n), "vs_float64": vs64,
+         "errors": {"8": errors(latent, batch), "1": errors(latent[:1], batch[:1]),
+                    "8_half": errors(latent, batch[:, : n // 2].contiguous())},
+         "launches_per_call": {k: v / 3 for k, v in fused_fit.LAUNCHES.items()}}
+    lp, gp = plain(latent, batch)
+    r["vs_plain"] = {"loss_rel": float(((lk - lp).abs() / lp.abs()).max()),
+                     "grad_rel": float(max((gk[s] - gp[s]).norm() / gp[s].norm() for s in range(8)))}
+    # the three calls' tiles (8 x n, 1 x n, 8 x n / 2) all run as two chains
+    if r["launches_per_call"] != fused_fit.iteration_launches(len(plan.wpad), 8 * r["padded_rows"] // fused_fit.TILE):
+        raise AssertionError(f"fused fit: launches per call {r['launches_per_call']}")
+    tol = fused_fit.FIT_TOL
+    for key, e in r["errors"].items():
+        if e["loss_rel"] > tol["loss_rel"] or e["grad_rel"] > tol["grad_rel"]:
+            raise AssertionError(f"fused fit at {key}: {json.dumps(e)}")
+    _, g8 = kernel(latent, batch)
+    r["same_bits_alone_and_among_8"] = all(torch.equal(kernel(latent[s:s + 1], batch[s:s + 1])[1][0], g8[s])
+                                           for s in range(8))
+    if not r["same_bits_alone_and_among_8"]:
+        raise AssertionError("fused fit: a shape's gradient differs alone and among 8")
+
+    r["ms"] = time_ms(lambda: kernel(latent, batch), reps=reps)
+    r["autograd_ms"] = time_ms(lambda: autograd(latent, batch), reps=reps)
+    r["plain_ms"] = time_ms(lambda: plain(latent, batch), reps=5)
+    cfg = reconstruct.ReconstructConfig(800, decoder.latent_size, clamp, n, 5e-3, True)
+    zero = torch.zeros_like(latent)
+    r["iteration_ms"] = time_ms(lambda: reconstruct.reconstruct_step(decoder, cfg, latent, zero, zero, 0, batch,
+                                                                      0.0, 1.0), reps=reps)
+
+    kernel(latent, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kernel(latent, batch)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        name = next((k for k in fused_fit.KERNELS if k in e.key), "other")
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3 / 5
+    r["device_ms_by_kernel"] = by_name or "not measured: the profiler recorded no device time"
+    r["device_ms_note"] = "summed over both streams: the two chains' launches overlap"
+
+    # the products alone: every fit_gemm_kernel launch of an iteration over
+    # all point tiles on one stream (the kernel's own rate, no overlap)
+    flops = fit_product_flops(decoder, 8 * n)
+    M = 8 * fused_fit.padded_rows(n)
+    H = len(plan.wpad)
+    lib, stream = fused_fit._lib(), torch.cuda.current_stream(dev).cuda_stream
+    acts = [torch.rand(w, M, device=dev) for w in plan.wpad]
+    T = fused_fit.padded_rows(n) // fused_fit.TILE
+
+    def products():
+        rcs = [lib.msd_fit_gemm(plan.fwd[l].data_ptr(), acts[l - 1].data_ptr(), acts[l].data_ptr(), plan.wpad[l],
+                                plan.wpad[l - 1], M, 0, M // fused_fit.TILE, 0, plan.bias[l].data_ptr(), 0, T, None,
+                                None, None, None, stream) for l in range(1, H)]
+        rcs += [lib.msd_fit_gemm(plan.bwd[l].data_ptr(), acts[l].data_ptr(), acts[l - 1].data_ptr() if l > 1 else None,
+                                 plan.wpad[l - 1], plan.wpad[l], M, 0, M // fused_fit.TILE, 1, None, 0, T, None, None,
+                                 acts[l - 1].data_ptr(), None, stream) for l in range(H - 1, 0, -1)]
+        if any(rcs):
+            raise AssertionError(f"fit_gemm_kernel launches failed: {rcs}")
+
+    r["products_ms"] = time_ms(products, reps=reps)
+    del acts
+    r["product_gflop"] = flops / 1e9
+    r["products_tflops"] = flops / (r["products_ms"] * 1e-3) / 1e12
+    r["bound_ms"] = flops / PEAK_FLOPS["float32"] * 1e3
+
+    shapes = [(plan.wpad[l], plan.wpad[l - 1]) for l in range(1, H)] + [(plan.wpad[l - 1], plan.wpad[l])
+                                                                        for l in range(1, H)]
+    ops = [(torch.randn(i, k, device=dev), torch.randn(k, M, device=dev)) for i, k in shapes]
+    r["library_ms"] = time_ms(lambda: [torch.matmul(a, b) for a, b in ops], reps=reps)
+    r["library_note"] = "torch.matmul of the same products at the padded widths, float32, TF32 off: the yardstick"
+    del ops
+
+    before = dict(reconstruct.FIT_ITERATIONS)
+    shapes_np = [(b[: n // 2].cpu().numpy(), b[n // 2:].cpu().numpy()) for b in batch]
+    t = time.perf_counter()
+    reconstruct.reconstruct_batch(decoder, 100, decoder.latent_size, shapes_np, 0.01, clamp, num_samples=n,
+                                  lr=5e-3, l2reg=True, seed=seed)
+    torch.cuda.synchronize()
+    r["fit_iteration_ms"] = (time.perf_counter() - t) * 1e3 / 100
+    r["fit_iterations"] = {k: reconstruct.FIT_ITERATIONS[k] - before[k] for k in before}
+    if r["fit_iterations"] != {"kernel": 100, "autograd": 0}:
+        raise AssertionError(f"fused fit: iterations by route {r['fit_iterations']}")
+    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    phase("fit", **r)
     return r
 
 
@@ -2936,13 +3125,15 @@ def serve(root, specs, decoder, seed):
     """The port's serving path on a temporary experiment; returns
     (per-shape summaries, evaluate results, seconds of evaluate, K1
     launches, K1 launches by route, the kernel-against-plain mesh check,
-    the host mesher's A/B, the streaming phase and its K1 launches)."""
+    the host mesher's A/B, the streaming phase and its K1 launches, the
+    fit's iterations by route, the fit kernels' launches)."""
     import torch
 
     from msd_tpu_torch import evaluate as evaluate_cli
     from msd_tpu_torch import mesh
     from msd_tpu_torch import reconstruct as reconstruct_cli
-    from msd_tpu_torch.ops import fused_mlp
+    from msd_tpu_torch.ops import fused_fit, fused_mlp
+    from msd_tpu_torch.train import reconstruct
     from msd_tpu_torch.utils.checkpoint import save_model
 
     exp_dir, data_dir = os.path.join(root, "experiment"), os.path.join(root, "data")
@@ -2969,7 +3160,9 @@ def serve(root, specs, decoder, seed):
 
     fused_mlp.LAUNCHES = 0
     fused_mlp.ROUTE_LAUNCHES = dict.fromkeys(fused_mlp.ROUTES, 0)
+    fused_fit.reset_launches()
     mesh.fused_eval = timed
+    fit_before = dict(reconstruct.FIT_ITERATIONS)
     try:
         summary = reconstruct_cli.main(common + [
             "-c", "latest", "-d", os.path.join(data_dir, "SdfSamples"),
@@ -2978,6 +3171,16 @@ def serve(root, specs, decoder, seed):
     finally:
         mesh.fused_eval = untimed
     torch.cuda.synchronize()
+    fit_launches = dict(fused_fit.LAUNCHES)
+    fit_iterations = {k: reconstruct.FIT_ITERATIONS[k] - fit_before[k] for k in fit_before}
+    if fit_iterations["autograd"] or not fit_iterations["kernel"]:
+        raise AssertionError(f"serving: fit iterations by route {fit_iterations}: not all on the kernels")
+    # the CLI fits one shape at a time
+    per_iteration = fused_fit.iteration_launches(
+        len(decoder.layer_shapes) - 1, fused_fit.padded_rows(reconstruct_cli.NUM_SAMPLES) // fused_fit.TILE)
+    if fit_launches != {k: v * fit_iterations["kernel"] for k, v in per_iteration.items()}:
+        raise AssertionError(f"serving: fit launches {fit_launches} are not {per_iteration} times "
+                             f"{fit_iterations['kernel']} iterations")
     for s in summary:  # each shape's K1 calls, in order
         s["k1_seconds"] = sum(a.elapsed_time(b) for a, b in events[:s["k1_launches"]]) / 1e3
         events = events[s["k1_launches"]:]
@@ -3008,7 +3211,7 @@ def serve(root, specs, decoder, seed):
         raise AssertionError(f"non-finite Chamfer: {results}")
     code = torch_load(os.path.join(exp_dir, "Reconstructions", "1", "Codes", summary[0]["shape"] + ".pth"))
     return (summary, results, t_eval, launches, routes, mesh_pair(decoder, code), mesher_ab(decoder, code, root),
-            streaming(decoder, code, root, specs, seed))
+            streaming(decoder, code, root, specs, seed), fit_iterations, fit_launches)
 
 
 def serving_variants(root, specs, decoder, seed):
@@ -4353,17 +4556,19 @@ def main(argv=None):
     k1_wide = check_k1_wide(specs["CodeLength"], 2**20 + 37, args.seed, dev)
     phase("k1_wide", **k1_wide)
     phase("k1_kernels", **k1_ptxas(_build.BUILD_LOGS.get("fused_mlp", "")))
+    fit = check_fit(decoder, args.seed, dev)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
         t0 = time.time()
-        summary, results, t_eval, launches, routes, pair, mesher, (stream, k1_stream) = serve(
-            root, specs, decoder, args.seed)
+        (summary, results, t_eval, launches, routes, pair, mesher, (stream, k1_stream), fit_iterations,
+         fit_launches) = serve(root, specs, decoder, args.seed)
         t_total = time.time() - t0
         variants, k1_ln_launches, k1_f32_launches = serving_variants(root, specs, decoder, args.seed)
     for s in summary:
         phase("serving_shape", **s)
     phase("serving", seconds=t_total, evaluate_seconds=t_eval, k1_launches=launches, k1_route_launches=routes,
-          chamfer={r[0]: r[1][0] for r in results}, kernel_vs_plain_mesh=pair,
+          chamfer={r[0]: r[1][0] for r in results}, kernel_vs_plain_mesh=pair, fit_iterations=fit_iterations,
+          fit_launches=fit_launches,
           note="seeded weights, not trained: the Chamfer is no quality figure")
     phase("serving_variants", **variants)
     phase("mesher_ab", **mesher)
@@ -4458,6 +4663,15 @@ def main(argv=None):
     }, {
         "name": "fused_mlp_f32_wide", **k1_source, **wide_entry("wide_float32"),
         "layer_norm": wide_entry("wide_ln_float32"),
+    }, {
+        "name": "fused_fit", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_fit.cu",
+        "replaces": "none: the fit's autograd route (msd_tpu/train/reconstruct.py is a lax.scan of XLA operations)",
+        "launches": fit_launches, "fit_iterations_serving": fit_iterations,
+        "launches_per_iteration": fit["launches_per_call"],
+        **{k: fit[k] for k in ("ms", "plain_ms", "autograd_ms", "library_ms", "library_note", "bound_ms",
+                               "products_ms", "products_tflops", "iteration_ms", "vs_float64", "vs_plain")},
+        "bound_by": "operations", "max_rel_frobenius": max(e["grad_rel"] for e in fit["errors"].values()),
+        "points": 8 * fit["points_per_shape"],
     }, {
         "name": "fused_train", "route": "cuda", "source": "msd_tpu_torch/csrc/fused_train.cu",
         "replaces": "msd_tpu/ops/fused_train.py:423", "launches": k2_launches + k2_gmm_launches,

@@ -54,6 +54,33 @@ _SIGNATURES = {
         "msd_fused_mlp_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
         "msd_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "fused_fit": {
+        "msd_fit_consts": (ctypes.c_int, [ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _PP, _PP, _PP, _PI, _P]),
+        "msd_fit_first": (
+            ctypes.c_int,
+            [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+             _P, _P, _P],
+        ),
+        "msd_fit_gemm": (
+            ctypes.c_int,
+            [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
+        ),
+        "msd_fit_last": (
+            ctypes.c_int,
+            [_P, ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_int, ctypes.c_float, ctypes.c_float, _P, _P],
+        ),
+        "msd_fit_loss": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P]),
+        "msd_fit_grad": (
+            ctypes.c_int,
+            [ctypes.c_int, _PP, _PP, _PI, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+        ),
+        "msd_fit_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+        "msd_fit_tile": (ctypes.c_int, []),
+        "msd_fit_width_pad": (ctypes.c_int, []),
+        "msd_fit_max_groups": (ctypes.c_int, []),
+    },
     "fused_train": {
         "msd_ft_chain": (
             ctypes.c_int,

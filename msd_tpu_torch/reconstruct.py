@@ -44,6 +44,9 @@ from msd_tpu_torch.utils import add_common_args, configure_logging
 from msd_tpu_torch.utils import checkpoint as ckpt
 from msd_tpu_torch.utils import spans
 
+# SDF samples drawn for each shape in each fit iteration
+NUM_SAMPLES = 8000
+
 
 def _parser():
     p = argparse.ArgumentParser(
@@ -158,7 +161,7 @@ def _run(args, group):
         })
         logging.info("%s", json.dumps(summary[-1]))
 
-    fit_kw = dict(num_samples=8000, lr=5e-3, l2reg=True, return_loss_hist=True)
+    fit_kw = dict(num_samples=NUM_SAMPLES, lr=5e-3, l2reg=True, return_loss_hist=True)
     if args.batch_size > 1:
         for start_i in range(0, len(work), args.batch_size):
             batch = work[start_i : start_i + args.batch_size]

@@ -9,9 +9,14 @@ the square root) on the latent only; the learning rate drops by 10 every
 ``iters // 2`` steps and ``code_bound`` projects the latent after each step.
 
 The JAX package runs this as one ``lax.scan`` with no Pallas kernel;
-here it is a Python loop with autograd, the batch of shapes written out as
-a leading axis. Products run in float32 on every device: ``resolve_device``
-turns TF32 off on the card.
+here it is a Python loop, the batch of shapes written out as a leading
+axis. Each iteration's clamped L1 and its latent gradient take one of two
+routes (``ops/fused_fit.route``, from the device and the decoder's form):
+on the card, for decoders of the flagship form, the float32 kernels of
+``ops/fused_fit.py``; else autograd through the decoder
+(``autograd_l1``). ``FIT_ITERATIONS`` counts the iterations of each.
+Products run in float32 on every device: ``resolve_device`` turns TF32
+off on the card.
 """
 
 from __future__ import annotations
@@ -22,8 +27,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from msd_tpu_torch.ops import fused_fit
 from msd_tpu_torch.utils.optim import project_code_bound
 from msd_tpu_torch.utils.spans import span
+
+# Fit iterations (``reconstruct_loss`` calls) by route: "kernel" (the fused
+# float32 kernels on the card) or "autograd"; callers reset them to count a run's.
+FIT_ITERATIONS = {"kernel": 0, "autograd": 0}
 
 
 class ReconstructConfig(NamedTuple):
@@ -62,14 +72,26 @@ class _ShapeRows(torch.autograd.Function):
         return torch.stack([rows[i].sum(0, keepdim=True) for i in range(rows.shape[0])]), None
 
 
-def reconstruct_loss(decoder, cfg: ReconstructConfig, latent, batch, dist_mean, dist_std):
-    """latent [S, 1, L], batch [S, n, 4] -> per-shape loss [S]."""
+def autograd_l1(decoder, latent, batch, clamp_dist: float):
+    """The autograd route: latent [S, 1, L], batch [S, n, 4] -> per-shape
+    mean of |clamp(decoder) - clamp(sdf)| [S], through the decoder's
+    modules on ``[latent || xyz]`` rows."""
     S, n = batch.shape[:2]
-    c = cfg.clamp_dist
+    c = clamp_dist
     sdf_gt = batch[..., 3:4].clamp(-c, c)
     inputs = _ShapeRows.apply(latent, batch[..., :3])
     pred = decoder(inputs.reshape(S * n, -1)).reshape(S, n, 1).clamp(-c, c)
-    loss = (pred - sdf_gt).abs().mean(dim=(1, 2))
+    return (pred - sdf_gt).abs().mean(dim=(1, 2))
+
+
+def reconstruct_loss(decoder, cfg: ReconstructConfig, latent, batch, dist_mean, dist_std):
+    """latent [S, 1, L], batch [S, n, 4] -> per-shape loss [S]."""
+    if fused_fit.route(decoder, latent) == "kernel":
+        FIT_ITERATIONS["kernel"] += 1
+        loss = fused_fit.fit_loss(fused_fit.plan_for(decoder), latent, batch, cfg.clamp_dist)
+    else:
+        FIT_ITERATIONS["autograd"] += 1
+        loss = autograd_l1(decoder, latent, batch, cfg.clamp_dist)
     # latent regularisation (ref: reconstruct.py:106-116)
     if cfg.code_reg_lambda is not None and cfg.code_reg_lambda > 0.0:
         if cfg.code_reg_type.lower() in ("l2_norm", "l2norm", "norm"):

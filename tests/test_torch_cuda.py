@@ -1590,3 +1590,55 @@ def test_preprocess_mesh_on_card_matches_cpu(dev):
     b = np.array([kh[k] for k in both])
     assert np.mean(np.signbit(a) == np.signbit(b)) >= tm.VOTE_AGREEMENT["sign"]
     assert np.mean(np.abs(np.abs(a) - np.abs(b)) <= tm.VOTE_AGREEMENT["abs_sdf_tol"]) >= tm.VOTE_AGREEMENT["abs_sdf"]
+
+
+def _fit_inputs(L, S, n, dev, seed=11):
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-0.9, 0.9, (S, n, 3))
+    sdf = np.linalg.norm(xyz / rng.uniform(0.35, 0.75, (S, 1, 3)), axis=2, keepdims=True) * 0.35 - 0.35
+    batch = torch.tensor(np.concatenate([xyz, sdf], axis=2), dtype=torch.float32, device=dev)
+    return torch.tensor(0.01 * rng.standard_normal((S, 1, L)), dtype=torch.float32, device=dev), batch
+
+
+@pytest.mark.parametrize("S", [8, 1])
+def test_fused_fit_matches_autograd(S, dev):
+    """The kernel route of the fit's loss and latent gradient against the
+    autograd route at 8000 points a shape on the flagship; each shape's
+    gradient has the same bits alone and among 8."""
+    from msd_tpu_torch.ops import fused_fit
+    from msd_tpu_torch.train.reconstruct import autograd_l1
+
+    with open(os.path.join(ROOT, "examples", "ADNI", "minimal_eikonal", "specs.json")) as f:
+        specs = json.load(f)
+    dec = build_decoder(specs["NetworkArch"], specs["CodeLength"], specs["NetworkSpecs"],
+                        generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    give_surface_(dec, torch.zeros(specs["CodeLength"]))
+    latent, batch = _fit_inputs(specs["CodeLength"], S, 8000, dev)
+    assert fused_fit.route(dec, latent) == "kernel"
+    plan = fused_fit.plan_for(dec)
+
+    def grads(loss_fn, lat, b):
+        lat = lat.detach().requires_grad_(True)
+        loss = loss_fn(lat, b)
+        return loss.detach(), torch.autograd.grad(loss.sum(), lat)[0]
+
+    def kernel(lat, b):
+        return grads(lambda x, y: fused_fit.fit_loss(plan, x, y, 0.1), lat, b)
+
+    fused_fit.reset_launches()
+    loss, g = kernel(latent, batch)
+    torch.cuda.synchronize()
+    H, chains = len(plan.wpad), 2  # the point tiles in two chains of launches
+    assert fused_fit.LAUNCHES == dict(fit_consts_kernel=1, fit_first_kernel=chains,
+                                      fit_gemm_kernel=2 * (H - 1) * chains, fit_last_kernel=chains,
+                                      fit_loss_kernel=1, fit_grad_kernel=1)
+    assert fused_fit.LAUNCHES == fused_fit.iteration_launches(H, S * fused_fit.padded_rows(8000) // fused_fit.TILE)
+    tol = fused_fit.FIT_TOL
+    ref_loss, ref_g = grads(lambda x, y: autograd_l1(dec, x, y, 0.1), latent, batch)
+    assert float(((loss - ref_loss).abs() / ref_loss.abs()).max()) <= tol["loss_rel"]
+    for s in range(S):
+        assert float((g[s] - ref_g[s]).norm() / ref_g[s].norm()) <= tol["grad_rel"]
+    if S > 1:
+        for s in range(S):
+            alone = kernel(latent[s:s + 1], batch[s:s + 1])
+            assert torch.equal(alone[1][0], g[s]) and torch.equal(alone[0][0], loss[s])
