@@ -10,15 +10,13 @@ import torch
 
 from portbench import catalog
 from portbench.readings import read_seed
+from portbench.tests.conftest import CELL_TESTS
 
-CARD_SIZE = {
-    "stage1.flagship": {"traffic": {"scenes": 128, "rows_per_scene": 100000}},
-    "serve.flagship-b8": {"traffic": {"rows_per_shape": 100000, "sample_sets": 1}},
-}
+CARD_SIZE = CELL_TESTS.table("CARD_SIZE")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", sorted(CARD_SIZE))
+@pytest.mark.parametrize("cell", CELL_TESTS.card())
 def test_program_passes_and_control_fails(cell):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

@@ -2,17 +2,21 @@
 characters its names may use, and a tiny run of each cell on the CPU, where
 the program's plain paths and the reference agree to float32 round-off."""
 
+import itertools
 import json
 import os
 import re
 import shutil
+import time
+import types
 
 import pytest
 
 from portbench import catalog
 from portbench import run as run_module
 from portbench.run import run_cell
-from portbench.tests.conftest import SMALL
+from portbench.tests import cells
+from portbench.tests.conftest import CELL_TESTS, SMALL
 
 BENCH = catalog.manifest()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -82,9 +86,17 @@ def test_bounds():
     assert next(m for m in BENCH["end_to_end"] if m["name"] == "setup_s")["bound"] <= 0.25
 
 
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_has_its_test_file(cell):
+    """Each cell's test file is there, with a non-empty ``SMALL`` and
+    ``FAULTS``; the message names the file to add."""
+    problems = CELL_TESTS.problems(cell)
+    assert not problems, "; ".join(problems)
+
+
 def test_a_cell_added_as_files_is_found(tmp_path):
     base = tmp_path / "bench"
-    shutil.copytree(catalog.HERE, base, ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    shutil.copytree(catalog.HERE, base, ignore=shutil.ignore_patterns("__pycache__"))
     wl = dict(catalog.workload("stage1.flagship"), why="a cell added by files alone")
     (base / "workloads" / "stage1.extra.json").write_text(json.dumps(wl))
     assert catalog.workload("stage1.extra", base=str(base))["why"] == "a cell added by files alone"
@@ -97,9 +109,21 @@ def test_a_cell_added_as_files_is_found(tmp_path):
     e2e, per_layer = catalog.cell_metrics(bench, "stage1.extra")
     assert {m["name"] for m in e2e} == {"train_samples_per_s", "setup_s"}
     assert {m["name"] for m in per_layer} == {m["name"] for m in catalog.cell_metrics(BENCH, "stage1.flagship")[1]}
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    test_file = cells.path("stage1.extra", str(base))
+    shutil.copyfile(cells.path("stage1.flagship", str(base)), test_file)
+    added = cells.Cells(str(base))
+    assert "stage1.extra" in added.agreement() and "stage1.extra" in added.card()
+    assert "stage1.extra" in added.spans() and not added.problems("stage1.extra")
+    assert {f for c, f, _ in added.faults() if c == "stage1.extra"} == set(CELL_TESTS.table("FAULTS")["stage1.flagship"])
+    os.remove(test_file)
+    missing = cells.Cells(str(base))
+    problems = missing.problems("stage1.extra")
+    assert problems and "tests/cells/stage1.extra.py" in problems[0]
+    assert "stage1.extra" not in missing.agreement() + missing.card() + missing.spans()
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", CELL_TESTS.agreement())
 def test_reference_agrees_with_the_plain_cpu_path(cell):
     """A tiny run on the CPU, where K2 and K1 run their plain float32
     versions: every compared number reads a hundredth of its limit or less
@@ -112,7 +136,12 @@ def test_reference_agrees_with_the_plain_cpu_path(cell):
 
 
 def test_traced_run_reports_the_cells_per_layer_metrics_it_can_read_on_the_cpu(monkeypatch):
+    """The window's clock advances one second at each reading, so the
+    traced part is one unit and the untraced rest, over which ``mfu.train``
+    is read, two, however loaded the host."""
     monkeypatch.setattr(run_module, "TRACE_SECONDS", 0.2)
-    out = run_cell("stage1.flagship", 11, 0.6, True, device="cpu", overrides=SMALL["stage1.flagship"])
+    monkeypatch.setattr(run_module, "time", types.SimpleNamespace(perf_counter=itertools.count().__next__,
+                                                                  time=time.time))
+    out = run_cell("stage1.flagship", 11, 3, True, device="cpu", overrides=SMALL["stage1.flagship"])
     assert "mfu.train" in out["metrics"] and "breakdown" in out and out["device"]["window_s"] > 0
     assert list(out)[-1] == "checks"

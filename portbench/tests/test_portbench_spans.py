@@ -14,34 +14,33 @@ from portbench import catalog
 from portbench import program_spans
 from portbench import run as run_module
 from portbench.run import Run, run_cell
-from portbench.tests.conftest import SMALL
+from portbench.tests.conftest import CELL_TESTS, SMALL
 
-SPAN_METRICS = {"stage1.flagship": ("step_host_ms.train", "fetch_wait_ms.train"),
-                "serve.flagship-b8": ("mesher_busy_s_per_shape.serve", "mesh_tail_s_per_shape.serve")}
+SPAN_METRICS = CELL_TESTS.table("SPAN_METRICS")
 
 
-@pytest.mark.parametrize("cell", list(SPAN_METRICS))
+@pytest.mark.parametrize("cell", CELL_TESTS.spans())
 def test_traced_run_reports_the_span_metrics_on_the_cpu(cell, monkeypatch):
     """The window's clock advances one second at each reading, so the
     traced part is one unit and the untraced rest two, however loaded the
-    host. The serve cell streams its meshes as on the card (``_streams`` on
-    for a CPU evaluator, at a resolution that refines in blocks)."""
-    from msd_tpu_torch import mesh
-
+    host. A cell's ``traced_cpu`` adjusts the run (the serve cell streams
+    its meshes as on the card)."""
     monkeypatch.setattr(run_module, "TRACE_SECONDS", 0.2)
     monkeypatch.setattr(run_module, "time", types.SimpleNamespace(perf_counter=itertools.count().__next__,
                                                                   time=time.time))
     overrides = copy.deepcopy(SMALL[cell])
-    if cell.startswith("serve"):
-        monkeypatch.setattr(mesh, "_streams", lambda evaluator: True)
-        overrides["traffic"]["mesh_resolution"] = 97
-        overrides["config"]["NetworkSpecs"] = dict(overrides["config"]["NetworkSpecs"], dims=[32] * 4, latent_in=[2])
+    adjust = getattr(CELL_TESTS.modules[cell], "traced_cpu", None)
+    if adjust is not None:
+        adjust(monkeypatch, overrides)
     out = run_cell(cell, 2**31 + 23, 3, True, device="cpu", overrides=overrides)
     assert out["units"] == 3 and out["correct"]
     for name in SPAN_METRICS[cell]:
         assert out["metrics"][name]["value"] > 0, name
         entry = next(m for m in catalog.manifest()["per_layer"] if m["name"] == name)
-        assert entry["source"] == "program_span" and entry["workloads"] == [cell]
+        assert entry["source"] == "program_span"
+        # the cells with a test file that list the metric are those whose file names it
+        listed = {c for c in entry["workloads"] if c in CELL_TESTS.modules}
+        assert listed == {c for c, names in SPAN_METRICS.items() if name in names}
         assert out["metrics"][name]["unit"] == entry["unit"]
 
 
